@@ -1,0 +1,34 @@
+"""Object, colour and door-state ids (counterpart of
+`minigrid_tpu/core/constants.py`).
+
+Plain Python ints, identical to the reference's indices, so packed cell
+words and encoded observations are byte-compatible with the JAX package.
+"""
+
+from __future__ import annotations
+
+UNSEEN = 0
+EMPTY = 1
+WALL = 2
+FLOOR = 3
+DOOR = 4
+KEY = 5
+BALL = 6
+BOX = 7
+GOAL = 8
+LAVA = 9
+AGENT = 10
+
+STATE_OPEN = 0
+STATE_CLOSED = 1
+STATE_LOCKED = 2
+
+RED = 0
+GREEN = 1
+BLUE = 2
+PURPLE = 3
+YELLOW = 4
+GREY = 5
+
+# Heading id -> (dx, dy): 0=right(+x), 1=down(+y), 2=left, 3=up.
+DIR_TO_VEC = ((1, 0), (0, 1), (-1, 0), (0, -1))

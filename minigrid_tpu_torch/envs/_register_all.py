@@ -1,0 +1,40 @@
+"""Registrations of the ported env ids, in the JAX package's order
+(`minigrid_tpu/envs/_register_all.py`): the static-layout families only."""
+
+from __future__ import annotations
+
+from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.envs import distshift as _distshift
+from minigrid_tpu_torch.envs import empty as _empty
+from minigrid_tpu_torch.envs.registry import register
+
+for _size in (5, 6, 8, 16):
+    register(
+        f"MiniGrid-Empty-{_size}x{_size}-v0",
+        EnvConfig(
+            family="empty",
+            width=_size,
+            height=_size,
+            max_steps=4 * _size * _size,
+            see_through_walls=True,
+            agent_start_pos=(1, 1),
+            agent_start_dir=0,
+        ),
+        _empty.generate,
+    )
+
+for _v, _row in ((1, 2), (2, 5)):
+    register(
+        f"MiniGrid-DistShift{_v}-v0",
+        EnvConfig(
+            family="distshift",
+            width=9,
+            height=7,
+            max_steps=4 * 9 * 7,
+            see_through_walls=True,
+            agent_start_pos=(1, 1),
+            agent_start_dir=0,
+            strip2_row=_row,
+        ),
+        _distshift.generate,
+    )

@@ -1,0 +1,39 @@
+"""Environment registry (counterpart of `minigrid_tpu/envs/registry.py`)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.envs.base import Env, GenerateFn
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvSpec:
+    env_id: str
+    config: EnvConfig
+    generate: GenerateFn
+
+
+registry: Dict[str, EnvSpec] = {}
+env_list: List[str] = []  # registration order
+
+
+def register(env_id: str, config: EnvConfig, generate: GenerateFn) -> None:
+    if env_id in registry:
+        raise ValueError(f"duplicate env id: {env_id}")
+    registry[env_id] = EnvSpec(env_id, config, generate)
+    env_list.append(env_id)
+
+
+def make(env_id: str) -> Env:
+    """Resolve a ported env id to an `Env`. Ids the port does not have yet
+    raise `NotImplementedError`."""
+    if env_id not in registry:
+        raise NotImplementedError(
+            f"{env_id!r} is not ported to minigrid_tpu_torch yet (ported: "
+            f"{env_list}); see ROADMAP.md for the order of the rest"
+        )
+    spec = registry[env_id]
+    return Env(spec.env_id, spec.config, spec.generate)

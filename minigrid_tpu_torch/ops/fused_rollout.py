@@ -1,0 +1,575 @@
+"""Packed-lane multi-step rollout: one CUDA kernel, plus its plain twin
+(counterpart of `minigrid_tpu/ops/fused_rollout.py`).
+
+The state lives in the JAX package's packed layout (`ops/packing.py`):
+`(H·W, B)` int32 cell words kept agent-centred, and a `(NUM_REGS, B)`
+int32 register file. Two backends run the same step semantics:
+
+  * `build_fused_rollout` — the whole T-step loop in one launch of the
+    hand-written CUDA kernel `csrc/rollout_kernel.cu` (one thread per
+    lane, the lane's grid in shared memory). Which code runs is decided
+    by where the tensors lie: on a CUDA device the kernel launches (or
+    the call raises); on the CPU the plain twin runs. Nothing falls back.
+  * `build_packed_plain_rollout` — the same layout under a plain Python
+    loop of torch ops over `(rows, B)` tensors (`step_core`/`obs_core`),
+    on any device. It is the reference the kernel is held against, the
+    role `build_packed_xla_rollout` plays in the JAX package.
+
+Semantics are the JAX package's `_step_core`/`_obs_core` without family
+hooks: the 7-action base transition, forward-cell write-back, the
+re-centring roll on a forward move, template auto-reset, the V² egocentric
+view with out-of-bounds wall fill and the carried-object overlay, the
+occlusion flood, and the per-step obs checksum. Modes: "cached" (every
+reset replays the lane's pinned layout) and "regen" for the static-layout
+families (Empty, DistShift), where the template IS the fresh layout and
+only each lane's rng reset chain has to be advanced after the call
+(`_replay_rng_chain`).
+
+Integer results are byte-exact against the JAX package. `total_reward`
+is a batch sum of per-lane sums, taken in another order than the JAX
+package's, so it agrees to float tolerance; per-lane reward sums are
+bit-identical between the kernel and the plain twin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core.rollout import RolloutMetrics, random_policy
+from minigrid_tpu_torch.core.state import EnvConfig, EnvState
+from minigrid_tpu_torch.envs.base import BASE_STEP, Env
+from minigrid_tpu_torch.ops.packing import (
+    EMPTY_WORD,
+    NUM_REGS,
+    R_AUX,
+    R_CC,
+    R_CCC,
+    R_CCT,
+    R_CT,
+    R_DIR,
+    R_RNG,
+    R_SC,
+    R_X,
+    R_Y,
+    WALL_WORD,
+    _dir_tables,
+    _roll_static,
+    _roll_to_base,
+    _sel4,
+    key_rows,
+    pack_states,
+    unpack_states,
+    visibility_bitmask,
+)
+
+# Launches of the CUDA rollout kernel in this process (plain integer; the
+# wrapper adds one per launch and nowhere else).
+rollout_kernel_launches = 0
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def step_core(
+    words: torch.Tensor,  # (HW, B) int32, agent-centred
+    regs: torch.Tensor,  # (NUM_REGS, B) int32
+    a: torch.Tensor,  # (1, B) int32
+    tmpl_words: torch.Tensor,  # (HW, B), rolled to the template agent
+    tmpl_regs: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    view: int,
+    max_steps: int,
+    see_through_walls: bool,
+):
+    """One packed transition + auto-reset + obs checksum.
+
+    Returns `(words2, regs2, reward (1,B) f32, done (1,B) bool,
+    obs_sum (1,B) int32)`: the JAX package's `_step_core` without hooks."""
+    hw = width * height
+    off_fwd, _, _, _ = _dir_tables(width, height, view)
+    dev = words.device
+    iota_hw = torch.arange(hw, dtype=torch.int32, device=dev)[:, None]
+
+    x = regs[R_X : R_X + 1]
+    y = regs[R_Y : R_Y + 1]
+    d = regs[R_DIR : R_DIR + 1]
+    ct = regs[R_CT : R_CT + 1]
+    cc = regs[R_CC : R_CC + 1]
+    cct = regs[R_CCT : R_CCT + 1]
+    ccc = regs[R_CCC : R_CCC + 1]
+    sc = regs[R_SC : R_SC + 1]
+
+    # ---- transition -------------------------------------------------------
+    dirx = _i32(d == 0) - _i32(d == 2)
+    diry = _i32(d == 1) - _i32(d == 3)
+    fwd4 = words[off_fwd]  # (4, B)
+    fwdw = _sel4(d, [fwd4[i : i + 1] for i in range(4)])
+    ft = fwdw & 15
+    fc = (fwdw >> 4) & 15
+    fs = (fwdw >> 8) & 15
+    fct = (fwdw >> 12) & 15
+    fcc = (fwdw >> 16) & 15
+
+    is_left = a == 0
+    is_right = a == 1
+    is_fwd = a == 2
+    is_pickup = a == 3
+    is_drop = a == 4
+    is_toggle = a == 5
+
+    d1 = torch.where(is_right, d + 1, torch.where(is_left, d + 3, d)) % 4
+
+    can_overlap = (
+        (ft == C.EMPTY)
+        | (ft == C.FLOOR)
+        | (ft == C.GOAL)
+        | (ft == C.LAVA)
+        | ((ft == C.DOOR) & (fs == C.STATE_OPEN))
+    )
+    moves = is_fwd & can_overlap
+    x1 = torch.where(moves, x + dirx, x)
+    y1 = torch.where(moves, y + diry, y)
+
+    sc1 = sc + 1
+    hit_goal = is_fwd & (ft == C.GOAL)
+    hit_lava = is_fwd & (ft == C.LAVA)
+    terminated = hit_goal | hit_lava
+    # Separate f32 ops in the reference's order, no fused multiply-add. The
+    # divisor is a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not correctly rounded.
+    sc1f = sc1.to(torch.float32)
+    success = 1.0 - 0.9 * (sc1f / torch.full_like(sc1f, float(max_steps)))
+    reward = torch.where(hit_goal, success, torch.zeros_like(success))
+
+    hands_empty = ct == 0
+    can_pickup = (ft == C.KEY) | (ft == C.BALL) | (ft == C.BOX)
+    do_pickup = is_pickup & can_pickup & hands_empty
+    do_drop = is_drop & (ft == C.EMPTY) & ~hands_empty
+
+    zero = torch.zeros_like(ct)
+    ct1 = torch.where(do_pickup, ft, torch.where(do_drop, zero, ct))
+    cc1 = torch.where(do_pickup, fc, torch.where(do_drop, zero, cc))
+    cct1 = torch.where(do_pickup, fct, torch.where(do_drop, zero, cct))
+    ccc1 = torch.where(do_pickup, fcc, torch.where(do_drop, zero, ccc))
+
+    # Door toggle: a locked door opens iff the agent holds the matching key.
+    has_key = (ct == C.KEY) & (cc == fc)
+    new_door_state = torch.where(
+        fs == C.STATE_LOCKED,
+        _i32(torch.where(has_key, C.STATE_OPEN, C.STATE_LOCKED)),
+        1 - fs,
+    )
+    toggled_door = (fwdw & ~(15 << 8)) | (new_door_state << 8)
+    # Box toggle: replaced by its contents (or an empty cell).
+    toggled_box = torch.where(fct > 0, fct, EMPTY_WORD) | (fcc << 4)
+
+    dropped = ct | (cc << 4) | (cct << 12) | (ccc << 16)
+    new_fwd = torch.where(do_pickup, EMPTY_WORD, fwdw)
+    new_fwd = torch.where(do_drop, dropped, new_fwd)
+    new_fwd = torch.where(is_toggle & (ft == C.DOOR), toggled_door, new_fwd)
+    new_fwd = torch.where(is_toggle & (ft == C.BOX), toggled_box, new_fwd)
+    off_f = _sel4(d, [torch.full_like(d, o) for o in off_fwd])  # (1, B)
+    words1 = torch.where(iota_hw == off_f, new_fwd, words)
+
+    # Re-centre the grid on the agent after a forward move.
+    words_m = words1
+    for i, o in enumerate(off_fwd):
+        words_m = torch.where(moves & (d == i), _roll_static(words1, o), words_m)
+
+    truncated = sc1 >= max_steps
+    done = terminated | truncated
+
+    # ---- template auto-reset ---------------------------------------------
+    words2 = torch.where(done, tmpl_words, words_m)
+    new_scalars = [
+        torch.where(done, tmpl_regs[r : r + 1], v)
+        for r, v in ((R_X, x1), (R_Y, y1), (R_DIR, d1), (R_CT, ct1), (R_CC, cc1), (R_CCT, cct1), (R_CCC, ccc1))
+    ]
+    sc2 = torch.where(done, zero, sc1)
+    tail2 = torch.where(done, tmpl_regs[R_AUX:], regs[R_AUX:])
+    regs2 = torch.cat(new_scalars + [sc2, tail2], dim=0)
+
+    # ---- post-step observation and its checksum --------------------------
+    vw, vis = obs_core(
+        words2, regs2, width=width, height=height, view=view, see_through_walls=see_through_walls
+    )
+    tcs = (vw & 15) + ((vw >> 4) & 15) + ((vw >> 8) & 15)
+    obs_sum = (tcs * vis).sum(dim=0, keepdim=True, dtype=torch.int32)
+    return words2, regs2, reward, done, obs_sum
+
+
+def obs_core(
+    words: torch.Tensor,  # (HW, B) int32, agent-centred
+    regs: torch.Tensor,  # (NUM_REGS, B) int32
+    *,
+    width: int,
+    height: int,
+    view: int,
+    see_through_walls: bool,
+):
+    """Egocentric view of a packed state: `(vw, vis)`, both `(V², B)` int32.
+
+    `vw[j·V + i]` is the packed word of view cell (row j, col i), agent at
+    (V-1, V//2), walls out of bounds, carried object overlaid on the
+    agent's cell; `vis` is the occlusion mask (1 = visible)."""
+    half = view // 2
+    agent_k = (view - 1) * view + half
+    _, off_view, _, _ = _dir_tables(width, height, view)
+    dev = words.device
+    kvec = torch.arange(view * view, dtype=torch.int32, device=dev)[:, None]
+
+    x2 = regs[R_X : R_X + 1]
+    y2 = regs[R_Y : R_Y + 1]
+    d2 = regs[R_DIR : R_DIR + 1]
+    ct2 = regs[R_CT : R_CT + 1]
+    cc2 = regs[R_CC : R_CC + 1]
+
+    v2 = view * view
+    rows = torch.as_tensor(np.concatenate(off_view), dtype=torch.int64, device=dev)
+    vw_all = words[rows]  # (4·V², B)
+    vw = _sel4(d2, [vw_all[i * v2 : (i + 1) * v2] for i in range(4)])
+    rdv = (view - 1) - kvec // view  # forward distance per view cell
+    cov = kvec % view - half  # lateral offset per view cell
+    f0 = _i32(d2 == 0) - _i32(d2 == 2)
+    f1 = _i32(d2 == 1) - _i32(d2 == 3)
+    wx = x2 + f0 * rdv - f1 * cov
+    wy = y2 + f1 * rdv + f0 * cov
+    inb = (wx >= 0) & (wx < width) & (wy >= 0) & (wy < height)
+    vw = torch.where(inb, vw, WALL_WORD)
+    agent_word = torch.where(ct2 > 0, ct2 | (cc2 << 4), EMPTY_WORD)
+    vw = torch.where(kvec == agent_k, agent_word, vw)
+
+    if see_through_walls:
+        return vw, torch.ones_like(vw)
+    vt = vw & 15
+    vs = (vw >> 8) & 15
+    trans = _i32(~((vt == C.WALL) | ((vt == C.DOOR) & (vs != C.STATE_OPEN))))
+    pow_i = 1 << (kvec % view)
+    trans_rows = (trans * pow_i).reshape(view, view, -1).sum(dim=1, dtype=torch.int32)
+    vis_rows = visibility_bitmask(trans_rows, view)  # (V, B)
+    vis = (vis_rows.repeat_interleave(view, dim=0) >> (kvec % view)) & 1
+    return vw, vis
+
+
+def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig):
+    """`T = actions.shape[0]` packed steps as a loop of torch ops, on any
+    device. Returns `(words', regs', rsum, episodes, checksum)` with
+    `(1, B)` per-lane accumulators (f32, int32, int32)."""
+    b = words.shape[1]
+    dev = words.device
+    rsum = torch.zeros((1, b), dtype=torch.float32, device=dev)
+    epi = torch.zeros((1, b), dtype=torch.int32, device=dev)
+    csum = torch.zeros((1, b), dtype=torch.int32, device=dev)
+    step = functools.partial(
+        step_core,
+        width=config.width,
+        height=config.height,
+        view=config.agent_view_size,
+        max_steps=config.max_steps,
+        see_through_walls=config.see_through_walls,
+    )
+    for t in range(actions.shape[0]):
+        words, regs, reward, done, obs_sum = step(
+            words, regs, actions[t : t + 1], tmpl_words, tmpl_regs
+        )
+        rsum = rsum + reward
+        epi = epi + _i32(done)
+        csum = csum + obs_sum
+    return words, regs, rsum, epi, csum
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# --------------------------------------------------------------------------
+
+_SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
+_MAX_VIEW = 31  # the flood keeps one view row in the bits of a uint32
+
+
+def kernel_lane_block(config: EnvConfig) -> int:
+    """Lanes per CUDA block: the largest of 128, 64, 32 whose `[HW][bt]`
+    int32 grid (plus the offset tables) fits one block's shared memory.
+    Raises on a configuration the kernel does not take."""
+    hw = config.width * config.height
+    v = config.agent_view_size
+    if v < 3 or v % 2 == 0 or v > _MAX_VIEW:
+        raise ValueError(f"rollout kernel: view size {v} must be odd and in [3, {_MAX_VIEW}]")
+    tables = (4 + 4 * v * v) * 4
+    for bt in (128, 64, 32):
+        if hw * bt * 4 + tables <= _SMEM_LIMIT:
+            return bt
+    raise ValueError(
+        f"rollout kernel: a {config.width}x{config.height} grid needs "
+        f"{hw * 32 * 4 + tables} B of shared memory for 32 lanes; the limit is {_SMEM_LIMIT}"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(width: int, height: int, view: int, device: torch.device) -> torch.Tensor:
+    """`[off_fwd (4); off_view (4·V²)]` int32 on `device`, made once per
+    grid shape and device (the kernel only reads it)."""
+    off_fwd, off_view, _, _ = _dir_tables(width, height, view)
+    tab = np.concatenate([np.asarray(off_fwd, np.int32)] + off_view).astype(np.int32)
+    return torch.from_numpy(tab).to(device)
+
+
+def _check_operand(name, t, rows, b, dtype=torch.int32):
+    if t.device.type != "cuda":
+        raise ValueError(f"rollout kernel: {name} is on {t.device}, expected a CUDA device")
+    if t.dtype != dtype:
+        raise TypeError(f"rollout kernel: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != (rows, b):
+        raise ValueError(f"rollout kernel: {name} has shape {tuple(t.shape)}, expected {(rows, b)}")
+    if not t.is_contiguous():
+        raise ValueError(f"rollout kernel: {name} is not contiguous")
+
+
+def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig):
+    """The rollout kernel's wrapper: same arguments and results as
+    `plain_rollout`.
+
+    CPU tensors run `plain_rollout`; CUDA tensors launch the kernel on the
+    current stream, and any other device, a failed build or a failed launch
+    raises."""
+    if words.device.type == "cpu":
+        return plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config)
+    from minigrid_tpu_torch.ops import _build
+
+    hw = config.width * config.height
+    b = words.shape[1]
+    t = actions.shape[0]
+    for name, x, rows in (
+        ("words", words, hw),
+        ("regs", regs, NUM_REGS),
+        ("tmpl_words", tmpl_words, hw),
+        ("tmpl_regs", tmpl_regs, NUM_REGS),
+        ("actions", actions, t),
+    ):
+        _check_operand(name, x, rows, b)
+        if x.device != words.device:
+            raise ValueError(f"rollout kernel: {name} is on {x.device}, words on {words.device}")
+    if b == 0 or t == 0:
+        raise ValueError(f"rollout kernel: empty batch or step count ({b}, {t})")
+    bt = kernel_lane_block(config)
+    dev = words.device
+    lib = _build.load_library(dev)
+
+    words_out = torch.empty_like(words)
+    regs_out = torch.empty_like(regs)
+    rsum = torch.empty((1, b), dtype=torch.float32, device=dev)
+    counts = torch.empty((2, b), dtype=torch.int32, device=dev)
+    tables = _kernel_tables(config.width, config.height, config.agent_view_size, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mg_rollout_launch(
+            *(ctypes.c_void_p(x.data_ptr()) for x in (
+                words, regs, tmpl_words, tmpl_regs, actions, tables,
+                words_out, regs_out, rsum, counts,
+            )),
+            b, t, config.width, config.height, config.agent_view_size,
+            config.max_steps, int(config.see_through_walls), NUM_REGS, bt,
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"rollout kernel launch failed: CUDA error {err} "
+            f"({lib.mg_error_string(err).decode()})"
+        )
+    global rollout_kernel_launches
+    rollout_kernel_launches += 1
+    return words_out, regs_out, rsum, counts[0:1], counts[1:2]
+
+
+# --------------------------------------------------------------------------
+# The steady carry surface
+# --------------------------------------------------------------------------
+
+_DETERMINISTIC_LAYOUT = ("empty", "distshift")
+
+
+class PackedCarry(NamedTuple):
+    """Device state threaded between carry-surface rollout calls:
+    `words`/`regs` the live packed state (agent-centred), `tmpl_*` the
+    auto-reset template, `rng` the `(B, 2)` int64 regen reset-chain
+    position (`EnvState.rng` semantics)."""
+
+    words: torch.Tensor
+    regs: torch.Tensor
+    tmpl_words: torch.Tensor
+    tmpl_regs: torch.Tensor
+    rng: torch.Tensor
+
+
+def _regen_is_static(env: Env) -> bool:
+    """True iff template auto-reset alone reproduces regen semantics for
+    `env` (a key-independent layout)."""
+    cfg = env.config
+    return (
+        env.transition == BASE_STEP
+        and cfg.family in _DETERMINISTIC_LAYOUT
+        and (cfg.family != "empty" or cfg.agent_start_pos is not None)
+    )
+
+
+def _check_supported(env: Env, mode: str) -> None:
+    if env.transition != BASE_STEP:
+        raise NotImplementedError(
+            f"{env.env_id}: family step hooks are not ported yet (see ROADMAP.md)"
+        )
+    if mode not in ("regen", "cached"):
+        raise ValueError(f"unknown auto-reset mode {mode!r}")
+    if mode == "regen" and not _regen_is_static(env):
+        raise NotImplementedError(
+            f"{env.env_id}: regen mode on a random-layout family needs chunked "
+            "regen, which is not ported yet (see ROADMAP.md); use mode='cached'"
+        )
+
+
+def _agent_base(regs: torch.Tensor, width: int) -> torch.Tensor:
+    return regs[R_Y : R_Y + 1] * width + regs[R_X : R_X + 1]  # (1, B)
+
+
+def _pack_rolled(cfg: EnvConfig, states: EnvState):
+    """`pack_states` + the one-time agent-centring roll."""
+    words, regs = pack_states(states)
+    return _roll_to_base(words, _agent_base(regs, cfg.width)), regs
+
+
+def _unpack_rolled(cfg: EnvConfig, words_f: torch.Tensor, regs_f: torch.Tensor) -> EnvState:
+    """Undo the agent-centred roll, then unpack."""
+    hw = cfg.width * cfg.height
+    base_f = _agent_base(regs_f, cfg.width)
+    return unpack_states(_roll_to_base(words_f, (hw - base_f) % hw), regs_f, cfg)
+
+
+def _prepare_packed(env: Env, states: EnvState, mode: str = "regen"):
+    """Packed, agent-centred live state and reset template. The template
+    is each lane's layout regenerated from its rng leaf; in cached mode
+    its rng rows are pinned back to the live key."""
+    cfg = env.config
+    words0, regs0 = _pack_rolled(cfg, states)
+    if env.generate is None:
+        raise NotImplementedError(
+            f"{env.env_id}: the port cannot generate this family yet; build the "
+            "carry from the JAX package's (utils/convert.py)"
+        )
+    tmpl_words, tmpl_regs = _pack_rolled(cfg, env.generate(states.rng, cfg))
+    if mode == "cached":
+        tmpl_regs[R_RNG : R_RNG + 2] = key_rows(states.rng)
+    return words0, regs0, tmpl_words, tmpl_regs
+
+
+def packed_init(env: Env, states: EnvState, mode: str = "regen") -> PackedCarry:
+    """Pack a batched `EnvState` into a `PackedCarry` (one-time cost)."""
+    _check_supported(env, mode)
+    words0, regs0, tmpl_words, tmpl_regs = _prepare_packed(env, states, mode)
+    return PackedCarry(words0, regs0, tmpl_words, tmpl_regs, states.rng)
+
+
+def packed_finish(env: Env, carry: PackedCarry) -> EnvState:
+    """Unpack a `PackedCarry` back into a batched `EnvState`."""
+    return _unpack_rolled(env.config, carry.words, carry.regs).replace(rng=carry.rng)
+
+
+def _replay_rng_chain(env: Env, rng0: torch.Tensor, n_resets: torch.Tensor) -> torch.Tensor:
+    """Apply the regen reset chain `rng <- generate(rng).rng` `n_resets[b]`
+    times to lane b: a loop of `max(n_resets)` batched iterations."""
+    rng, rem = rng0, n_resets.to(torch.int64)
+    for _ in range(int(rem.max().item()) if rem.numel() else 0):
+        nxt = env.generate(rng, env.config).rng
+        rng = torch.where((rem > 0)[:, None], nxt, rng)
+        rem = rem - 1
+    return rng
+
+
+def _wrap_i32(total: torch.Tensor) -> torch.Tensor:
+    """An int64 total wrapped to int32, as the JAX package's int32 sums wrap."""
+    return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _action_stream(env: Env, num_steps: int, generator, b: int, device, override=None):
+    """The `(T, B)` int32 action stream: `override` (a `(T, B)` or `(T,)`
+    array) if given, else the random policy drawn from `generator`."""
+    if override is not None:
+        actions = torch.as_tensor(np.asarray(override), dtype=torch.int32, device=device)
+        if actions.ndim == 1:
+            actions = actions[:, None].expand(num_steps, b)
+        if tuple(actions.shape) != (num_steps, b):
+            raise ValueError(f"actions_override has shape {tuple(actions.shape)}, expected {(num_steps, b)}")
+        return actions.contiguous()
+    if generator is None:
+        raise ValueError("a torch.Generator is needed to sample the random policy")
+    gd = torch.device(generator.device)
+    if gd.type != device.type or gd.index not in (None, device.index):
+        raise ValueError(f"the generator is on {gd}, the carry on {device}")
+    return random_policy(env.config.num_actions)(generator, num_steps, b)
+
+
+def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, actions_override=None):
+    """`step(generator, carry) -> (carry, RolloutMetrics)` for the
+    static-template paths (cached mode, or regen on static layouts).
+    `run_core(words, regs, tmpl_words, tmpl_regs, actions, config)` runs
+    the whole `num_steps`."""
+
+    def step_carry(generator: Optional[torch.Generator], carry: PackedCarry):
+        b = carry.words.shape[1]
+        dev = carry.words.device
+        actions = _action_stream(env, num_steps, generator, b, dev, actions_override)
+        words_f, regs_f, rsum, epi, csum = run_core(
+            carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, actions, env.config
+        )
+        rng = carry.rng
+        if mode == "regen":
+            rng = _replay_rng_chain(env, rng, epi[0])
+        metrics = RolloutMetrics(
+            episodes=_wrap_i32(epi.sum(dtype=torch.int64)),
+            total_reward=rsum.sum(),
+            total_steps=_wrap_i32(torch.tensor(b * num_steps, dtype=torch.int64, device=dev)),
+            obs_checksum=_wrap_i32(csum.sum(dtype=torch.int64)),
+            reset_overlaps=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+        return PackedCarry(words_f, regs_f, carry.tmpl_words, carry.tmpl_regs, rng), metrics
+
+    return step_carry
+
+
+def _build(env: Env, num_steps: int, mode: str, as_carry: bool, run_core, actions_override):
+    _check_supported(env, mode)
+    step_carry = _make_plain_carry_step(env, num_steps, mode, run_core, actions_override)
+    if as_carry:
+        return step_carry
+
+    def rollout(generator: Optional[torch.Generator], states: EnvState):
+        carry, metrics = step_carry(generator, packed_init(env, states, mode))
+        return packed_finish(env, carry), metrics
+
+    return rollout
+
+
+def build_fused_rollout(
+    env: Env, num_steps: int, mode: str = "regen", as_carry: bool = False, actions_override=None
+):
+    """`rollout(generator, states) -> (states, RolloutMetrics)`, or with
+    `as_carry=True` the steady surface `step(generator, carry) -> (carry,
+    RolloutMetrics)` (see `packed_init`/`packed_finish`). The step loop
+    runs in the CUDA kernel for CUDA tensors and in the plain twin for CPU
+    tensors. `actions_override` (`(T, B)` or `(T,)`) replaces the random
+    policy."""
+    return _build(env, num_steps, mode, as_carry, run_rollout_kernel, actions_override)
+
+
+def build_packed_plain_rollout(
+    env: Env, num_steps: int, mode: str = "regen", as_carry: bool = False, actions_override=None
+):
+    """The plain-torch twin of `build_fused_rollout` (same surfaces and
+    results), on any device."""
+    return _build(env, num_steps, mode, as_carry, plain_rollout, actions_override)

@@ -1,0 +1,74 @@
+"""Random packed states for checking the rollout kernel against its twin.
+
+`random_packed_case` draws, from a numpy seed, a batch of agent-centred
+packed states that reach every branch of the step: border walls; doors
+in all three states; keys, balls and boxes (some holding a key or ball);
+lava, goal, floor and interior walls; random headings, random carrying
+(boxes with contents included) and step counts, half of them within a few
+steps of `max_steps`; and a random reset template. The CPU tests feed
+these to the JAX package and to the port, and `chip_smoke.py` to the CUDA
+kernel and the plain twin.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.ops.packing import NUM_REGS, R_AUX, R_SC
+
+_TYPES = np.array([C.EMPTY, C.WALL, C.FLOOR, C.DOOR, C.KEY, C.BALL, C.BOX, C.GOAL, C.LAVA])
+_TYPE_P = np.array([0.40, 0.10, 0.05, 0.15, 0.07, 0.07, 0.07, 0.04, 0.05])
+_HELD = np.array([0, C.KEY, C.BALL, C.BOX])  # what the agent may carry
+_CONTENTS = np.array([0, C.KEY, C.BALL])  # what a box may hold
+
+
+def _states(rng: np.random.Generator, width: int, height: int, batch: int, max_steps: int):
+    hw = width * height
+    t = rng.choice(_TYPES, size=(batch, height, width), p=_TYPE_P)
+    t[:, 0, :] = t[:, -1, :] = C.WALL
+    t[:, :, 0] = t[:, :, -1] = C.WALL
+    color = rng.integers(0, 6, size=t.shape)
+    color = np.where(t == C.WALL, C.GREY, color)
+    state = np.where(t == C.DOOR, rng.integers(0, 3, size=t.shape), 0)
+    cont = np.where(t == C.BOX, rng.choice(_CONTENTS, size=t.shape), 0)
+    cont_color = np.where(cont > 0, rng.integers(0, 6, size=t.shape), 0)
+
+    x = rng.integers(1, width - 1, size=batch)
+    y = rng.integers(1, height - 1, size=batch)
+    lanes = np.arange(batch)
+    t[lanes, y, x] = C.EMPTY  # the agent stands on an empty cell
+    color[lanes, y, x] = state[lanes, y, x] = cont[lanes, y, x] = cont_color[lanes, y, x] = 0
+
+    words = t | (color << 4) | (state << 8) | (cont << 12) | (cont_color << 16)
+    words = words.reshape(batch, hw).T.astype(np.int32)  # (HW, B)
+    base = y * width + x
+    words = words[(np.arange(hw)[:, None] + base[None, :]) % hw, lanes[None, :]]  # agent-centred
+
+    ct = rng.choice(_HELD, size=batch)
+    cc = np.where(ct > 0, rng.integers(0, 6, size=batch), 0)
+    cct = np.where(ct == C.BOX, rng.choice(_CONTENTS, size=batch), 0)
+    ccc = np.where(cct > 0, rng.integers(0, 6, size=batch), 0)
+    near_end = rng.integers(max(0, max_steps - 8), max_steps, size=batch)
+    anywhere = rng.integers(0, max_steps, size=batch)
+    sc = np.where(rng.random(batch) < 0.5, near_end, anywhere)
+    d = rng.integers(0, 4, size=batch)
+
+    regs = np.empty((NUM_REGS, batch), np.int32)
+    regs[:R_AUX] = np.stack([x, y, d, ct, cc, cct, ccc, sc])
+    regs[R_AUX:] = rng.integers(-(2**31), 2**31, size=(NUM_REGS - R_AUX, batch), dtype=np.int64)
+    return np.ascontiguousarray(words), regs
+
+
+def random_packed_case(
+    seed: int, width: int, height: int, batch: int, max_steps: int
+) -> Dict[str, np.ndarray]:
+    """`{"words", "regs", "tmpl_words", "tmpl_regs"}`: int32 numpy arrays
+    in the packed agent-centred layout, `(HW, B)` and `(NUM_REGS, B)`."""
+    rng = np.random.default_rng(seed)
+    words, regs = _states(rng, width, height, batch, max_steps)
+    tmpl_words, tmpl_regs = _states(rng, width, height, batch, max_steps)
+    tmpl_regs[R_SC] = 0
+    return dict(words=words, regs=regs, tmpl_words=tmpl_words, tmpl_regs=tmpl_regs)

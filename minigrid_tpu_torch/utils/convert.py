@@ -1,0 +1,79 @@
+"""Carry state across the framework boundary as numpy arrays.
+
+`EnvState` and `PackedCarry` to and from dictionaries of numpy arrays
+with the JAX package's leaf names and dtypes. The rng leaf crosses as
+`(B, 2)` uint32 bit patterns (the JAX key layout); in the port it is
+int64 holding the same values. A JAX state or carry becomes such a
+dictionary with `{name: np.asarray(leaf)}` over its fields.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from minigrid_tpu_torch.core.state import EnvState
+from minigrid_tpu_torch.ops.fused_rollout import PackedCarry
+
+STATE_FIELDS = ("grid", "agent_pos", "agent_dir", "carrying", "step_count", "rng", "mission", "aux")
+CARRY_FIELDS = PackedCarry._fields
+
+_STATE_DTYPES = {
+    "grid": np.uint8,
+    "agent_pos": np.int32,
+    "agent_dir": np.int32,
+    "carrying": np.uint8,
+    "step_count": np.int32,
+    "mission": np.int32,
+    "aux": np.int32,
+}
+
+
+def _rng_in(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype != np.uint32:
+        raise TypeError(f"rng leaf must be uint32 key words, got {a.dtype}")
+    return a.astype(np.int64)
+
+
+def _rng_out(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> EnvState:
+    """A batched `EnvState` on `device` from numpy leaves."""
+    leaves = {}
+    for name in STATE_FIELDS:
+        a = _rng_in(arrays[name]) if name == "rng" else np.asarray(arrays[name], _STATE_DTYPES[name])
+        leaves[name] = torch.from_numpy(np.array(a)).to(device)  # a writable copy
+    return EnvState(**leaves)
+
+
+def state_to_numpy(state: EnvState) -> Dict[str, np.ndarray]:
+    """An `EnvState`'s leaves as numpy arrays in the JAX package's dtypes."""
+    return {
+        name: _rng_out(getattr(state, name)) if name == "rng" else getattr(state, name).cpu().numpy()
+        for name in STATE_FIELDS
+    }
+
+
+def carry_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> PackedCarry:
+    """A `PackedCarry` on `device` from numpy leaves (int32 words and
+    registers, uint32 rng)."""
+    leaves = {
+        name: torch.from_numpy(
+            _rng_in(arrays[name]) if name == "rng" else np.array(arrays[name], np.int32)
+        ).to(device)
+        for name in CARRY_FIELDS
+    }
+    return PackedCarry(**leaves)
+
+
+def carry_to_numpy(carry: PackedCarry) -> Dict[str, np.ndarray]:
+    """A `PackedCarry`'s leaves as numpy arrays (rng as uint32)."""
+    return {
+        name: _rng_out(getattr(carry, name)) if name == "rng" else getattr(carry, name).cpu().numpy()
+        for name in CARRY_FIELDS
+    }

@@ -1,0 +1,135 @@
+"""Where one carry-surface `step` call of the PyTorch port spends its time
+on a CUDA card.
+
+    python tools/profile_step_torch.py
+
+At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
+`chip_smoke.py`), runs the pieces of a regen `step(generator, carry)` call
+(`minigrid_tpu_torch.ops.fused_rollout._make_plain_carry_step`) one after
+the other on the current stream, with a CUDA event between each:
+
+  actions   the random policy's `(T, B)` int32 draw (`_action_stream`)
+  kernel    the rollout kernel (`run_rollout_kernel`)
+  replay    the regen rng-chain replay (`_replay_rng_chain`); its
+            `.item()` makes the host wait for the kernel, so the span also
+            holds the gaps while the host launches the replay's ops
+  sums      the metric sums
+
+It prints each piece's ms per call, averaged over 3 calls after 2 warm-up
+calls, beside a whole `step` call timed the same way, and the replay's
+iterations per call. Then it wraps one whole `step` call in
+`torch.profiler` and prints the device-time table. The last line is one
+JSON object with the numbers. Needs a CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch
+
+from minigrid_tpu_torch import make
+from minigrid_tpu_torch.core.prng import key
+from minigrid_tpu_torch.ops import fused_rollout as fr
+
+ENV_ID = "MiniGrid-Empty-8x8-v0"
+BATCH = 2_097_152
+NUM_STEPS = 256
+WARMUP = 2
+CALLS = 3
+PIECES = ("actions", "kernel", "replay", "sums")
+
+
+def timed_pieces(env, num_steps, gen, carry):
+    """One regen step call, piece by piece: (carry, ms per piece, replay
+    iterations)."""
+    cfg = env.config
+    b, dev = carry.words.shape[1], carry.words.device
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(PIECES) + 1)]
+    ev[0].record()
+    actions = fr._action_stream(env, num_steps, gen, b, dev)
+    ev[1].record()
+    words, regs, rsum, epi, csum = fr.run_rollout_kernel(
+        carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, actions, cfg
+    )
+    ev[2].record()
+    rng = fr._replay_rng_chain(env, carry.rng, epi[0])
+    ev[3].record()
+    _sums = (epi.sum(dtype=torch.int64), rsum.sum(), csum.sum(dtype=torch.int64))
+    ev[4].record()
+    torch.cuda.synchronize()
+    ms = {p: ev[i].elapsed_time(ev[i + 1]) for i, p in enumerate(PIECES)}
+    iterations = int(epi.max())
+    return fr.PackedCarry(words, regs, carry.tmpl_words, carry.tmpl_regs, rng), ms, iterations
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step_torch: needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    env = make(ENV_ID)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
+    step = fr.build_fused_rollout(env, NUM_STEPS, mode="regen", as_carry=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    for _ in range(WARMUP):
+        carry, _ = step(gen, carry)
+    totals = dict.fromkeys(PIECES, 0.0)
+    iterations = 0
+    for _ in range(CALLS):
+        carry, ms, it = timed_pieces(env, NUM_STEPS, gen, carry)
+        iterations += it
+        for p in PIECES:
+            totals[p] += ms[p]
+    pieces_ms = {p: totals[p] / CALLS for p in PIECES}
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CALLS):
+        carry, _ = step(gen, carry)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / CALLS
+
+    whole = sum(pieces_ms.values())
+    for p in PIECES:
+        print(f"{p:8s} {pieces_ms[p]:.4f} ms/call ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
+    print(f"pieces sum {whole:.4f} ms/call; whole step call {step_ms:.4f} ms/call "
+          f"({BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s); "
+          f"replay {iterations / CALLS:.2f} iterations/call [{card}]", flush=True)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        carry, _ = step(gen, carry)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="device_time_total", row_limit=15), flush=True)
+    # Device-side events only, as the table's "Self CUDA time total" sums
+    # them: an op's self device time repeats that of the kernels it ran.
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    kernel_us = sum(e.self_device_time_total for e in device if "rollout_kernel" in e.key)
+    device_us = sum(e.self_device_time_total for e in device)
+    print(json.dumps({
+        "card": card, "env_id": ENV_ID, "batch_size": BATCH, "num_steps": NUM_STEPS,
+        "pieces_ms": pieces_ms, "step_ms": step_ms, "replay_iterations_per_call": iterations / CALLS,
+        "profiler_device_ms": device_us / 1e3, "profiler_kernel_ms": kernel_us / 1e3,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
