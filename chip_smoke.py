@@ -25,7 +25,33 @@ result line):
      byte-exact and per-lane reward sums bit-identical (tolerance 0). The
      probe kernel on a random (8, 128) int32 block against `x + 1`,
      exact.
+  4. The policy-in-the-loop main path at full width: Empty-8x8 regen,
+     B=2**21, T=256, the `ActorCritic` (980 -> 256 -> 256, bf16 torso, f32
+     heads) drawn from a seeded generator on the card,
+     `build_policy_eval_rollout(..., as_carry=True)`, one warm-up and three
+     timed `step(key, carry)` calls, `packed_finish`. With every count set
+     to 0 just before, the policy kernel must launch exactly 4 times and no
+     other kernel at all; then the same checks as phase 2, and the peak
+     device memory.
+  5. The policy kernel against its plain twin on the card, TF32 off.
+     Under sparse dyadic weights (`testing.dyadic_flax_params`, every f32
+     sum exact) the two must agree byte for byte, per-lane reward sums
+     bit for bit (tolerance 0): one kernel launch on all 2**21 lanes of
+     phase 4's warm carry at T=256 against the twin run over 32 column
+     slices of 65,536 lanes with the matching columns of the same seeds
+     (both timed, the twin as the sum of its slices), and on random
+     packed states at 8x8 and 9x7 with and without see-through walls and
+     at 16x16, B=8192, T=64. Under phase 4's weights, after T=1, at most
+     1e-4 of 65,536 lanes may differ (the f32 sums run in another order
+     on the tensor cores and can flip a near-tie draw). The kernel alone
+     is timed at the main path's shape and weights (mean of 3).
 
+The kernels line gives each kernel's launches on its main path, its
+largest difference from the plain version, its time and the plain
+version's, its bound on this card (`bound_ms`: the larger of its bytes
+over the memory rate and its operations over the peak rate for their
+type, counted from this run's shapes) and, where one PyTorch call
+computes the same function, that call's time (`library_ms`).
 """
 
 from __future__ import annotations
@@ -36,6 +62,7 @@ import sys
 import time
 
 ENV_ID = "MiniGrid-Empty-8x8-v0"
+DEVICE = "cuda:0"
 MAIN_B = 2_097_152
 MAIN_T = 256
 TIMED_CALLS = 3
@@ -46,14 +73,63 @@ KERNEL_SOURCE = "minigrid_tpu_torch/ops/csrc/rollout_kernel.cu"
 KERNEL_REPLACES = "minigrid_tpu/ops/fused_rollout.py:519"
 PROBE_REPLACES = "minigrid_tpu/utils/platform.py:48"
 PROBE_REPS = 200
+POLICY_SOURCE = "minigrid_tpu_torch/ops/csrc/policy_kernel.cu"
+POLICY_REPLACES = "minigrid_tpu/ops/policy_rollout.py:282"
+POLICY_T = 256
+SLICE_B = 65_536
+POLICY_CHECK_CONFIGS = [(8, 8, True), (8, 8, False), (9, 7, True), (9, 7, False), (16, 16, False)]
+FLAX_T1_MAX_SHARE = 1e-4
+POLICY_TIMED_CALLS = 3
+
+# The card's published peaks (H100 SXM data sheet, at a 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+# The fewest integer instructions a packed random-policy step needs per
+# lane, derived from the function (not counted from the kernel): each view
+# cell an address add, a bounds test, a load, three field extracts and
+# three adds into the checksum; the transition (action load, forward-cell
+# address and load, its field tests, position, direction and step-count
+# updates, the done test, the reward, the write-back, the sums) about 30.
+ROLLOUT_INSTR_PER_VIEW_CELL = 9
+ROLLOUT_INSTR_PER_TRANSITION = 30
 
 
-def card_line() -> str:
+def nvidia_smi(query: str) -> str:
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def state_bytes(hw: int, b: int, t: int) -> int:
+    """Bytes a packed rollout must move: words and registers in and out,
+    the templates in, one int32 per lane-step in (actions or seeds), and
+    the per-lane reward sum, episodes and checksum out."""
+    from minigrid_tpu_torch.ops.packing import NUM_REGS
+
+    return 4 * (3 * hw * b + 3 * NUM_REGS * b + t * b) + 12 * b
+
+
+def int_issue_rate(dev) -> float:
+    """Thread-instructions per second at one warp-instruction per clock on
+    each of an SM's four schedulers, at the card's highest SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return sms * 4 * 32 * mhz * 1e6
 
 
 def compare(got, want):
@@ -102,7 +178,7 @@ def phase_kernel_vs_plain(dev, card):
 
 def phase_probe(dev, card):
     """The probe kernel against `x + 1` on a random (8, 128) int32 block,
-    exact; both timed with CUDA events."""
+    exact; both, and `torch.add(x, 1)`, timed with CUDA events."""
     import numpy as np
     import torch
 
@@ -113,13 +189,15 @@ def phase_probe(dev, card):
     _build.probe(x)  # warm
     ms, got = time_events(lambda: _build.probe(x), PROBE_REPS)
     plain_ms, want = time_events(lambda: x + 1, PROBE_REPS)
+    library_ms, _ = time_events(lambda: torch.add(x, 1), PROBE_REPS)
     mismatches = int((got != want).sum())
     err = float((got.double() - want.double()).abs().max())
     print(f"phase 3: probe kernel {tuple(x.shape)} {ms:.6f} ms/call, plain x+1 {plain_ms:.6f} ms/call, "
+          f"torch.add {library_ms:.6f} ms/call, "
           f"mismatches={mismatches} max_abs_err={err} [{card}]", flush=True)
     if mismatches:
         raise RuntimeError("phase 3 failed: the probe kernel differs from x + 1")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, library_ms
 
 
 def time_events(fn, reps):
@@ -223,6 +301,157 @@ def phase_main_path(dev, card):
     return launches, max_err, kernel_ms, plain_ms
 
 
+def phase_policy_main_path(dev, card):
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import _build
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    # Every kernel's count starts at 0 here and is read right after
+    # `packed_finish`: they count only this path's launches.
+    fr.rollout_kernel_launches = 0
+    _build.probe_launches = 0
+    pr.policy_kernel_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    env = make(ENV_ID)
+    cfg = env.config
+    t0 = time.perf_counter()
+    carry = fr.packed_init(env, env.reset_batch(key(0), MAIN_B), "regen")
+    model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    step = pr.build_policy_eval_rollout(env, model, POLICY_T, mode="regen", as_carry=True)
+    torch.cuda.synchronize()
+    print(f"phase 4: {ENV_ID} B={MAIN_B} T={POLICY_T} regen, ActorCritic on {next(model.parameters()).device}: "
+          f"reset_batch + packed_init + model {time.perf_counter() - t0:.3f} s", flush=True)
+
+    carry, metrics = step(key(100), carry)  # warm-up
+    warm_carry = carry
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episodes = 0
+    for i in range(POLICY_TIMED_CALLS):
+        carry, metrics = step(key(101 + i), carry)
+        episodes += int(metrics.episodes)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    final = fr.packed_finish(env, carry)
+    torch.cuda.synchronize()
+    launches = {
+        "rollout_kernel": fr.rollout_kernel_launches,
+        "probe_kernel": _build.probe_launches,
+        "policy_kernel": pr.policy_kernel_launches,
+    }
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    steps_per_s = MAIN_B * POLICY_T * POLICY_TIMED_CALLS / seconds
+    print(f"phase 4: policy path {POLICY_TIMED_CALLS} step calls {seconds:.4f} s, {steps_per_s:.6e} env-steps/s, "
+          f"episodes {episodes}, reward {float(metrics.total_reward):.6f} in the last call, "
+          f"peak memory {peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    print(f"phase 4: launches on the policy path {launches}", flush=True)
+    if launches != {"rollout_kernel": 0, "probe_kernel": 0, "policy_kernel": 1 + POLICY_TIMED_CALLS}:
+        raise RuntimeError(f"policy path launches {launches}, expected only {1 + POLICY_TIMED_CALLS} policy kernels")
+    if int(metrics.total_steps) != MAIN_B * POLICY_T:
+        raise RuntimeError(f"total_steps {int(metrics.total_steps)} != {MAIN_B * POLICY_T}")
+    x, y = final.agent_pos[:, 0], final.agent_pos[:, 1]
+    if not bool(((x >= 1) & (x < cfg.width - 1) & (y >= 1) & (y < cfg.height - 1)).all()):
+        raise RuntimeError("an agent left the room's interior")
+    sc = final.step_count
+    if not bool(((sc >= 0) & (sc < cfg.max_steps)).all()):
+        raise RuntimeError("step_count out of [0, max_steps)")
+    if episodes == 0 or int(metrics.obs_checksum) == 0:
+        raise RuntimeError("no episode ended, or the checksum is 0: the rollout did not run")
+    return env, model, warm_carry, launches["policy_kernel"], seconds, peak
+
+
+def compare_lanes(got, want):
+    """Lanes whose words, registers, reward sum, episodes or checksum differ
+    (f32 compared as bit patterns)."""
+    import torch
+
+    bad = None
+    for g, w in zip(got, want):
+        gb, wb = (g.view(torch.int32), w.view(torch.int32)) if g.dtype == torch.float32 else (g, w)
+        lane_bad = (gb != wb).any(dim=0)
+        bad = lane_bad if bad is None else bad | lane_bad
+    return int(bad.sum())
+
+
+def phase_policy_vs_plain(dev, card, env, model, warm_carry):
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.core.state import EnvConfig
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.testing import dyadic_flax_params, random_packed_case
+
+    cfg = env.config
+    view = cfg.agent_view_size
+    dyadic = pr.eval_weights_from_params(dyadic_flax_params(7), view, device=dev)
+    seeds_full = pr._seeds_for(key(200), POLICY_T, MAIN_B)
+    full = (warm_carry.words, warm_carry.regs, warm_carry.tmpl_words, warm_carry.tmpl_regs)
+
+    # One kernel launch over all of phase 4's warm carry at T=256, held
+    # against the twin run over consecutive column slices of SLICE_B lanes.
+    dyadic_ms, got = time_events(lambda: pr.run_policy_kernel(*full, seeds_full, dyadic, cfg), 1)
+    plain_ms, max_err, episodes, bad = 0.0, 0.0, 0, {}
+    for lo in range(0, MAIN_B, SLICE_B):
+        cols = slice(lo, lo + SLICE_B)
+        part = [x[:, cols].contiguous() for x in full]
+        seeds = seeds_full[:, cols].contiguous()
+        ms, want = time_events(lambda: pr.plain_policy_rollout(*part, seeds, dyadic, cfg), 1)
+        plain_ms += ms
+        counts, err = compare([g[:, cols] for g in got], want)
+        max_err = max(max_err, err)
+        episodes += int(want[3].sum())
+        bad = {n: bad.get(n, 0) + c for n, c in counts.items()}
+    print(f"phase 5: {ENV_ID} warm carry, B={MAIN_B} T={POLICY_T}, dyadic weights: kernel {dyadic_ms:.4f} ms, "
+          f"plain twin {plain_ms:.4f} ms over {MAIN_B // SLICE_B} slices of {SLICE_B} lanes; "
+          f"episodes={episodes} mismatches={bad} max_abs_err={max_err} [{card}]", flush=True)
+    if any(bad.values()) or episodes == 0:
+        raise RuntimeError("phase 5 failed on the warm carry at full size")
+    del got, want
+
+    for w, h, stw in POLICY_CHECK_CONFIGS:
+        c = EnvConfig(family="empty", width=w, height=h, max_steps=4 * w * h, see_through_walls=stw)
+        case = random_packed_case(w * h + 100 * stw, w, h, CHECK_B, c.max_steps)
+        args = [torch.from_numpy(case[k]).to(dev) for k in ("words", "regs", "tmpl_words", "tmpl_regs")]
+        rng = np.random.default_rng(w * h)
+        s = torch.from_numpy(rng.integers(-(2**31), 2**31, (CHECK_T, CHECK_B)).astype(np.int32)).to(dev)
+        got = pr.run_policy_kernel(*args, s, dyadic, c)
+        want = pr.plain_policy_rollout(*args, s, dyadic, c)
+        torch.cuda.synchronize()
+        counts, err = compare(got, want)
+        max_err = max(max_err, err)
+        episodes = int(want[3].sum())
+        print(f"phase 5: {w}x{h} see_through_walls={stw} B={CHECK_B} T={CHECK_T} dyadic weights: "
+              f"episodes={episodes} mismatches={counts} max_abs_err={err}", flush=True)
+        if any(counts.values()) or episodes == 0:
+            raise RuntimeError(f"phase 5 failed on {w}x{h} see_through_walls={stw}")
+
+    # Phase 4's weights (flax's initialisers) after one step.
+    weights = pr.eval_weights_from_params(model, view)
+    part = [x[:, :SLICE_B].contiguous() for x in full]
+    seed_row = seeds_full[:1, :SLICE_B].contiguous()
+    got = pr.run_policy_kernel(*part, seed_row, weights, cfg)
+    want = pr.plain_policy_rollout(*part, seed_row, weights, cfg)
+    lanes = compare_lanes(got, want)
+    print(f"phase 5: ActorCritic weights, T=1, B={SLICE_B}: {lanes} lanes differ "
+          f"(limit {FLAX_T1_MAX_SHARE * SLICE_B:.2f})", flush=True)
+    if lanes > FLAX_T1_MAX_SHARE * SLICE_B:
+        raise RuntimeError(f"phase 5: {lanes} of {SLICE_B} lanes differ after one step")
+
+    # The kernel alone at the main path's shape and weights.
+    pr.run_policy_kernel(*full, seeds_full, weights, cfg)  # warm
+    ms, _ = time_events(lambda: pr.run_policy_kernel(*full, seeds_full, weights, cfg), POLICY_TIMED_CALLS)
+    print(f"phase 5: policy kernel B={MAIN_B} T={POLICY_T} {ms:.4f} ms/call "
+          f"({MAIN_B * POLICY_T / ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
+    return max_err, ms, plain_ms, lanes
+
+
 def main() -> int:
     import torch
 
@@ -231,7 +460,7 @@ def main() -> int:
         return 2
     from minigrid_tpu_torch.ops import _build
 
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
@@ -243,9 +472,37 @@ def main() -> int:
     if _build.last_build_log:
         print(_build.last_build_log.strip(), flush=True)
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain twins' f32 GEMMs in full f32
+    torch.backends.cudnn.allow_tf32 = False
     launches, err2, kernel_ms, plain_ms = phase_main_path(dev, card)
+    torch.cuda.empty_cache()
     err3 = phase_kernel_vs_plain(dev, card)
-    probe_err, probe_ms, probe_plain_ms = phase_probe(dev, card)
+    probe_err, probe_ms, probe_plain_ms, probe_library_ms = phase_probe(dev, card)
+    torch.cuda.empty_cache()
+    env, model, warm_carry, policy_launches, _, _ = phase_policy_main_path(dev, card)
+    policy_err, policy_ms, policy_plain_ms, _ = phase_policy_vs_plain(dev, card, env, model, warm_carry)
+    del env, model, warm_carry
+    torch.cuda.empty_cache()
+
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    hw = 64  # Empty-8x8
+    v2 = 49
+    rollout_instr = ROLLOUT_INSTR_PER_VIEW_CELL * v2 + ROLLOUT_INSTR_PER_TRANSITION
+    rollout_bound = bound(state_bytes(hw, MAIN_B, MAIN_T), rollout_instr * MAIN_B * MAIN_T, int_issue_rate(dev))
+    weight_bytes = pr.HIDDEN * v2 * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2 + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4
+    # Per lane-step: one W1 row of 256 adds per channel of each view cell
+    # (every value of a valid state is in range), the 256x256 product and
+    # the 8-row head.
+    policy_flop = 3 * v2 * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
+    policy_bound = bound(
+        state_bytes(hw, MAIN_B, POLICY_T) + weight_bytes, policy_flop * MAIN_B * POLICY_T, BF16_FLOP_PER_S
+    )
+    probe_n = 8 * 128
+    probe_bound = bound(2 * 4 * probe_n, probe_n, int_issue_rate(dev))
+    print(f"bounds [{card}]: rollout_kernel {rollout_bound} ({rollout_instr} instructions per lane-step), "
+          f"policy_kernel {policy_bound} "
+          f"({policy_flop} FLOP per lane-step), probe_kernel {probe_bound}", flush=True)
 
     print(json.dumps({"kernels": [
         {
@@ -257,6 +514,9 @@ def main() -> int:
             "max_abs_err": max(err2, err3),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+            "bound_ms": rollout_bound[0],
+            "bound_by": rollout_bound[1],
+            "library_ms": None,
         },
         {
             "name": "probe_kernel",
@@ -267,6 +527,22 @@ def main() -> int:
             "max_abs_err": probe_err,
             "ms": probe_ms,
             "plain_ms": probe_plain_ms,
+            "bound_ms": probe_bound[0],
+            "bound_by": probe_bound[1],
+            "library_ms": probe_library_ms,
+        },
+        {
+            "name": "policy_kernel",
+            "route": "cuda",
+            "source": POLICY_SOURCE,
+            "replaces": POLICY_REPLACES,
+            "launches": policy_launches,
+            "max_abs_err": policy_err,
+            "ms": policy_ms,
+            "plain_ms": policy_plain_ms,
+            "bound_ms": policy_bound[0],
+            "bound_by": policy_bound[1],
+            "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,21 +2,24 @@
 
 The JAX package `minigrid_tpu` is the reference; this package mirrors its
 module paths so each piece has an obvious counterpart, and imports only
-`torch` and `numpy`. Ported so far: the packed rollout on the steady carry
-surface (`ops/fused_rollout.py`) for the static-layout families Empty and
-DistShift, with its step loop in one hand-written CUDA kernel
-(`ops/csrc/rollout_kernel.cu`). See ROADMAP.md for what is still to come.
+`torch` and `numpy`. Ported so far, for the static-layout families Empty
+and DistShift on the steady carry surface: the packed rollout
+(`ops/fused_rollout.py`), its step loop in one hand-written CUDA kernel
+(`ops/csrc/rollout_kernel.cu`), and policy-in-the-loop evaluation
+(`ops/policy_rollout.py`, `models/policy.py`) in a second one
+(`ops/csrc/policy_kernel.cu`). Entry points make their tensors on the card
+unless the caller names a device. See ROADMAP.md for what is still to come.
 
     import torch, minigrid_tpu_torch as mg
     from minigrid_tpu_torch.core.prng import key
-    from minigrid_tpu_torch.ops.fused_rollout import (
-        build_fused_rollout, packed_init, packed_finish,
-    )
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops.fused_rollout import packed_init, packed_finish
+    from minigrid_tpu_torch.ops.policy_rollout import build_policy_eval_rollout
     env = mg.make("MiniGrid-Empty-8x8-v0")
-    states = env.reset_batch(key(0, device="cuda"), 8192)
-    carry = packed_init(env, states, "regen")
-    step = build_fused_rollout(env, 256, mode="regen", as_carry=True)
-    carry, metrics = step(torch.Generator("cuda").manual_seed(1), carry)
+    carry = packed_init(env, env.reset_batch(key(0), 8192), "regen")
+    model = ActorCritic(7, generator=torch.Generator("cuda").manual_seed(0))
+    step = build_policy_eval_rollout(env, model, 256, mode="regen", as_carry=True)
+    carry, metrics = step(key(1), carry)
     states = packed_finish(env, carry)
 """
 

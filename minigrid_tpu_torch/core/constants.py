@@ -18,10 +18,12 @@ BOX = 7
 GOAL = 8
 LAVA = 9
 AGENT = 10
+NUM_OBJECTS = 11
 
 STATE_OPEN = 0
 STATE_CLOSED = 1
 STATE_LOCKED = 2
+NUM_STATES = 3
 
 RED = 0
 GREEN = 1
@@ -29,6 +31,7 @@ BLUE = 2
 PURPLE = 3
 YELLOW = 4
 GREY = 5
+NUM_COLORS = 6
 
 # Heading id -> (dx, dy): 0=right(+x), 1=down(+y), 2=left, 3=up.
 DIR_TO_VEC = ((1, 0), (0, 1), (-1, 0), (0, -1))

@@ -7,17 +7,25 @@ on the non-negative int64 value, so it is the logical shift that the
 reference's `lax.shift_right_logical` is (torch's `>>` on int32 would be
 arithmetic).
 
-`split` is bit-identical to `jax.random.split` with
-`jax_threefry_partitionable=True` (the default of the JAX package's jax):
-child `c` of key `(k0, k1)` is both output words of
-`threefry2x32(k0, k1, 0, c)`.
+`split` and `random_bits` are bit-identical to `jax.random.split` and
+`jax.random.bits(..., uint32)` with `jax_threefry_partitionable=True`
+(the default of the JAX package's jax): child `c` of key `(k0, k1)` is
+both output words of `threefry2x32(k0, k1, 0, c)`, and word `i` of a bits
+draw (row-major flat index) is `x0 ^ x1` of `threefry2x32(k0, k1,
+hi32(i), lo32(i))`.
+
+`key` makes its tensor on the card unless the caller names a device, as
+every entry point of the port does.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 MASK32 = 0xFFFFFFFF
+_BITS_CHUNK = 1 << 24  # counters per Threefry pass of `random_bits`
 _ROT_A = (13, 15, 26, 6)
 _ROT_B = (17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
@@ -48,11 +56,23 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def key(seed: int, device="cpu") -> torch.Tensor:
+def default_device(device=None) -> torch.device:
+    """`device`, or the current CUDA device when it is None. Raises on a
+    machine without a card: the port's entry points run on the card
+    unless the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def key(seed: int, device=None) -> torch.Tensor:
     """`jax.random.PRNGKey(seed)` as a `(2,)` int64 tensor: (high, low)
-    32-bit words of a non-negative seed."""
+    32-bit words of a non-negative seed, on `device` (default: the card)."""
     if seed < 0:
         raise ValueError(f"seed must be non-negative, got {seed}")
+    device = default_device(device)
     return torch.tensor(
         [(seed >> 32) & MASK32, seed & MASK32], dtype=torch.int64, device=device
     )
@@ -65,3 +85,38 @@ def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
     c = torch.arange(n, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
     return torch.stack([y0, y1], dim=-1)
+
+
+def hash_u31(k0, k1, counter) -> torch.Tensor:
+    """The JAX package's `core.prng.hash_u31`: one non-negative int32 (31
+    uniform bits) per (key, counter). Arguments are int32 (or int64)
+    tensors or ints, read as their low 32 bits."""
+    k0 = torch.as_tensor(k0).to(torch.int64) & MASK32
+    k1 = torch.as_tensor(k1, device=k0.device).to(torch.int64) & MASK32
+    counter = torch.as_tensor(counter, device=k0.device).to(torch.int64) & MASK32
+    h0, _ = threefry2x32(k0, k1, counter, torch.zeros_like(counter))
+    return (h0 & 0x7FFFFFFF).to(torch.int32)
+
+
+def random_bits(key: torch.Tensor, shape, dtype=torch.int64) -> torch.Tensor:
+    """`jax.random.bits(key, shape, uint32)` on `key.device`: as int64
+    uint32 values, or with `dtype=torch.int32` as their int32 bit patterns
+    (`lax.bitcast_convert_type`). Threefry runs over at most `_BITS_CHUNK`
+    counters at a time, so its int64 temporaries stay a few hundred MB
+    whatever the shape."""
+    shape = tuple(int(n) for n in shape)
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=dtype, device=key.device)
+    k0, k1 = key[0], key[1]
+    for start in range(0, n, _BITS_CHUNK):
+        i = torch.arange(start, min(n, start + _BITS_CHUNK), dtype=torch.int64, device=key.device)
+        x0, x1 = threefry2x32(k0, k1, i >> 32, i & MASK32)
+        bits = x0 ^ x1
+        out[start : start + i.numel()] = _as_int32(bits) if dtype == torch.int32 else bits
+    return out.reshape(shape)
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 uint32 values -> int32 with the same bit patterns (the
+    reference's `bitcast_convert_type(uint32 -> int32)`)."""
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)

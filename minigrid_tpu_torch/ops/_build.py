@@ -1,11 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under `csrc/` are compiled with `nvcc` into a shared library
-with a plain C interface, at first use, into `build/minigrid_tpu_torch/`
-beside the package, keyed by a hash of the sources and flags; `ctypes`
-loads it. Nothing here runs at import, and nothing is compiled on a
-machine without a CUDA device: the wrappers only call `load_library` for
-tensors on one.
+The sources under `csrc/` are compiled with `nvcc` (one process per
+`.cu`, in parallel) into a shared library with a plain C interface, at
+first use, into `build/minigrid_tpu_torch/` beside the package, keyed by a
+hash of the sources and flags; `ctypes` loads it. Nothing here runs at
+import, and nothing is compiled on a machine without a CUDA device: the
+wrappers only call `load_library` for tensors on one.
 
 Loading also checks the device, once per device and process: the library
 is built for `sm_90a` (Hopper), so any other card raises; then the probe
@@ -29,10 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "minigrid_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 PROBE_SHAPE = (8, 128)
 
@@ -71,21 +69,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels if the cached library is missing; return its path."""
+    """Compile the kernels if the cached library is missing; return its path.
+    Each `.cu` compiles in its own nvcc process, all started together, so
+    the build takes as long as its longest file; then one more links them."""
     global last_build_seconds, last_build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp.so")
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    cmds.append([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds[:-1]]
+    logs = [p.communicate()[0] for p in procs]
+    if all(p.returncode == 0 for p in procs):
+        res = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append(res)
+        logs.append(res.stdout)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{log}")
     os.replace(tmp, out)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = res.stdout + res.stderr
+    last_build_log = "".join(logs)
     return out
 
 
@@ -106,6 +118,8 @@ def _open() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.mg_rollout_launch.argtypes = [ptr] * 10 + [ctypes.c_int] * 9 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
+        lib.mg_policy_launch.argtypes = [ptr] * 16 + [ctypes.c_int] * 11 + [ptr]
+        lib.mg_policy_launch.restype = ctypes.c_int
         lib.mg_probe_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
         lib.mg_probe_launch.restype = ctypes.c_int
         lib.mg_error_string.argtypes = [ctypes.c_int]

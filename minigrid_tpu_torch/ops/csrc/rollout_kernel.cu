@@ -23,40 +23,18 @@
 //    memory as [HW][bt] int32, so neighbouring threads touch neighbouring
 //    banks whatever row each reads, and the global (HW, B) layout loads and
 //    stores coalesced.
-//  * The TPU kernel rolls the whole grid on every forward move only to make
-//    its addresses static. Here each thread keeps a row offset instead:
-//    logical row s lives at physical row (s + shift) % HW, and a move adds
-//    off_fwd[d] to `shift`. The offset is undone when the words are stored,
-//    so the carry keeps the JAX package's agent-centred layout.
-//  * The reward 1 - 0.9 * (sc / max_steps) is computed with round-to-nearest
-//    intrinsics, one operation at a time, so nvcc cannot contract it into a
-//    fused multiply-add; the per-lane sum then matches the plain version bit
-//    for bit.
-//  * Every modulo operand is non-negative (shift and table offsets lie in
-//    [0, HW)), so C++'s truncating % never meets a negative value.
+//  * The per-lane step, its row-offset re-centring, the reward's rounding
+//    and the view read are in step_device.cuh, which the policy kernel
+//    shares.
 
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "step_device.cuh"
 
-constexpr int kEmpty = 1;
-constexpr int kWall = 2;
-constexpr int kFloor = 3;
-constexpr int kDoor = 4;
-constexpr int kKey = 5;
-constexpr int kBall = 6;
-constexpr int kBox = 7;
-constexpr int kGoal = 8;
-constexpr int kLava = 9;
-constexpr int kStateOpen = 0;
-constexpr int kStateLocked = 2;
-constexpr int kGrey = 5;
-constexpr int kWallWord = kWall | (kGrey << 4);
-constexpr int kEmptyWord = kEmpty;
-constexpr int kNumScalars = 8;  // x, y, dir, ct, cc, cct, ccc, step_count
+namespace {
 
 struct Params {
   const int32_t* words_in;    // (HW, B), agent-centred
@@ -72,28 +50,15 @@ struct Params {
   int B, T, width, height, view, max_steps, see_through_walls, num_regs;
 };
 
-__device__ __forceinline__ int wrap_row(int p, int hw) { return p >= hw ? p - hw : p; }
-
-// Type + colour + state of a packed cell word: what the checksum counts.
-__device__ __forceinline__ int tcs(int w) { return (w & 15) + ((w >> 4) & 15) + ((w >> 8) & 15); }
-
-__device__ __forceinline__ bool transparent(int w) {
-  const int t = w & 15;
-  const int s = (w >> 8) & 15;
-  return !(t == kWall || (t == kDoor && s != kStateOpen));
-}
-
 __global__ void rollout_kernel(const Params p) {
   extern __shared__ int32_t smem[];
   const int bt = blockDim.x;
   const int tid = threadIdx.x;
-  const int hw = p.width * p.height;
-  const int v = p.view;
-  const int v2 = v * v;
-  const int half = v / 2;
-  int32_t* tab = smem + static_cast<size_t>(hw) * bt;  // after the grids
+  const StepShape sh{p.width, p.height, p.width * p.height, p.view, p.max_steps,
+                     p.see_through_walls};
+  int32_t* tab = smem + static_cast<size_t>(sh.hw) * bt;  // after the grids
 
-  for (int i = tid; i < 4 + 4 * v2; i += bt) tab[i] = p.tables[i];
+  for (int i = tid; i < 4 + 4 * p.view * p.view; i += bt) tab[i] = p.tables[i];
   __syncthreads();  // the only block-wide step; each thread owns its column
 
   const int lane = blockIdx.x * bt + tid;
@@ -101,157 +66,30 @@ __global__ void rollout_kernel(const Params p) {
   const size_t B = static_cast<size_t>(p.B);
   int32_t* g = smem + tid;  // this lane's grid: row r at g[r * bt]
 
-  for (int s = 0; s < hw; ++s) g[s * bt] = p.words_in[s * B + lane];
-  int x = p.regs_in[0 * B + lane];
-  int y = p.regs_in[1 * B + lane];
-  int d = p.regs_in[2 * B + lane];
-  int ct = p.regs_in[3 * B + lane];
-  int cc = p.regs_in[4 * B + lane];
-  int cct = p.regs_in[5 * B + lane];
-  int ccc = p.regs_in[6 * B + lane];
-  int sc = p.regs_in[7 * B + lane];
-
-  int shift = 0;  // logical row s is physical row (s + shift) % hw
+  Lane s;
+  load_lane(g, bt, p.words_in, p.regs_in, B, lane, sh.hw, s);
   bool reset_any = false;
   float rsum = 0.0f;
   int episodes = 0;
   int checksum = 0;
-  const float max_steps_f = static_cast<float>(p.max_steps);
 
   for (int t = 0; t < p.T; ++t) {
     const int a = p.actions[t * B + lane];
-
-    // ---- transition --------------------------------------------------------
-    const int fp = wrap_row(shift + tab[d], hw);  // forward cell, physical row
-    const int fw = g[fp * bt];
-    const int ft = fw & 15;
-    const int fc = (fw >> 4) & 15;
-    const int fs = (fw >> 8) & 15;
-    const int fct = (fw >> 12) & 15;
-    const int fcc = (fw >> 16) & 15;
-
-    const bool is_fwd = a == 2;
-    const int d1 = a == 1 ? (d + 1) % 4 : (a == 0 ? (d + 3) % 4 : d);
-    const bool can_overlap = ft == kEmpty || ft == kFloor || ft == kGoal || ft == kLava ||
-                             (ft == kDoor && fs == kStateOpen);
-    const bool moves = is_fwd && can_overlap;
-    const int dirx = (d == 0) - (d == 2);
-    const int diry = (d == 1) - (d == 3);
-
-    const int sc1 = sc + 1;
-    const bool hit_goal = is_fwd && ft == kGoal;
-    const bool terminated = hit_goal || (is_fwd && ft == kLava);
-    const float reward =
-        hit_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(static_cast<float>(sc1), max_steps_f)))
-                 : 0.0f;
-
-    const bool hands_empty = ct == 0;
-    const bool do_pickup = a == 3 && (ft == kKey || ft == kBall || ft == kBox) && hands_empty;
-    const bool do_drop = a == 4 && ft == kEmpty && !hands_empty;
-    const bool is_toggle = a == 5;
-
-    uint32_t new_fwd = static_cast<uint32_t>(fw);
-    if (do_pickup) new_fwd = kEmptyWord;
-    if (do_drop) {
-      new_fwd = static_cast<uint32_t>(ct) | (static_cast<uint32_t>(cc) << 4) |
-                (static_cast<uint32_t>(cct) << 12) | (static_cast<uint32_t>(ccc) << 16);
-    }
-    if (is_toggle && ft == kDoor) {
-      const bool has_key = ct == kKey && cc == fc;
-      const int state = fs == kStateLocked ? (has_key ? kStateOpen : kStateLocked) : 1 - fs;
-      new_fwd = (static_cast<uint32_t>(fw) & ~(15u << 8)) | (static_cast<uint32_t>(state) << 8);
-    }
-    if (is_toggle && ft == kBox) {
-      new_fwd = static_cast<uint32_t>(fct > 0 ? fct : kEmptyWord) | (static_cast<uint32_t>(fcc) << 4);
-    }
-    g[fp * bt] = static_cast<int32_t>(new_fwd);
-
-    const int ct1 = do_pickup ? ft : (do_drop ? 0 : ct);
-    const int cc1 = do_pickup ? fc : (do_drop ? 0 : cc);
-    const int cct1 = do_pickup ? fct : (do_drop ? 0 : cct);
-    const int ccc1 = do_pickup ? fcc : (do_drop ? 0 : ccc);
-
-    if (moves) shift = fp;  // re-centre: the forward cell becomes row 0
-
-    // ---- template auto-reset -----------------------------------------------
-    if (terminated || sc1 >= p.max_steps) {
-      for (int s = 0; s < hw; ++s) g[s * bt] = p.tmpl_words[s * B + lane];
-      shift = 0;
-      x = p.tmpl_regs[0 * B + lane];
-      y = p.tmpl_regs[1 * B + lane];
-      d = p.tmpl_regs[2 * B + lane];
-      ct = p.tmpl_regs[3 * B + lane];
-      cc = p.tmpl_regs[4 * B + lane];
-      cct = p.tmpl_regs[5 * B + lane];
-      ccc = p.tmpl_regs[6 * B + lane];
-      sc = 0;
+    bool done;
+    const float reward = step_lane(g, bt, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, s, done);
+    if (done) {
       reset_any = true;
       episodes += 1;
-    } else {
-      x = moves ? x + dirx : x;
-      y = moves ? y + diry : y;
-      d = d1;
-      ct = ct1;
-      cc = cc1;
-      cct = cct1;
-      ccc = ccc1;
-      sc = sc1;
     }
     rsum = __fadd_rn(rsum, reward);
-
-    // ---- post-step observation checksum ------------------------------------
-    const int f0 = (d == 0) - (d == 2);
-    const int f1 = (d == 1) - (d == 3);
-    const int agent_word = ct > 0 ? (ct | (cc << 4)) : kEmptyWord;
-    const int32_t* off_view = tab + 4 + d * v2;
-    // Packed word of view cell (row j, col i): the agent's cell shows what
-    // it carries; cells off the map read as grey walls.
-    auto cell = [&](int j, int i) -> int {
-      const int rd = v - 1 - j;
-      const int co = i - half;
-      if (rd == 0 && co == 0) return agent_word;
-      const int wx = x + f0 * rd - f1 * co;
-      const int wy = y + f1 * rd + f0 * co;
-      if (wx < 0 || wx >= p.width || wy < 0 || wy >= p.height) return kWallWord;
-      return g[wrap_row(shift + off_view[j * v + i], hw) * bt];
-    };
-
+    // The post-step observation's checksum; hidden cells count 0.
     int obs_sum = 0;
-    if (p.see_through_walls) {
-      for (int j = 0; j < v; ++j)
-        for (int i = 0; i < v; ++i) obs_sum += tcs(cell(j, i));
-    } else {
-      // The occlusion flood on V-bit row masks, from the agent's row
-      // outwards (ops/packing.py::visibility_bitmask).
-      const uint32_t all_bits = (1u << v) - 1u;  // v <= 31 (kernel_lane_block)
-      const uint32_t last_clear = all_bits >> 1;
-      const uint32_t first_clear = all_bits & ~1u;
-      uint32_t carry = 0;
-      for (int j = v - 1; j >= 0; --j) {
-        uint32_t trow = 0;
-        for (int i = 0; i < v; ++i) trow |= static_cast<uint32_t>(transparent(cell(j, i))) << i;
-        uint32_t row = carry;
-        if (j == v - 1) row |= 1u << half;
-        for (int k = 0; k < v - 1; ++k) row |= (row & trow) << 1;
-        row &= all_bits;
-        const uint32_t q_l = row & trow & last_clear;
-        for (int k = 0; k < v - 1; ++k) row |= (row & trow) >> 1;
-        const uint32_t q_r = row & trow & first_clear;
-        carry = (q_l | (q_l << 1) | q_r | (q_r >> 1)) & all_bits;
-        for (int i = 0; i < v; ++i)
-          if ((row >> i) & 1u) obs_sum += tcs(cell(j, i));
-      }
-    }
+    read_view<false>(g, bt, tab, sh, s, [&](int, int w) { obs_sum += tcs(w); });
     checksum += obs_sum;
   }
 
-  // ---- store, undoing the row offset -----------------------------------------
-  for (int s = 0; s < hw; ++s) p.words_out[s * B + lane] = g[wrap_row(s + shift, hw) * bt];
-  const int scalars[kNumScalars] = {x, y, d, ct, cc, cct, ccc, sc};
-  for (int r = 0; r < kNumScalars; ++r) p.regs_out[r * B + lane] = scalars[r];
-  // aux, mission and rng rows only change on reset, to the template's.
-  const int32_t* tail = reset_any ? p.tmpl_regs : p.regs_in;
-  for (int r = kNumScalars; r < p.num_regs; ++r) p.regs_out[r * B + lane] = tail[r * B + lane];
+  store_lane(g, bt, p.words_out, p.regs_out, p.regs_in, p.tmpl_regs, reset_any, B, lane, sh.hw,
+             p.num_regs, s);
   p.rsum_out[lane] = rsum;
   p.counts_out[lane] = episodes;
   p.counts_out[B + lane] = checksum;

@@ -1,0 +1,238 @@
+// Per-lane packed-step code shared by the port's kernels (rollout_kernel.cu
+// and policy_kernel.cu): the 7-action transition, the forward-cell
+// write-back, the re-centring on a forward move, template auto-reset, and
+// the V*V egocentric view read with out-of-bounds wall fill, the
+// carried-object overlay and the occlusion flood. The JAX package's
+// counterparts are `_step_core` and `_obs_core` in
+// minigrid_tpu/ops/fused_rollout.py, without family hooks.
+//
+// One thread owns one lane. Its grid lives in shared memory as a column of
+// a [HW][bt] int32 block: row r at g[r * bt]. The TPU kernel rolls the
+// whole grid on every forward move only to make its addresses static; here
+// the thread keeps a row offset instead (logical row s is physical row
+// (s + shift) % HW), undone when the words are stored. Every modulo operand
+// is non-negative (shift and table offsets lie in [0, HW)), so C++'s
+// truncating % never meets a negative value.
+//
+// The reward 1 - 0.9 * (sc / max_steps) is computed with round-to-nearest
+// intrinsics, one operation at a time, so nvcc cannot contract it into a
+// fused multiply-add: per-lane sums match the plain version bit for bit.
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kEmpty = 1;
+constexpr int kWall = 2;
+constexpr int kFloor = 3;
+constexpr int kDoor = 4;
+constexpr int kKey = 5;
+constexpr int kBall = 6;
+constexpr int kBox = 7;
+constexpr int kGoal = 8;
+constexpr int kLava = 9;
+constexpr int kStateOpen = 0;
+constexpr int kStateLocked = 2;
+constexpr int kGrey = 5;
+constexpr int kWallWord = kWall | (kGrey << 4);
+constexpr int kEmptyWord = kEmpty;
+constexpr int kNumScalars = 8;  // x, y, dir, ct, cc, cct, ccc, step_count
+
+// The static shape of a rollout: grid, view and episode length.
+struct StepShape {
+  int width, height, hw, view, max_steps, see_through_walls;
+};
+
+// A lane's scalar registers and its grid's row offset.
+struct Lane {
+  int x, y, d, ct, cc, cct, ccc, sc;
+  int shift;  // logical row s is physical row (s + shift) % hw
+};
+
+__device__ __forceinline__ int wrap_row(int p, int hw) { return p >= hw ? p - hw : p; }
+
+// Type + colour + state of a packed cell word: what the checksum counts.
+__device__ __forceinline__ int tcs(int w) { return (w & 15) + ((w >> 4) & 15) + ((w >> 8) & 15); }
+
+__device__ __forceinline__ bool transparent(int w) {
+  const int t = w & 15;
+  const int s = (w >> 8) & 15;
+  return !(t == kWall || (t == kDoor && s != kStateOpen));
+}
+
+// Load lane `lane`'s grid column (g) and scalars from the (HW, B) words and
+// (num_regs, B) registers.
+__device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* words,
+                                          const int32_t* regs, size_t B, int lane, int hw,
+                                          Lane& s) {
+  for (int r = 0; r < hw; ++r) g[r * bt] = words[r * B + lane];
+  s.x = regs[0 * B + lane];
+  s.y = regs[1 * B + lane];
+  s.d = regs[2 * B + lane];
+  s.ct = regs[3 * B + lane];
+  s.cc = regs[4 * B + lane];
+  s.cct = regs[5 * B + lane];
+  s.ccc = regs[6 * B + lane];
+  s.sc = regs[7 * B + lane];
+  s.shift = 0;
+}
+
+// One transition under action `a`, then template auto-reset. `tab` holds
+// off_fwd (4 entries) then off_view (4 * V * V). Returns the reward and
+// sets `done` (terminated or truncated, so the lane was reset).
+__device__ __forceinline__ float step_lane(int32_t* g, int bt, const int32_t* tab,
+                                           const int32_t* tmpl_words, const int32_t* tmpl_regs,
+                                           size_t B, int lane, const StepShape& sh, int a, Lane& s,
+                                           bool& done) {
+  const int hw = sh.hw;
+  const int fp = wrap_row(s.shift + tab[s.d], hw);  // forward cell, physical row
+  const int fw = g[fp * bt];
+  const int ft = fw & 15;
+  const int fc = (fw >> 4) & 15;
+  const int fs = (fw >> 8) & 15;
+  const int fct = (fw >> 12) & 15;
+  const int fcc = (fw >> 16) & 15;
+
+  const bool is_fwd = a == 2;
+  const int d1 = a == 1 ? (s.d + 1) % 4 : (a == 0 ? (s.d + 3) % 4 : s.d);
+  const bool can_overlap = ft == kEmpty || ft == kFloor || ft == kGoal || ft == kLava ||
+                           (ft == kDoor && fs == kStateOpen);
+  const bool moves = is_fwd && can_overlap;
+  const int dirx = (s.d == 0) - (s.d == 2);
+  const int diry = (s.d == 1) - (s.d == 3);
+
+  const int sc1 = s.sc + 1;
+  const bool hit_goal = is_fwd && ft == kGoal;
+  const bool terminated = hit_goal || (is_fwd && ft == kLava);
+  const float reward =
+      hit_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(static_cast<float>(sc1),
+                                                            static_cast<float>(sh.max_steps))))
+               : 0.0f;
+
+  const bool hands_empty = s.ct == 0;
+  const bool do_pickup = a == 3 && (ft == kKey || ft == kBall || ft == kBox) && hands_empty;
+  const bool do_drop = a == 4 && ft == kEmpty && !hands_empty;
+  const bool is_toggle = a == 5;
+
+  uint32_t new_fwd = static_cast<uint32_t>(fw);
+  if (do_pickup) new_fwd = kEmptyWord;
+  if (do_drop) {
+    new_fwd = static_cast<uint32_t>(s.ct) | (static_cast<uint32_t>(s.cc) << 4) |
+              (static_cast<uint32_t>(s.cct) << 12) | (static_cast<uint32_t>(s.ccc) << 16);
+  }
+  if (is_toggle && ft == kDoor) {
+    const bool has_key = s.ct == kKey && s.cc == fc;
+    const int state = fs == kStateLocked ? (has_key ? kStateOpen : kStateLocked) : 1 - fs;
+    new_fwd = (static_cast<uint32_t>(fw) & ~(15u << 8)) | (static_cast<uint32_t>(state) << 8);
+  }
+  if (is_toggle && ft == kBox) {
+    new_fwd = static_cast<uint32_t>(fct > 0 ? fct : kEmptyWord) | (static_cast<uint32_t>(fcc) << 4);
+  }
+  g[fp * bt] = static_cast<int32_t>(new_fwd);
+
+  const int ct1 = do_pickup ? ft : (do_drop ? 0 : s.ct);
+  const int cc1 = do_pickup ? fc : (do_drop ? 0 : s.cc);
+  const int cct1 = do_pickup ? fct : (do_drop ? 0 : s.cct);
+  const int ccc1 = do_pickup ? fcc : (do_drop ? 0 : s.ccc);
+
+  if (moves) s.shift = fp;  // re-centre: the forward cell becomes row 0
+
+  done = terminated || sc1 >= sh.max_steps;
+  if (done) {
+    for (int r = 0; r < hw; ++r) g[r * bt] = tmpl_words[r * B + lane];
+    s.shift = 0;
+    s.x = tmpl_regs[0 * B + lane];
+    s.y = tmpl_regs[1 * B + lane];
+    s.d = tmpl_regs[2 * B + lane];
+    s.ct = tmpl_regs[3 * B + lane];
+    s.cc = tmpl_regs[4 * B + lane];
+    s.cct = tmpl_regs[5 * B + lane];
+    s.ccc = tmpl_regs[6 * B + lane];
+    s.sc = 0;
+  } else {
+    s.x = moves ? s.x + dirx : s.x;
+    s.y = moves ? s.y + diry : s.y;
+    s.d = d1;
+    s.ct = ct1;
+    s.cc = cc1;
+    s.cct = cct1;
+    s.ccc = ccc1;
+    s.sc = sc1;
+  }
+  return reward;
+}
+
+// The lane's egocentric view: calls visit(kv, word) with kv = j * V + i for
+// view cell (row j, col i), the agent at (V - 1, V / 2). A visible cell
+// passes its packed word (the agent's cell shows what it carries; cells off
+// the map read as grey walls). A cell the occlusion flood hides passes 0 if
+// kVisitHidden, and is skipped otherwise.
+template <bool kVisitHidden, class Visit>
+__device__ __forceinline__ void read_view(const int32_t* g, int bt, const int32_t* tab,
+                                          const StepShape& sh, const Lane& s, Visit&& visit) {
+  const int v = sh.view;
+  const int v2 = v * v;
+  const int half = v / 2;
+  const int f0 = (s.d == 0) - (s.d == 2);
+  const int f1 = (s.d == 1) - (s.d == 3);
+  const int agent_word = s.ct > 0 ? (s.ct | (s.cc << 4)) : kEmptyWord;
+  const int32_t* off_view = tab + 4 + s.d * v2;
+  auto cell = [&](int j, int i) -> int {
+    const int rd = v - 1 - j;
+    const int co = i - half;
+    if (rd == 0 && co == 0) return agent_word;
+    const int wx = s.x + f0 * rd - f1 * co;
+    const int wy = s.y + f1 * rd + f0 * co;
+    if (wx < 0 || wx >= sh.width || wy < 0 || wy >= sh.height) return kWallWord;
+    return g[wrap_row(s.shift + off_view[j * v + i], sh.hw) * bt];
+  };
+
+  if (sh.see_through_walls) {
+    for (int j = 0; j < v; ++j)
+      for (int i = 0; i < v; ++i) visit(j * v + i, cell(j, i));
+    return;
+  }
+  // The occlusion flood on V-bit row masks, from the agent's row outwards
+  // (ops/packing.py::visibility_bitmask); v <= 31 (checked by the wrappers).
+  const uint32_t all_bits = (1u << v) - 1u;
+  const uint32_t last_clear = all_bits >> 1;
+  const uint32_t first_clear = all_bits & ~1u;
+  uint32_t carry = 0;
+  for (int j = v - 1; j >= 0; --j) {
+    uint32_t trow = 0;
+    for (int i = 0; i < v; ++i) trow |= static_cast<uint32_t>(transparent(cell(j, i))) << i;
+    uint32_t row = carry;
+    if (j == v - 1) row |= 1u << half;
+    for (int k = 0; k < v - 1; ++k) row |= (row & trow) << 1;
+    row &= all_bits;
+    const uint32_t q_l = row & trow & last_clear;
+    for (int k = 0; k < v - 1; ++k) row |= (row & trow) >> 1;
+    const uint32_t q_r = row & trow & first_clear;
+    carry = (q_l | (q_l << 1) | q_r | (q_r >> 1)) & all_bits;
+    for (int i = 0; i < v; ++i) {
+      if ((row >> i) & 1u) {
+        visit(j * v + i, cell(j, i));
+      } else if (kVisitHidden) {
+        visit(j * v + i, 0);
+      }
+    }
+  }
+}
+
+// Store the lane's grid (undoing the row offset) and registers. The aux,
+// mission and rng rows only change on reset, to the template's.
+__device__ __forceinline__ void store_lane(const int32_t* g, int bt, int32_t* words_out,
+                                           int32_t* regs_out, const int32_t* regs_in,
+                                           const int32_t* tmpl_regs, bool reset_any, size_t B,
+                                           int lane, int hw, int num_regs, const Lane& s) {
+  for (int r = 0; r < hw; ++r) words_out[r * B + lane] = g[wrap_row(r + s.shift, hw) * bt];
+  const int scalars[kNumScalars] = {s.x, s.y, s.d, s.ct, s.cc, s.cct, s.ccc, s.sc};
+  for (int r = 0; r < kNumScalars; ++r) regs_out[r * B + lane] = scalars[r];
+  const int32_t* tail = reset_any ? tmpl_regs : regs_in;
+  for (int r = kNumScalars; r < num_regs; ++r) regs_out[r * B + lane] = tail[r * B + lane];
+}
+
+}  // namespace

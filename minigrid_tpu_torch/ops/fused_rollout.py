@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -89,11 +89,13 @@ def step_core(
     view: int,
     max_steps: int,
     see_through_walls: bool,
+    with_obs: bool = False,
 ):
     """One packed transition + auto-reset + obs checksum.
 
     Returns `(words2, regs2, reward (1,B) f32, done (1,B) bool,
-    obs_sum (1,B) int32)`: the JAX package's `_step_core` without hooks."""
+    obs_sum (1,B) int32)`: the JAX package's `_step_core` without hooks.
+    With `with_obs`, the post-step view `(vw, vis)` (`obs_core`) follows."""
     hw = width * height
     off_fwd, _, _, _ = _dir_tables(width, height, view)
     dev = words.device
@@ -204,6 +206,8 @@ def step_core(
     )
     tcs = (vw & 15) + ((vw >> 4) & 15) + ((vw >> 8) & 15)
     obs_sum = (tcs * vis).sum(dim=0, keepdim=True, dtype=torch.int32)
+    if with_obs:
+        return words2, regs2, reward, done, obs_sum, vw, vis
     return words2, regs2, reward, done, obs_sum
 
 
@@ -514,18 +518,19 @@ def _action_stream(env: Env, num_steps: int, generator, b: int, device, override
     return random_policy(env.config.num_actions)(generator, num_steps, b)
 
 
-def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, actions_override=None):
-    """`step(generator, carry) -> (carry, RolloutMetrics)` for the
+def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, stream_fn):
+    """`step(source, carry) -> (carry, RolloutMetrics)` for the
     static-template paths (cached mode, or regen on static layouts).
-    `run_core(words, regs, tmpl_words, tmpl_regs, actions, config)` runs
-    the whole `num_steps`."""
+    `stream_fn(source, b, device)` makes the `(T, B)` per-step input (the
+    actions, or the policy's sampling seeds) and `run_core(words, regs,
+    tmpl_words, tmpl_regs, stream, config)` runs the whole `num_steps`."""
 
-    def step_carry(generator: Optional[torch.Generator], carry: PackedCarry):
+    def step_carry(source, carry: PackedCarry):
         b = carry.words.shape[1]
         dev = carry.words.device
-        actions = _action_stream(env, num_steps, generator, b, dev, actions_override)
+        stream = stream_fn(source, b, dev)
         words_f, regs_f, rsum, epi, csum = run_core(
-            carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, actions, env.config
+            carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, stream, env.config
         )
         rng = carry.rng
         if mode == "regen":
@@ -542,17 +547,23 @@ def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, action
     return step_carry
 
 
-def _build(env: Env, num_steps: int, mode: str, as_carry: bool, run_core, actions_override):
+def build_carry_surface(env: Env, num_steps: int, mode: str, as_carry: bool, run_core, stream_fn):
+    """The carry step of `_make_plain_carry_step`, or with `as_carry=False`
+    `rollout(source, states) -> (states, RolloutMetrics)` around it."""
     _check_supported(env, mode)
-    step_carry = _make_plain_carry_step(env, num_steps, mode, run_core, actions_override)
+    step_carry = _make_plain_carry_step(env, num_steps, mode, run_core, stream_fn)
     if as_carry:
         return step_carry
 
-    def rollout(generator: Optional[torch.Generator], states: EnvState):
-        carry, metrics = step_carry(generator, packed_init(env, states, mode))
+    def rollout(source, states: EnvState):
+        carry, metrics = step_carry(source, packed_init(env, states, mode))
         return packed_finish(env, carry), metrics
 
     return rollout
+
+
+def _actions_for(env: Env, num_steps: int, actions_override):
+    return lambda generator, b, dev: _action_stream(env, num_steps, generator, b, dev, actions_override)
 
 
 def build_fused_rollout(
@@ -564,7 +575,9 @@ def build_fused_rollout(
     runs in the CUDA kernel for CUDA tensors and in the plain twin for CPU
     tensors. `actions_override` (`(T, B)` or `(T,)`) replaces the random
     policy."""
-    return _build(env, num_steps, mode, as_carry, run_rollout_kernel, actions_override)
+    return build_carry_surface(
+        env, num_steps, mode, as_carry, run_rollout_kernel, _actions_for(env, num_steps, actions_override)
+    )
 
 
 def build_packed_plain_rollout(
@@ -572,4 +585,6 @@ def build_packed_plain_rollout(
 ):
     """The plain-torch twin of `build_fused_rollout` (same surfaces and
     results), on any device."""
-    return _build(env, num_steps, mode, as_carry, plain_rollout, actions_override)
+    return build_carry_surface(
+        env, num_steps, mode, as_carry, plain_rollout, _actions_for(env, num_steps, actions_override)
+    )

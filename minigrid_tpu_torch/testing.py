@@ -1,4 +1,5 @@
-"""Random packed states for checking the rollout kernel against its twin.
+"""Random packed states and exact-sum weights for checking the kernels
+against their twins.
 
 `random_packed_case` draws, from a numpy seed, a batch of agent-centred
 packed states that reach every branch of the step: border walls; doors
@@ -7,7 +8,11 @@ lava, goal, floor and interior walls; random headings, random carrying
 (boxes with contents included) and step counts, half of them within a few
 steps of `max_steps`; and a random reset template. The CPU tests feed
 these to the JAX package and to the port, and `chip_smoke.py` to the CUDA
-kernel and the plain twin.
+kernels and their plain twins.
+
+`dyadic_flax_params` draws `ActorCritic` weights on a sparse dyadic grid,
+under which every f32 sum of the actor is exact in any order: the policy
+kernel, its twin and the JAX package then agree bit for bit.
 """
 
 from __future__ import annotations
@@ -72,3 +77,32 @@ def random_packed_case(
     tmpl_words, tmpl_regs = _states(rng, width, height, batch, max_steps)
     tmpl_regs[R_SC] = 0
     return dict(words=words, regs=regs, tmpl_words=tmpl_words, tmpl_regs=tmpl_regs)
+
+
+def _sparse_dyadic(rng: np.random.Generator, n_in: int, n_out: int, nnz: int, steps, scale: float):
+    """`(n_in, n_out)` float32: `nnz` non-zeros per column, each
+    `±j · scale` with `j` drawn from `steps`."""
+    k = np.zeros((n_in, n_out), np.float32)
+    for o in range(n_out):
+        rows = rng.choice(n_in, size=nnz, replace=False)
+        k[rows, o] = rng.choice(steps, size=nnz) * rng.choice([-1, 1], size=nnz) * scale
+    return k
+
+
+def dyadic_flax_params(seed: int, view: int = 7, num_actions: int = 7, hidden: int = 256):
+    """A flax `ActorCritic` params tree of numpy float32 arrays whose values
+    are small multiples of powers of two with few non-zeros per unit, so
+    that the actor's f32 sums (and so the logits) are exact in any order:
+    torso entries in quarters, head entries in sixteenths."""
+    rng = np.random.default_rng(seed)
+    n_in = view * view * 20
+
+    def bias(n, scale):
+        return (rng.integers(-2, 3, size=n) * scale).astype(np.float32)
+
+    return {"params": {
+        "torso_0": {"kernel": _sparse_dyadic(rng, n_in, hidden, 4, [1, 2, 3, 4], 0.25), "bias": bias(hidden, 0.25)},
+        "torso_1": {"kernel": _sparse_dyadic(rng, hidden, hidden, 4, [1, 2, 3, 4], 0.25), "bias": bias(hidden, 0.25)},
+        "actor": {"kernel": _sparse_dyadic(rng, hidden, num_actions, 8, [1, 2], 1 / 16), "bias": bias(num_actions, 1 / 16)},
+        "critic": {"kernel": _sparse_dyadic(rng, hidden, 1, 8, [1, 2], 1 / 16), "bias": bias(1, 1 / 16)},
+    }}

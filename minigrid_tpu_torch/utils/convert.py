@@ -14,6 +14,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from minigrid_tpu_torch.core.prng import default_device
 from minigrid_tpu_torch.core.state import EnvState
 from minigrid_tpu_torch.ops.fused_rollout import PackedCarry
 
@@ -42,8 +43,9 @@ def _rng_out(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.uint32)
 
 
-def state_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> EnvState:
-    """A batched `EnvState` on `device` from numpy leaves."""
+def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> EnvState:
+    """A batched `EnvState` on `device` (default: the card) from numpy leaves."""
+    device = default_device(device)
     leaves = {}
     for name in STATE_FIELDS:
         a = _rng_in(arrays[name]) if name == "rng" else np.asarray(arrays[name], _STATE_DTYPES[name])
@@ -59,9 +61,10 @@ def state_to_numpy(state: EnvState) -> Dict[str, np.ndarray]:
     }
 
 
-def carry_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> PackedCarry:
-    """A `PackedCarry` on `device` from numpy leaves (int32 words and
-    registers, uint32 rng)."""
+def carry_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> PackedCarry:
+    """A `PackedCarry` on `device` (default: the card) from numpy leaves
+    (int32 words and registers, uint32 rng)."""
+    device = default_device(device)
     leaves = {
         name: torch.from_numpy(
             _rng_in(arrays[name]) if name == "rng" else np.array(arrays[name], np.int32)

@@ -37,7 +37,7 @@ def _jax_state_and_carry(env_id):
 @pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-Empty-5x5-v0"])
 def test_state_round_trip(env_id):
     want, _ = _jax_state_and_carry(env_id)
-    state = state_from_numpy(want)
+    state = state_from_numpy(want, device="cpu")
     assert state.rng.dtype == torch.int64 and state.grid.dtype == torch.uint8
     got = state_to_numpy(state)
     for name in STATE_FIELDS:
@@ -49,7 +49,7 @@ def test_state_round_trip(env_id):
 def test_carry_round_trip(env_id):
     _, want = _jax_state_and_carry(env_id)
     assert tuple(want) == CARRY_FIELDS == PackedCarry._fields
-    carry = carry_from_numpy(want)
+    carry = carry_from_numpy(want, device="cpu")
     assert all(getattr(carry, k).dtype == torch.int32 for k in ("words", "regs", "tmpl_words", "tmpl_regs"))
     got = carry_to_numpy(carry)
     for name in CARRY_FIELDS:
@@ -60,6 +60,6 @@ def test_carry_round_trip(env_id):
 def test_rng_leaf_must_be_uint32():
     want, carry = _jax_state_and_carry("MiniGrid-Empty-5x5-v0")
     with pytest.raises(TypeError, match="uint32"):
-        state_from_numpy({**want, "rng": want["rng"].astype(np.int32)})
+        state_from_numpy({**want, "rng": want["rng"].astype(np.int32)}, device="cpu")
     with pytest.raises(TypeError, match="uint32"):
-        carry_from_numpy({**carry, "rng": carry["rng"].astype(np.int64)})
+        carry_from_numpy({**carry, "rng": carry["rng"].astype(np.int64)}, device="cpu")

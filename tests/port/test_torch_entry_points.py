@@ -1,0 +1,64 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU, and no module of the port (nor `chip_smoke.py`) imports JAX, flax or
+the JAX package. This file imports no JAX."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from minigrid_tpu_torch.core.prng import key
+from minigrid_tpu_torch.utils.convert import carry_from_numpy, state_from_numpy
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+FORBIDDEN = {"jax", "jaxlib", "flax", "minigrid_tpu"}
+
+
+def test_key_defaults_to_the_card():
+    if torch.cuda.is_available():
+        assert key(0).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            key(0)
+    assert key(0, device="cpu").device.type == "cpu"
+
+
+def test_numpy_conversions_default_to_the_card():
+    leaves = {"words": np.zeros((4, 2), np.int32), "rng": np.zeros((2, 2), np.uint32)}
+    if torch.cuda.is_available():
+        pytest.skip("checks the default on a machine without a card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy(leaves)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        carry_from_numpy(leaves)
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "minigrid_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _imported_packages(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_module_imports_jax_flax_or_the_jax_package():
+    paths = _port_sources()
+    assert len(paths) >= 20, paths
+    bad = {
+        os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths
+    }
+    assert not {p: names for p, names in bad.items() if names}
+    # The walk sees the port's own imports (so it would see a forbidden one).
+    assert "minigrid_tpu_torch" in set(_imported_packages(os.path.join(REPO, "chip_smoke.py")))

@@ -32,7 +32,7 @@ def _doorkey_states():
 def test_pack_states_matches_jax_on_doorkey():
     _, states, leaves = _doorkey_states()
     jw, jr = jax.jit(jpk.pack_states)(states)
-    tw, tr = tpk.pack_states(state_from_numpy(leaves))
+    tw, tr = tpk.pack_states(state_from_numpy(leaves, device="cpu"))
     assert tw.dtype == torch.int32 and tr.dtype == torch.int32
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
@@ -41,7 +41,7 @@ def test_pack_states_matches_jax_on_doorkey():
 def test_unpack_inverts_pack_on_doorkey():
     env, _, leaves = _doorkey_states()
     cfg = EnvConfig(**dataclasses.asdict(env.config))
-    back = state_to_numpy(tpk.unpack_states(*tpk.pack_states(state_from_numpy(leaves)), cfg))
+    back = state_to_numpy(tpk.unpack_states(*tpk.pack_states(state_from_numpy(leaves, device="cpu")), cfg))
     for name, want in leaves.items():
         assert back[name].dtype == want.dtype, name
         np.testing.assert_array_equal(back[name], want, err_msg=name)

@@ -1,0 +1,238 @@
+"""The policy kernel's wrapper and the policy path's surface, without JAX,
+so that the `gpu` tests also run on a machine with a card and no JAX:
+
+    python -m pytest --noconftest -o addopts="" tests/port/test_torch_policy_kernel.py -q
+
+Without a CUDA device those tests skip with the reason: the kernel has no
+CPU mode. The rest checks what the wrapper does before any launch (on
+`meta` tensors) and the CPU path.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from minigrid_tpu_torch import make
+from minigrid_tpu_torch.core.prng import key
+from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.models.policy import ActorCritic
+from minigrid_tpu_torch.ops import fused_rollout as tfr
+from minigrid_tpu_torch.ops import policy_rollout as tpr
+from minigrid_tpu_torch.testing import dyadic_flax_params, random_packed_case
+
+OPERANDS = ("words", "regs", "tmpl_words", "tmpl_regs")
+CPU = torch.device("cpu")
+
+
+def _cfg(width, height, see_through_walls):
+    return EnvConfig(
+        family="empty", width=width, height=height, max_steps=4 * width * height,
+        see_through_walls=see_through_walls,
+    )
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(cfg, b, t, device, seed=0):
+    case = random_packed_case(seed, cfg.width, cfg.height, b, cfg.max_steps)
+    args = [torch.from_numpy(case[k]).to(device) for k in OPERANDS]
+    seeds = np.random.default_rng(seed + 1).integers(-(2**31), 2**31, (t, b)).astype(np.int32)
+    return args, torch.from_numpy(seeds).to(device)
+
+
+def _meta_operands(cfg, b=64, t=4):
+    args, seeds = _case(cfg, b, t, "meta")
+    w = tpr.eval_weights_from_params(dyadic_flax_params(0), cfg.agent_view_size, device="meta")
+    return args, seeds, w
+
+
+def test_wrapper_raises_off_cpu_without_cuda():
+    cfg = _cfg(8, 8, True)
+    args, seeds, w = _meta_operands(cfg)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        tpr.run_policy_kernel(*args, seeds, w, cfg)
+
+
+@pytest.mark.parametrize(
+    "field,bad,error,match",
+    [
+        ("seeds", lambda x: x.to(torch.int64), TypeError, "seeds has dtype"),
+        ("seeds", lambda x: x[:, :32], ValueError, r"seeds has shape"),
+        ("words", lambda x: x.t().contiguous().t(), ValueError, "words is not contiguous"),
+        ("regs", lambda x: x[:-1], ValueError, "regs has shape"),
+        ("wt1", lambda x: x.float(), TypeError, "wt1 has dtype"),
+        ("wt2", lambda x: x[:128], ValueError, "wt2 has shape"),
+        ("wta", lambda x: x.t().contiguous().t(), ValueError, "wta is not contiguous"),
+    ],
+)
+def test_wrapper_checks_operands_before_launch(field, bad, error, match):
+    cfg = _cfg(8, 8, True)
+    args, seeds, w = _meta_operands(cfg)
+    ops = dict(zip(OPERANDS, args), seeds=seeds)
+    if field in ops:
+        ops[field] = bad(ops[field])
+    else:
+        w = w._replace(**{field: bad(getattr(w, field))})
+    with pytest.raises(error, match=match):
+        tpr.run_policy_kernel(*(ops[k] for k in OPERANDS), ops["seeds"], w, cfg)
+
+
+def test_wrapper_takes_plain_twin_on_cpu():
+    cfg = _cfg(9, 7, False)
+    args, seeds = _case(cfg, 32, 8, CPU)
+    w = tpr.eval_weights_from_params(dyadic_flax_params(0), cfg.agent_view_size, device=CPU)
+    before = tpr.policy_kernel_launches
+    got = tpr.run_policy_kernel(*args, seeds, w, cfg)
+    want = tpr.plain_policy_rollout(*args, seeds, w, cfg)
+    assert tpr.policy_kernel_launches == before
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert got[3].dtype == torch.int32 and int(got[3].sum()) > 0  # episodes ended
+
+
+@pytest.mark.parametrize(
+    "size,lanes", [((8, 8), 64), ((9, 9), 64), ((16, 16), 32), ((25, 25), 32), ((40, 40), None)]
+)
+def test_lane_block_fits_shared_memory(size, lanes):
+    cfg = _cfg(*size, False)
+    if lanes is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            tpr.policy_lane_block(cfg)
+    else:
+        assert tpr.policy_lane_block(cfg) == lanes
+        assert tpr.policy_smem_bytes(cfg, lanes) <= tpr._SMEM_LIMIT
+
+
+def test_padded_features_are_whole_k_tiles():
+    assert [tpr.padded_features(v) for v in (3, 5, 7)] == [192, 512, 992]
+
+
+@pytest.mark.parametrize("view", [1, 4, 33])
+def test_lane_block_rejects_view_sizes(view):
+    with pytest.raises(ValueError, match="view size"):
+        tpr.policy_lane_block(dataclasses.replace(_cfg(8, 8, False), agent_view_size=view))
+
+
+def test_supported_envs_and_modes():
+    empty = make("MiniGrid-Empty-8x8-v0")
+    assert tpr.policy_rollout_supported(empty, "regen")
+    assert tpr.policy_rollout_supported(make("MiniGrid-DistShift1-v0"), "cached")
+    random_start = dataclasses.replace(empty, config=dataclasses.replace(empty.config, agent_start_pos=None))
+    assert tpr.policy_rollout_supported(random_start, "cached")
+    assert not tpr.policy_rollout_supported(random_start, "regen")
+    assert not tpr.policy_rollout_supported(dataclasses.replace(empty, transition="lavagap"), "cached")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpr.build_policy_eval_rollout(random_start, dyadic_flax_params(0), 8, mode="regen")
+
+
+@pytest.mark.parametrize("k", [256, 980])
+def test_a_fragments_hold_each_weight_once(k):
+    w = torch.arange(1, 256 * k + 1, dtype=torch.float32).reshape(256, k)
+    frag = tpr._a_fragments(w)
+    kp = -(-k // 16) * 16
+    assert tuple(frag.shape) == (16, kp // 16, 32, 8)
+    values = frag.reshape(-1).sort().values
+    assert torch.equal(values[values > 0], w.reshape(-1)) and int((values == 0).sum()) == 256 * (kp - k)
+    # Thread 5 (group 1, column pair 1) of tile (2, 3): rows 1, 9; columns 2, 10.
+    tile = w[32:48, 48:64]
+    assert frag[2, 3, 5].tolist() == [tile[1, 2], tile[1, 3], tile[9, 2], tile[9, 3],
+                                      tile[1, 10], tile[1, 11], tile[9, 10], tile[9, 11]]
+
+
+def test_actor_critic_init_is_seeded_and_round_trips():
+    a = ActorCritic(7, generator=torch.Generator().manual_seed(3))
+    b = ActorCritic(7, generator=torch.Generator().manual_seed(3))
+    c = ActorCritic(7, generator=torch.Generator().manual_seed(4))
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    assert not torch.equal(a.torso_0.weight, c.torso_0.weight)
+    assert a.torso_0.weight.shape == (256, 980) and not a.torso_0.bias.detach().any()
+    std = float(a.torso_0.weight.detach().std())
+    assert abs(std - (1 / 980) ** 0.5) < 0.05 * (1 / 980) ** 0.5  # LeCun normal
+    tree = {"params": {n: {k: v.numpy() for k, v in d.items()} for n, d in a.flax_params()["params"].items()}}
+    d = ActorCritic.from_flax(tree, device=CPU)
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(), d.parameters()))
+
+
+def test_eval_rollout_on_cpu_runs_the_twin():
+    env = make("MiniGrid-Empty-5x5-v0")
+    model = ActorCritic(env.config.num_actions, generator=torch.Generator().manual_seed(0))
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device=CPU), 16), "regen")
+    step = tpr.build_policy_eval_rollout(env, model, 20, mode="regen", as_carry=True)
+    before = tpr.policy_kernel_launches
+    runs = [step(key(s, device=CPU), carry) for s in (1, 1, 2)]
+    assert tpr.policy_kernel_launches == before
+    assert torch.equal(runs[0][0].regs, runs[1][0].regs)
+    assert not torch.equal(runs[0][0].regs, runs[2][0].regs)
+    assert int(runs[0][1].total_steps) == 16 * 20
+    rollout = tpr.build_policy_eval_rollout(env, model, 20, mode="regen")
+    states, metrics = rollout(key(1, device=CPU), tfr.packed_finish(env, carry))
+    assert int(metrics.obs_checksum) == int(runs[0][1].obs_checksum)
+    assert torch.equal(states.agent_pos, tfr.packed_finish(env, runs[0][0]).agent_pos)
+
+
+def test_eval_rollout_sees_in_place_weight_updates():
+    """A module updated in place between calls (an optimiser step) is
+    evaluated with its new weights by the same `step`."""
+    env = make("MiniGrid-Empty-5x5-v0")
+    model = ActorCritic(env.config.num_actions, generator=torch.Generator().manual_seed(0))
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device=CPU), 16), "regen")
+    step = tpr.build_policy_eval_rollout(env, model, 20, mode="regen", as_carry=True)
+    before, _ = step(key(1, device=CPU), carry)
+    with torch.no_grad():  # forward, always
+        model.actor.bias.copy_(torch.tensor([-30.0, -30.0, 30.0, -30.0, -30.0, -30.0, -30.0]))
+    after, _ = step(key(1, device=CPU), carry)
+    fresh, _ = tpr.build_policy_eval_rollout(env, model, 20, mode="regen", as_carry=True)(key(1, device=CPU), carry)
+    assert not torch.equal(before.regs, after.regs)
+    assert torch.equal(after.words, fresh.words) and torch.equal(after.regs, fresh.regs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "width,height,see_through_walls",
+    [(8, 8, True), (8, 8, False), (9, 7, True), (9, 7, False), (16, 16, False), (25, 25, False)],
+)
+def test_cuda_kernel_matches_plain_twin(width, height, see_through_walls):
+    """Under dyadic weights: words, registers, episodes and checksum
+    byte-exact; per-lane reward sums bit-identical."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cfg(width, height, see_through_walls)
+    args, seeds = _case(cfg, 2048, 32, dev, seed=width * height)
+    w = tpr.eval_weights_from_params(dyadic_flax_params(5), cfg.agent_view_size, device=dev)
+    before = tpr.policy_kernel_launches
+    got = tpr.run_policy_kernel(*args, seeds, w, cfg)
+    want = tpr.plain_policy_rollout(*args, seeds, w, cfg)
+    torch.cuda.synchronize()
+    assert tpr.policy_kernel_launches == before + 1
+    for name, g, x in zip(("words", "regs", "rsum", "episodes", "checksum"), got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        if g.dtype == torch.float32:
+            g, x = g.view(torch.int32), x.view(torch.int32)
+        assert torch.equal(g, x), name
+
+
+@pytest.mark.gpu
+def test_cuda_eval_surface_matches_cpu_twin():
+    """Empty-8x8 regen through `build_policy_eval_rollout` on the card equals
+    the same call on the CPU twin, rng chain and metrics included."""
+    dev = _cuda()
+    env = make("MiniGrid-Empty-8x8-v0")
+    params = dyadic_flax_params(6)
+    out = []
+    for d in (dev, CPU):
+        carry = tfr.packed_init(env, env.reset_batch(key(0, device=d), 512), "regen")
+        step = tpr.build_policy_eval_rollout(env, params, 64, mode="regen", as_carry=True)
+        out.append(step(key(3, device=d), carry))
+    (ck, mk), (cp, mp) = out
+    for a, b in zip(ck, cp):
+        assert torch.equal(a.cpu(), b)
+    for name in ("episodes", "total_steps", "obs_checksum", "reset_overlaps"):
+        assert torch.equal(getattr(mk, name).cpu(), getattr(mp, name)), name
+    # The batch sum of per-lane rewards runs in another order on the card.
+    torch.testing.assert_close(mk.total_reward.cpu(), mp.total_reward, rtol=1e-6, atol=0)

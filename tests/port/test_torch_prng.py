@@ -43,9 +43,9 @@ def test_threefry_matches_core_prng():
 @pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
 def test_key_matches_prng_key(seed):
     want = np.asarray(jax.random.PRNGKey(seed))
-    np.testing.assert_array_equal(prng.key(seed).numpy().astype(np.uint32), want)
+    np.testing.assert_array_equal(prng.key(seed, device="cpu").numpy().astype(np.uint32), want)
 
 
 def test_key_rejects_negative_seed():
     with pytest.raises(ValueError):
-        prng.key(-1)
+        prng.key(-1, device="cpu")

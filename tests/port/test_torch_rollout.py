@@ -116,7 +116,7 @@ ENV_IDS = ["MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-8x8-v0", "MiniGrid-DistShift
 @pytest.mark.parametrize("env_id", env_list)
 def test_reset_batch_matches_jax(env_id):
     _, jstates = _jax_states(env_id, 5)
-    got = state_to_numpy(make(env_id).reset_batch(key(5), B))
+    got = state_to_numpy(make(env_id).reset_batch(key(5, device="cpu"), B))
     _assert_same(got, _np_state(jstates), env_id)
 
 
@@ -125,7 +125,7 @@ def test_reset_batch_matches_jax(env_id):
 def test_two_call_rollout_matches_jax(env_id, mode):
     seed = len(env_id) + len(mode)
     env = make(env_id)
-    carry = tfr.packed_init(env, env.reset_batch(key(seed), B), mode)
+    carry = tfr.packed_init(env, env.reset_batch(key(seed, device="cpu"), B), mode)
     out, final = _port_two_calls(env, carry, seed, mode=mode)
     for backend in ("xla", "pallas"):
         jcarry0, jout, jfinal = _jax_two_calls(env_id, mode, seed, backend)
@@ -147,7 +147,7 @@ def test_doorkey_cached_from_converted_jax_carry():
     jcarry0 = jax.jit(lambda s: jfr.packed_init(jenv, s, "cached"))(jstates)
     env = Env(env_id, EnvConfig(**dataclasses.asdict(jenv.config)), generate=None)
     assert not env.config.see_through_walls
-    out, final = _port_two_calls(env, carry_from_numpy(_np_carry(jcarry0)), seed, mode="cached")
+    out, final = _port_two_calls(env, carry_from_numpy(_np_carry(jcarry0), device="cpu"), seed, mode="cached")
     for backend in ("xla", "pallas"):
         _, jout, jfinal = _jax_steps(jenv, "cached", backend, jcarry0, seed)
         for i, ((c, m), (jc, jm)) in enumerate(zip(out, jout)):
@@ -158,7 +158,7 @@ def test_doorkey_cached_from_converted_jax_carry():
 
 def test_plain_twin_and_legacy_surface_agree_with_carry_surface():
     env = make("MiniGrid-DistShift1-v0")
-    states = env.reset_batch(key(2), B)
+    states = env.reset_batch(key(2, device="cpu"), B)
     actions = _actions(2)
     fused = tfr.build_fused_rollout(env, T, actions_override=actions)
     plain = tfr.build_packed_plain_rollout(env, T, actions_override=actions)
@@ -175,7 +175,7 @@ def test_plain_twin_and_legacy_surface_agree_with_carry_surface():
 
 def test_random_policy_draws_from_the_generator():
     env = make("MiniGrid-Empty-8x8-v0")
-    carry = tfr.packed_init(env, env.reset_batch(key(0), B), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device="cpu"), B), "regen")
     step = tfr.build_fused_rollout(env, 16, as_carry=True)
     runs = [step(torch.Generator().manual_seed(s), carry) for s in (1, 1, 2)]
     assert torch.equal(runs[0][0].words, runs[1][0].words)

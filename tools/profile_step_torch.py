@@ -1,15 +1,20 @@
 """Where one carry-surface `step` call of the PyTorch port spends its time
 on a CUDA card.
 
-    python tools/profile_step_torch.py
+    python tools/profile_step_torch.py            # random policy
+    python tools/profile_step_torch.py --policy   # ActorCritic in the loop
 
 At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
-`chip_smoke.py`), runs the pieces of a regen `step(generator, carry)` call
+`chip_smoke.py`), runs the pieces of a regen `step(source, carry)` call
 (`minigrid_tpu_torch.ops.fused_rollout._make_plain_carry_step`) one after
 the other on the current stream, with a CUDA event between each:
 
-  actions   the random policy's `(T, B)` int32 draw (`_action_stream`)
-  kernel    the rollout kernel (`run_rollout_kernel`)
+  actions   the per-step input: the random policy's `(T, B)` int32 draw
+            (`_action_stream`), or with `--policy` the sampling seeds
+            (`policy_rollout._seeds_for`, Threefry in plain torch)
+  kernel    the rollout kernel (`run_rollout_kernel`), or with `--policy`
+            the policy kernel (`run_policy_kernel`, the seeded
+            `ActorCritic` of `chip_smoke.py`)
   replay    the regen rng-chain replay (`_replay_rng_chain`); its
             `.item()` makes the host wait for the kernel, so the span also
             holds the gaps while the host launches the replay's ops
@@ -35,7 +40,9 @@ import torch
 
 from minigrid_tpu_torch import make
 from minigrid_tpu_torch.core.prng import key
+from minigrid_tpu_torch.models.policy import ActorCritic
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.ops import policy_rollout as pr
 
 ENV_ID = "MiniGrid-Empty-8x8-v0"
 BATCH = 2_097_152
@@ -45,17 +52,17 @@ CALLS = 3
 PIECES = ("actions", "kernel", "replay", "sums")
 
 
-def timed_pieces(env, num_steps, gen, carry):
+def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
     """One regen step call, piece by piece: (carry, ms per piece, replay
     iterations)."""
     cfg = env.config
     b, dev = carry.words.shape[1], carry.words.device
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(PIECES) + 1)]
     ev[0].record()
-    actions = fr._action_stream(env, num_steps, gen, b, dev)
+    stream = stream_fn(source, b, dev)
     ev[1].record()
-    words, regs, rsum, epi, csum = fr.run_rollout_kernel(
-        carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, actions, cfg
+    words, regs, rsum, epi, csum = run_core(
+        carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, stream, cfg
     )
     ev[2].record()
     rng = fr._replay_rng_chain(env, carry.rng, epi[0])
@@ -79,17 +86,31 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    policy = "--policy" in sys.argv[1:]
     env = make(ENV_ID)
     carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
-    step = fr.build_fused_rollout(env, NUM_STEPS, mode="regen", as_carry=True)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    if policy:
+        model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+        weights = pr.eval_weights_from_params(model, env.config.agent_view_size)
+        step = pr.build_policy_eval_rollout(env, model, NUM_STEPS, mode="regen", as_carry=True)
+        sources = iter([key(100 + i, device=dev) for i in range(WARMUP + 2 * CALLS + 1)])
+        stream_fn = lambda k, b, d: pr._seeds_for(k, NUM_STEPS, b)
+        run_core = lambda *a: pr.run_policy_kernel(*a[:5], weights, a[5])
+        kernel_name = "policy_kernel"
+    else:
+        step = fr.build_fused_rollout(env, NUM_STEPS, mode="regen", as_carry=True)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        sources = iter(lambda: gen, None)
+        stream_fn = lambda g, b, d: fr._action_stream(env, NUM_STEPS, g, b, d)
+        run_core = fr.run_rollout_kernel
+        kernel_name = "rollout_kernel"
 
     for _ in range(WARMUP):
-        carry, _ = step(gen, carry)
+        carry, _ = step(next(sources), carry)
     totals = dict.fromkeys(PIECES, 0.0)
     iterations = 0
     for _ in range(CALLS):
-        carry, ms, it = timed_pieces(env, NUM_STEPS, gen, carry)
+        carry, ms, it = timed_pieces(env, NUM_STEPS, next(sources), carry, stream_fn, run_core)
         iterations += it
         for p in PIECES:
             totals[p] += ms[p]
@@ -98,7 +119,7 @@ def main() -> int:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(CALLS):
-        carry, _ = step(gen, carry)
+        carry, _ = step(next(sources), carry)
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / CALLS
@@ -114,17 +135,17 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        carry, _ = step(gen, carry)
+        carry, _ = step(next(sources), carry)
         torch.cuda.synchronize()
     events = prof.key_averages()
     print(events.table(sort_by="device_time_total", row_limit=15), flush=True)
     # Device-side events only, as the table's "Self CUDA time total" sums
     # them: an op's self device time repeats that of the kernels it ran.
     device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    kernel_us = sum(e.self_device_time_total for e in device if "rollout_kernel" in e.key)
+    kernel_us = sum(e.self_device_time_total for e in device if kernel_name in e.key)
     device_us = sum(e.self_device_time_total for e in device)
     print(json.dumps({
-        "card": card, "env_id": ENV_ID, "batch_size": BATCH, "num_steps": NUM_STEPS,
+        "card": card, "env_id": ENV_ID, "policy": policy, "batch_size": BATCH, "num_steps": NUM_STEPS,
         "pieces_ms": pieces_ms, "step_ms": step_ms, "replay_iterations_per_call": iterations / CALLS,
         "profiler_device_ms": device_us / 1e3, "profiler_kernel_ms": kernel_us / 1e3,
     }), flush=True)
