@@ -46,6 +46,29 @@ result line):
      on the tensor cores and can flip a near-tie draw). The kernel alone
      is timed at the main path's shape and weights (mean of 3).
 
+  6. The fused train step at full width: Empty-8x8 regen, B=131,072
+     (the largest batch the JAX package's records train at; its (T, 56, B)
+     int32 trajectory spill takes 7.5 GB), T=256, `init_train_state` (the
+     seeded `ActorCritic`) and `build_fused_train_step`, one warm-up and
+     three timed `train_step(ts, carry, key)` calls. With every count set
+     to 0 just before, the collecting policy kernel and the gradient kernel
+     must each launch exactly 4 times and no other kernel at all; the loss
+     must be finite, the params must have moved, and `env_steps == B*T`.
+     It prints env-steps/s, the loss metrics and the peak device memory.
+  7. The train path's kernels against their plain versions on the card,
+     TF32 off. The collecting policy kernel under dyadic weights on all
+     131,072 lanes of phase 6's warm carry at T=256, against the twin over
+     two slices of 65,536 lanes: the trajectory and the carry byte for
+     byte (tolerance 0). The gradient kernel on a full-size trajectory
+     collected under phase 6's trained weights against `plain_grad_pass`:
+     the rel-to-max error of each weight printed and held to its bound
+     (f32 heads 1e-4, torso 1e-3, loss sums rtol 1e-4); two kernel
+     launches bit for bit. Beside it, what the torso bound must catch: the
+     share of dW1 and dW2 that one of G2's lane splits, or one of its time
+     chunks, carries (the reading of a kernel that skipped it), each
+     required to lie above the bound. Both kernels are timed at the main
+     path's shape (mean of 3).
+
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
 version's, its bound on this card (`bound_ms`: the larger of its bytes
@@ -57,6 +80,7 @@ computes the same function, that call's time (`library_ms`).
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -80,6 +104,22 @@ SLICE_B = 65_536
 POLICY_CHECK_CONFIGS = [(8, 8, True), (8, 8, False), (9, 7, True), (9, 7, False), (16, 16, False)]
 FLAX_T1_MAX_SHARE = 1e-4
 POLICY_TIMED_CALLS = 3
+GRAD_SOURCE = "minigrid_tpu_torch/ops/csrc/grad_kernel.cu"
+GRAD_REPLACES = "minigrid_tpu/ops/grad_kernel.py:81"
+TRAIN_B = 131_072
+TRAIN_T = 256
+TRAIN_TIMED_CALLS = 3
+TRAIN_SLICE_B = 65_536
+# The gradient kernel against its plain version, rel-to-max per weight.
+# Both sum the same bf16 products in f32, in other orders, so they differ
+# by the order of the sums and by the rare one-ulp flip of a bf16 rounding
+# of h1, h2, dh2 or dh1 that such a difference causes. The torso bound is
+# set from the readings on an H100 (at most 6.6e-5, for wt2, at B=131,072
+# T=256) with room to spare, and well below what one lane split or time
+# chunk of G2 left out reads (printed and checked in phase 7).
+GRAD_HEAD_TOL = 1e-4
+GRAD_TORSO_TOL = 1e-3
+GRAD_SUMS_RTOL = 1e-4
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -452,6 +492,172 @@ def phase_policy_vs_plain(dev, card, env, model, warm_carry):
     return max_err, ms, plain_ms, lanes
 
 
+def phase_train_main_path(dev, card):
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import _build
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import train as tr
+
+    # Every kernel's count starts at 0 here and is read right after the
+    # timed calls: they count only this path's launches.
+    fr.rollout_kernel_launches = 0
+    _build.probe_launches = 0
+    pr.policy_kernel_launches = 0
+    gk.grad_kernel_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    env = make(ENV_ID)
+    t0 = time.perf_counter()
+    carry = fr.packed_init(env, env.reset_batch(key(0), TRAIN_B), "regen")
+    ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+    step = tr.build_fused_train_step(env, TRAIN_T, mode="regen")
+    p0 = tr.flatten_params(ts.params.flax_params())
+    torch.cuda.synchronize()
+    print(f"phase 6: {ENV_ID} B={TRAIN_B} T={TRAIN_T} regen, fused train step, ActorCritic on "
+          f"{next(ts.params.parameters()).device}: reset_batch + packed_init + init_train_state "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    ts, carry, metrics = step(ts, carry, key(300))  # warm-up
+    warm_carry = carry
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(TRAIN_TIMED_CALLS):
+        ts, carry, metrics = step(ts, carry, key(301 + i))
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {
+        "rollout_kernel": fr.rollout_kernel_launches,
+        "probe_kernel": _build.probe_launches,
+        "policy_kernel": pr.policy_kernel_launches,
+        "grad_kernel": gk.grad_kernel_launches,
+    }
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = float((tr.flatten_params(ts.params.flax_params()) - p0).abs().max())
+
+    steps_per_s = TRAIN_B * TRAIN_T * TRAIN_TIMED_CALLS / seconds
+    last = {k: float(v) for k, v in metrics.items()}
+    print(f"phase 6: train path {TRAIN_TIMED_CALLS} train steps {seconds:.4f} s, {steps_per_s:.6e} env-steps/s, "
+          f"loss per step {losses}, last metrics {last}, params moved by up to {moved:.6e}, "
+          f"peak memory {peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    print(f"phase 6: launches on the train path {launches}", flush=True)
+    want = {"rollout_kernel": 0, "probe_kernel": 0, "policy_kernel": 1 + TRAIN_TIMED_CALLS,
+            "grad_kernel": 1 + TRAIN_TIMED_CALLS}
+    if launches != want:
+        raise RuntimeError(f"train path launches {launches}, expected {want}")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"the loss is not finite: {losses}")
+    if int(metrics["env_steps"]) != TRAIN_B * TRAIN_T:
+        raise RuntimeError(f"env_steps {int(metrics['env_steps'])} != {TRAIN_B * TRAIN_T}")
+    if not moved > 0:
+        raise RuntimeError("the train steps did not move the params")
+    if int(ts.opt_state.count) != 1 + TRAIN_TIMED_CALLS:
+        raise RuntimeError(f"optimizer count {int(ts.opt_state.count)}")
+    return env, ts, warm_carry, launches, seconds, peak
+
+
+def phase_train_vs_plain(dev, card, env, ts, warm_carry):
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import train as tr
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    cfg = env.config
+    view = cfg.agent_view_size
+    full = (warm_carry.words, warm_carry.regs, warm_carry.tmpl_words, warm_carry.tmpl_regs)
+    seeds = pr._seeds_for(key(400), TRAIN_T, TRAIN_B)
+
+    # The collecting policy kernel on all lanes under dyadic weights, held
+    # against the twin over column slices.
+    dyadic = pr.train_weights_from_params(dyadic_flax_params(8), view, device=dev)
+    _, got = time_events(lambda: pr.run_policy_kernel(*full, seeds, dyadic, cfg, collect=True), 1)
+    collect_plain_ms, max_err, episodes, bad = 0.0, 0.0, 0, {}
+    fields = ("words", "regs", "rsum", "episodes", "checksum", "obs_w", "actions", "logp", "value", "reward", "done")
+    for lo in range(0, TRAIN_B, TRAIN_SLICE_B):
+        cols = slice(lo, lo + TRAIN_SLICE_B)
+        part = [x[:, cols].contiguous() for x in full]
+        ms, want = time_events(
+            lambda: pr.plain_policy_rollout(*part, seeds[:, cols].contiguous(), dyadic, cfg, collect=True), 1
+        )
+        collect_plain_ms += ms
+        for name, g, w in zip(fields, (*got[:5], *got[5]), (*want[:5], *want[5])):
+            g = g[..., cols]
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise RuntimeError(f"phase 7: {name}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+            gb, wb = (g.view(torch.int32), w.view(torch.int32)) if g.dtype == torch.float32 else (g, w)
+            bad[name] = bad.get(name, 0) + int((gb != wb).sum())
+            max_err = max(max_err, float((g.double() - w.double()).abs().max()))
+        episodes += int(want[3].sum())
+        del want
+    print(f"phase 7: collecting policy kernel, {ENV_ID} warm carry, B={TRAIN_B} T={TRAIN_T}, dyadic weights: "
+          f"plain twin {collect_plain_ms:.4f} ms over {TRAIN_B // TRAIN_SLICE_B} slices of {TRAIN_SLICE_B} lanes; "
+          f"episodes={episodes} mismatches={bad} max_abs_err={max_err} [{card}]", flush=True)
+    if any(bad.values()) or episodes == 0:
+        raise RuntimeError("phase 7 failed: the collect spill differs from the twin")
+    del got
+
+    # Both kernels timed at the main path's shape under the trained weights.
+    weights = pr.train_weights_from_params(ts.params, view)
+    pr.run_policy_kernel(*full, seeds, weights, cfg, collect=True)  # warm
+    collect_ms, out = time_events(
+        lambda: pr.run_policy_kernel(*full, seeds, weights, cfg, collect=True), TRAIN_TIMED_CALLS
+    )
+    obs_w, actions, _, value, reward, done = out[5]
+    ret = tr._trajectory_returns(reward, done, tr.GAMMA)
+    adv = ret - value
+    denom = float(TRAIN_T * TRAIN_B)
+    args = (weights, obs_w, actions, adv, ret, cfg.num_actions, denom, tr.VALUE_COEF, tr.ENTROPY_COEF)
+    first = gk.run_grad_kernel(*args)
+    grad_ms, second = time_events(lambda: gk.run_grad_kernel(*args), TRAIN_TIMED_CALLS)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip((*first[0], first[1]), (*second[0], second[1])))
+    grad_plain_ms, (want_gw, want_sums) = time_events(lambda: gk.plain_grad_pass(*args), 1)
+    rel, grad_err = {}, 0.0
+    for name, g, w in zip(pr.EvalWeights._fields, second[0], want_gw):
+        rel[name] = float((g - w).abs().max() / (w.abs().max() + 1e-9))
+        grad_err = max(grad_err, float((g.double() - w.double()).abs().max()))
+    # What a G2 that left out its last lane split, or its first time
+    # chunk, would read on dW1 and dW2: that part's share of the plain sums.
+    splits, split_lanes = gk.grad_splits(TRAIN_B)
+    parts = {
+        f"lane split of {split_lanes}": (slice(None), slice(TRAIN_B - split_lanes, TRAIN_B)),
+        f"time chunk of {gk.TIME_CHUNK}": (slice(0, gk.TIME_CHUNK), slice(None)),
+    }
+    dropped = {}
+    for part, (steps, cols) in parts.items():
+        part_gw, _ = gk.plain_grad_pass(
+            weights, obs_w[steps, :, cols], actions[steps, cols], adv[steps, cols], ret[steps, cols], *args[5:]
+        )
+        dropped[part] = {n: float(getattr(part_gw, n).abs().max() / (getattr(want_gw, n).abs().max() + 1e-9))
+                         for n in ("wt1", "wt2")}
+    print(f"phase 7: grad kernel torso bound {GRAD_TORSO_TOL}; rel-to-max reading of a G2 that left out one "
+          f"part ({splits} lane splits): {dropped} [{card}]", flush=True)
+    if min(min(r.values()) for r in dropped.values()) <= GRAD_TORSO_TOL:
+        raise RuntimeError("phase 7 failed: the torso bound would not catch a G2 that left out a part")
+    sums_rel = float(((second[1] - want_sums).abs() / want_sums.abs()).max())
+    grad_err = max(grad_err, float((second[1].double() - want_sums.double()).abs().max()))
+    print(f"phase 7: collecting policy kernel B={TRAIN_B} T={TRAIN_T} {collect_ms:.4f} ms/call "
+          f"({TRAIN_B * TRAIN_T / collect_ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
+    print(f"phase 7: grad kernel B={TRAIN_B} T={TRAIN_T} {grad_ms:.4f} ms/call, plain_grad_pass "
+          f"{grad_plain_ms:.4f} ms; rel-to-max error {rel}, loss sums rel {sums_rel:.3e} "
+          f"(kernel {second[1].tolist()}, plain {want_sums.tolist()}), max_abs_err {grad_err}; "
+          f"two launches bit-identical: {same} [{card}]", flush=True)
+    heads_ok = rel["wta"] < GRAD_HEAD_TOL and rel["ba"] < GRAD_HEAD_TOL
+    torso_ok = all(rel[n] < GRAD_TORSO_TOL for n in ("wt1", "b1", "wt2", "b2"))
+    finite = bool(torch.isfinite(second[1]).all())
+    if not (heads_ok and torso_ok and finite and sums_rel < GRAD_SUMS_RTOL and same):
+        raise RuntimeError("phase 7 failed: the grad kernel is outside its bounds or does not repeat")
+    return max_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms
+
+
 def main() -> int:
     import torch
 
@@ -483,6 +689,13 @@ def main() -> int:
     policy_err, policy_ms, policy_plain_ms, _ = phase_policy_vs_plain(dev, card, env, model, warm_carry)
     del env, model, warm_carry
     torch.cuda.empty_cache()
+    env, ts, warm_carry, train_launches, _, _ = phase_train_main_path(dev, card)
+    torch.cuda.empty_cache()
+    collect_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms = phase_train_vs_plain(
+        dev, card, env, ts, warm_carry
+    )
+    del env, ts, warm_carry
+    torch.cuda.empty_cache()
 
     from minigrid_tpu_torch.ops import policy_rollout as pr
 
@@ -498,6 +711,32 @@ def main() -> int:
     policy_bound = bound(
         state_bytes(hw, MAIN_B, POLICY_T) + weight_bytes, policy_flop * MAIN_B * POLICY_T, BF16_FLOP_PER_S
     )
+    # The train path at its own shape: the collecting kernel adds its
+    # spill's writes; the gradient kernel reads each sample's obs words,
+    # action, advantage and return once, and does per sample the forward
+    # (layer 1 by its 3 V*V active one-hot rows), the head, and the
+    # backward products dwta, wta^T.dhead, dW2, W2^T.dh2 and dW1 (by the
+    # active rows again).
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+
+    spill_bytes = 4 * pr._spill_rows(v2) * TRAIN_B * TRAIN_T
+    collect_bound = bound(
+        state_bytes(hw, TRAIN_B, TRAIN_T) + weight_bytes + spill_bytes, policy_flop * TRAIN_B * TRAIN_T,
+        BF16_FLOP_PER_S,
+    )
+    h, k_active, k_dense = pr.HIDDEN, 3 * v2, v2 * 20
+    grad_flop = (k_active * h + 2 * h * h + 2 * pr.HEAD_ROWS * h) + (
+        2 * pr.HEAD_ROWS * h + 2 * pr.HEAD_ROWS * h + 2 * h * h + 2 * h * h + k_active * h
+    )
+    grad_flop_dense = (2 * k_dense * h + 2 * h * h + 2 * pr.HEAD_ROWS * h) + (
+        4 * pr.HEAD_ROWS * h + 4 * h * h + 2 * k_dense * h
+    )
+    grad_bytes = (4 * (v2 + 3)) * TRAIN_B * TRAIN_T + 2 * weight_bytes
+    grad_bound = bound(grad_bytes, grad_flop * TRAIN_B * TRAIN_T, BF16_FLOP_PER_S)
+    grad_dense_ms = grad_flop_dense * TRAIN_B * TRAIN_T / BF16_FLOP_PER_S * 1e3
+    print(f"bounds [{card}]: policy_kernel collect {collect_bound} (spill {spill_bytes} B), grad_kernel "
+          f"{grad_bound} ({grad_flop} FLOP per sample with layer 1 by its active rows; dense "
+          f"{grad_flop_dense} FLOP per sample, {grad_dense_ms:.4f} ms)", flush=True)
     probe_n = 8 * 128
     probe_bound = bound(2 * 4 * probe_n, probe_n, int_issue_rate(dev))
     print(f"bounds [{card}]: rollout_kernel {rollout_bound} ({rollout_instr} instructions per lane-step), "
@@ -542,6 +781,32 @@ def main() -> int:
             "plain_ms": policy_plain_ms,
             "bound_ms": policy_bound[0],
             "bound_by": policy_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "policy_kernel_collect",
+            "route": "cuda",
+            "source": POLICY_SOURCE,
+            "replaces": POLICY_REPLACES,
+            "launches": train_launches["policy_kernel"],
+            "max_abs_err": collect_err,
+            "ms": collect_ms,
+            "plain_ms": collect_plain_ms,
+            "bound_ms": collect_bound[0],
+            "bound_by": collect_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "grad_kernel",
+            "route": "cuda",
+            "source": GRAD_SOURCE,
+            "replaces": GRAD_REPLACES,
+            "launches": train_launches["grad_kernel"],
+            "max_abs_err": grad_err,
+            "ms": grad_ms,
+            "plain_ms": grad_plain_ms,
+            "bound_ms": grad_bound[0],
+            "bound_by": grad_bound[1],
             "library_ms": None,
         },
     ]}), flush=True)

@@ -5,10 +5,14 @@ module paths so each piece has an obvious counterpart, and imports only
 `torch` and `numpy`. Ported so far, for the static-layout families Empty
 and DistShift on the steady carry surface: the packed rollout
 (`ops/fused_rollout.py`), its step loop in one hand-written CUDA kernel
-(`ops/csrc/rollout_kernel.cu`), and policy-in-the-loop evaluation
+(`ops/csrc/rollout_kernel.cu`); policy-in-the-loop evaluation
 (`ops/policy_rollout.py`, `models/policy.py`) in a second one
-(`ops/csrc/policy_kernel.cu`). Entry points make their tensors on the card
-unless the caller names a device. See ROADMAP.md for what is still to come.
+(`ops/csrc/policy_kernel.cu`); and the fused train step
+(`parallel/train.py::build_fused_train_step`): that kernel in collect mode
+spills the trajectory, a third one (`ops/csrc/grad_kernel.cu`) runs the
+actor-critic gradient pass, then clip + Adam. Entry points make their
+tensors on the card unless the caller names a device. See ROADMAP.md for
+what is still to come.
 
     import torch, minigrid_tpu_torch as mg
     from minigrid_tpu_torch.core.prng import key
@@ -20,6 +24,9 @@ unless the caller names a device. See ROADMAP.md for what is still to come.
     model = ActorCritic(7, generator=torch.Generator("cuda").manual_seed(0))
     step = build_policy_eval_rollout(env, model, 256, mode="regen", as_carry=True)
     carry, metrics = step(key(1), carry)
+    from minigrid_tpu_torch.parallel.train import build_fused_train_step, init_train_state
+    ts = init_train_state(env)
+    ts, carry, metrics = build_fused_train_step(env, 256, mode="regen")(ts, carry, key(2))
     states = packed_finish(env, carry)
 """
 

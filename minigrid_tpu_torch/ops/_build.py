@@ -118,8 +118,12 @@ def _open() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.mg_rollout_launch.argtypes = [ptr] * 10 + [ctypes.c_int] * 9 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
-        lib.mg_policy_launch.argtypes = [ptr] * 16 + [ctypes.c_int] * 11 + [ptr]
+        lib.mg_policy_launch.argtypes = [ptr] * 17 + [ctypes.c_int] * 12 + [ptr]
         lib.mg_policy_launch.restype = ctypes.c_int
+        lib.mg_grad_launch.argtypes = (
+            [ptr] * 17 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_int, ptr]
+        )
+        lib.mg_grad_launch.restype = ctypes.c_int
         lib.mg_probe_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
         lib.mg_probe_launch.restype = ctypes.c_int
         lib.mg_error_string.argtypes = [ctypes.c_int]

@@ -1,23 +1,30 @@
-// Policy-in-the-loop packed rollout kernel for Hopper (sm_90a), eval mode.
+// Policy-in-the-loop packed rollout kernel for Hopper (sm_90a), in eval and
+// collect mode.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/policy_rollout.py::_policy_kernel
-// in eval mode (no trajectory spill, no family hooks, no chunked-regen
-// control rows). It runs T steps per lane in one launch. Each step takes
-// the actor on the lane's pre-step view, as `policy_logits` computes it:
-// value-major one-hot features of the (V*V) view (hidden cells read as
-// value 0) -> (256 x V*V*20) bf16 product -> bf16 + b1 -> relu ->
-// (256 x 256) bf16 product -> bf16 + b2 -> relu -> f32 (8 x 256) head + ba;
-// then the inverse-CDF draw of `sample_categorical` from one Threefry u31
-// of the lane's (t, b) seed (salt 0x243F6A88); then the packed step of
-// step_device.cuh, whose post-step view is the next step's input and feeds
-// the obs checksum. Outputs are the final words and registers, the
-// per-lane reward sum (f32), the per-lane episode count and checksum.
+// (no family hooks, no chunked-regen control rows). It runs T steps per
+// lane in one launch. Each step takes the actor on the lane's pre-step
+// view, as `policy_logits` computes it: value-major one-hot features of the
+// (V*V) view (hidden cells read as value 0) -> (256 x V*V*20) bf16 product
+// -> bf16 + b1 -> relu -> (256 x 256) bf16 product -> bf16 + b2 -> relu ->
+// f32 (8 x 256) head + ba; then the inverse-CDF draw of
+// `sample_categorical_with_logp` from one Threefry u31 of the lane's
+// (t, b) seed (salt 0x243F6A88); then the packed step of step_device.cuh,
+// whose post-step view is the next step's input and feeds the obs
+// checksum. Outputs are the final words and registers, the per-lane reward
+// sum (f32), the per-lane episode count and checksum. Collect mode (a
+// template flag; eval mode compiles without it) also spills one
+// (spill_rows, B) int32 slab per step, in the JAX package's layout: the
+// pre-step obs words (type | colour << 4 | state << 8, 0 where hidden),
+// then the action, the bits of logp and of the value (head row 7), the bits
+// of the reward, done, and zero rows up to spill_rows.
 //
 // What bounds it on the card: arithmetic. At Empty-8x8 a lane-step needs
 // 147 W1 rows of 256 (37,632 adds, counted as the input needs them), a
 // 256 x 256 product (131,072 FLOP) and the head (4,096 FLOP): about 173k
 // FLOP against about 9 B of state and seed traffic, far above the card's
-// 295 FLOP/B balance point.
+// 295 FLOP/B balance point. Collect mode adds 4 * spill_rows bytes of
+// writes per lane-step (224 B at V = 7), still below that point.
 //
 // Design (simple and right first; what is left for speed is in PERF.md):
 //  * One block of BT lanes (64, or 32 on large grids) and 256 threads, the
@@ -47,6 +54,10 @@
 //    sampling uses the round-to-nearest intrinsics and the accurate expf
 //    (the library is built without --use_fast_math), one operation at a
 //    time, as `sample_categorical` orders them.
+//  * The spill is written by the lane's thread, one lane-contiguous row at
+//    a time: a slab's obs rows while the view is read (at the load for
+//    step 0, after step t - 1 for step t), its scalar rows after the draw
+//    and the env step. Nothing is written after the last step.
 //  * Shared memory at 8x8, BT = 64: features 125 KB, h1 33 KB, h2 36 KB,
 //    head weights 10 KB, grids 16 KB: 221 KB, one block per SM.
 
@@ -56,19 +67,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "policy_device.cuh"
 #include "step_device.cuh"
 
 namespace {
 
-constexpr int kHidden = 256;
-constexpr int kThreads = 256;
-constexpr int kHeadRows = 8;
-constexpr int kH1Stride = kHidden + 8;  // bf16 per lane row of h1
-constexpr int kKTiles = kHidden / 16;
 constexpr uint32_t kSeedSalt = 0x243F6A88u;
-constexpr int kWidthType = 11;
-constexpr int kWidthColor = 6;
-constexpr int kWidthState = 3;
 
 struct PolicyParams {
   const int32_t* words_in;    // (HW, B), agent-centred
@@ -87,11 +91,9 @@ struct PolicyParams {
   int32_t* regs_out;
   float* rsum_out;      // (B,)
   int32_t* counts_out;  // (2, B): episodes; obs checksum
-  int B, T, width, height, view, max_steps, see_through_walls, num_regs, num_actions;
+  int32_t* spill;       // collect mode: (T, spill_rows, B); unused in eval mode
+  int B, T, width, height, view, max_steps, see_through_walls, num_regs, num_actions, spill_rows;
 };
-
-// Features per lane: V*V*20 padded to a whole number of 16-wide k tiles.
-__host__ __device__ constexpr int padded_features(int view) { return (view * view * 20 + 15) / 16 * 16; }
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
 
@@ -116,9 +118,12 @@ __device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1, uint32
   return x0;
 }
 
-// `sample_categorical` for one lane: inverse CDF over the first A logits.
+// `sample_categorical_with_logp` for one lane: inverse CDF over the first
+// A logits. With kLogp it also sets `logp` to the drawn action's
+// log-probability, (l_a - m) - log(total), as the reference orders it.
+template <bool kLogp>
 __device__ __forceinline__ int sample_action(const float (&logit)[kHeadRows], int num_actions,
-                                             int32_t seed) {
+                                             int32_t seed, float& logp) {
   const uint32_t u31 = threefry_x0(static_cast<uint32_t>(seed), kSeedSalt, 0u, 0u) & 0x7FFFFFFFu;
   const float u01 = __fmul_rn(__int2float_rn(static_cast<int>(u31)), 0x1p-31f);
   float m = logit[0];
@@ -137,77 +142,20 @@ __device__ __forceinline__ int sample_action(const float (&logit)[kHeadRows], in
 #pragma unroll
   for (int i = 0; i < kHeadRows; ++i)
     if (i < num_actions) hits += cums[i] > thresh ? 1 : 0;
-  return num_actions - hits;
-}
-
-// relu(bf16(bf16(acc) + bias)) as bf16 bits; `bias` is a bf16 value in f32.
-__device__ __forceinline__ uint32_t bias_relu(float acc, float bias) {
-  const float h = __bfloat162float(__float2bfloat16_rn(acc));
-  const float s = __bfloat162float(__float2bfloat16_rn(__fadd_rn(h, bias)));
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(s, 0.0f))));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// One warp's share of a (256 x K) . (K x BT) product on the tensor cores:
-// rows [32 * warp, 32 * warp + 32) of A (bf16, in A-fragment order, read
-// from L2 one k tile ahead) times B (bf16 in shared memory as [BT][stride],
-// k contiguous), accumulated in f32 into c.
-template <int BT>
-__device__ __forceinline__ void warp_product(float (&c)[2][BT / 8][4], const uint4* afrag, int k_tiles,
-                                             const __nv_bfloat16* b, int stride, int warp, int ln) {
-  const int g8 = ln >> 2;
-  const int t4 = ln & 3;
-  const uint4* a_row0 = afrag + static_cast<size_t>(warp * 2) * k_tiles * 32 + ln;
-  const uint4* a_row1 = a_row0 + static_cast<size_t>(k_tiles) * 32;
+  const int action = num_actions - hits;
+  if (kLogp) {
+    float l_a = 0.0f;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[mi][nt][e] = 0.0f;
-  uint4 a0 = __ldg(a_row0);
-  uint4 a1 = __ldg(a_row1);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int kn = kt + 1 < k_tiles ? kt + 1 : kt;
-    const uint4 n0 = __ldg(a_row0 + kn * 32);
-    const uint4 n1 = __ldg(a_row1 + kn * 32);
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-      const __nv_bfloat16* brow = b + (nt * 8 + g8) * stride + kt * 16 + 2 * t4;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(brow);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(brow + 8);
-      mma_bf16(c[0][nt], a0, b0, b1);
-      mma_bf16(c[1][nt], a1, b0, b1);
-    }
-    a0 = n0;
-    a1 = n1;
+    for (int i = 0; i < kHeadRows; ++i)
+      if (i < num_actions && action == i) l_a = logit[i];
+    logp = __fsub_rn(__fsub_rn(l_a, m), logf(cum));
   }
+  return action;
 }
 
-// The one-hot features of a view cell's packed word, written as bf16 ones
-// into the lane's feature row (value-major: row off_ch + v * V * V + kv).
-// A channel value at or above its width matches no feature.
-__device__ __forceinline__ void set_features(unsigned short* frow, int kv, int v2, int m) {
-  constexpr unsigned short kOne = 0x3F80;  // bf16 1.0
-  const int ty = m & 15;
-  const int co = (m >> 4) & 15;
-  const int st = (m >> 8) & 15;
-  if (ty < kWidthType) frow[ty * v2 + kv] = kOne;
-  if (co < kWidthColor) frow[(kWidthType + co) * v2 + kv] = kOne;
-  if (st < kWidthState) frow[(kWidthType + kWidthColor + st) * v2 + kv] = kOne;
-}
-
-template <int BT>
+template <int BT, bool kCollect>
 __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams p) {
-  constexpr int kNTiles = BT / 8;        // n8 tiles of the products
-  constexpr int kParts = kThreads / BT;  // head
-  constexpr int kSlice = kHidden / kParts;
+  constexpr int kNTiles = BT / 8;  // n8 tiles of the products
   constexpr int kH2Stride = BT + 8;
   const int v = p.view;
   const int v2 = v * v;
@@ -250,6 +198,11 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
   const bool live = tid < BT && lane < p.B;
   int32_t* g = grid_s + tid;
   unsigned short* frow = reinterpret_cast<unsigned short*>(feat_s + tid * f_stride);
+  // Collect mode: slab t of the spill holds step t's pre-step obs words in
+  // rows 0..V*V-1, then the action, logp, value, reward and done rows,
+  // then zero rows; each row is lane-contiguous.
+  const size_t slab = static_cast<size_t>(p.spill_rows) * B;
+  int32_t* spill_lane = kCollect ? p.spill + lane : nullptr;
   Lane s{};
   bool reset_any = false;
   float rsum = 0.0f;
@@ -257,7 +210,10 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
   int checksum = 0;
   if (live) {
     load_lane(g, BT, p.words_in, p.regs_in, B, lane, sh.hw, s);
-    read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) { set_features(frow, kv, v2, w & 0xFFF); });
+    read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
+      set_features(frow, kv, v2, w & 0xFFF);
+      if (kCollect) spill_lane[kv * B] = w & 0xFFF;
+    });
   }
   __syncthreads();
 
@@ -301,36 +257,18 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
     }
     __syncthreads();
 
-    // ---- the f32 head, each lane's dot split over kParts threads; the
-    //      features are cleared for the next view meanwhile ----
-    {
-      for (int i = tid; i < feat_uint4; i += kThreads) feat_words[i] = make_uint4(0, 0, 0, 0);
-      const int hl = tid % BT;
-      const int part = tid / BT;
-      float acc[kHeadRows];
-#pragma unroll
-      for (int a = 0; a < kHeadRows; ++a) acc[a] = 0.0f;
-      for (int o = part * kSlice; o < (part + 1) * kSlice; ++o) {
-        const float h = __bfloat162float(h2s[o * kH2Stride + hl]);
-#pragma unroll
-        for (int a = 0; a < kHeadRows; ++a) acc[a] = fmaf(wta_s[a * kHidden + o], h, acc[a]);
-      }
-#pragma unroll
-      for (int a = 0; a < kHeadRows; ++a) part_s[(part * kHeadRows + a) * BT + hl] = acc[a];
-    }
+    // ---- the f32 head, each lane's dot split over kThreads / BT threads;
+    //      the features are cleared for the next view meanwhile ----
+    for (int i = tid; i < feat_uint4; i += kThreads) feat_words[i] = make_uint4(0, 0, 0, 0);
+    head_partials<BT>(h2s, wta_s, part_s, tid);
     __syncthreads();
 
     // ---- per lane: logits, the draw, the env step, the next view ----
     if (live) {
       float logit[kHeadRows];
-#pragma unroll
-      for (int a = 0; a < kHeadRows; ++a) {
-        float sum = part_s[a * BT + tid];
-#pragma unroll
-        for (int q = 1; q < kParts; ++q) sum = __fadd_rn(sum, part_s[(q * kHeadRows + a) * BT + tid]);
-        logit[a] = __fadd_rn(sum, ba_s[a]);
-      }
-      const int a = sample_action(logit, p.num_actions, p.seeds[t * B + lane]);
+      head_logits<BT>(logit, part_s, ba_s, tid);
+      float logp = 0.0f;
+      const int a = sample_action<kCollect>(logit, p.num_actions, p.seeds[t * B + lane], logp);
       bool done;
       const float reward = step_lane(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, s, done);
       if (done) {
@@ -338,11 +276,22 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
         episodes += 1;
       }
       rsum = __fadd_rn(rsum, reward);
+      if (kCollect) {
+        int32_t* row = spill_lane + t * slab + v2 * B;
+        row[0] = a;
+        row[B] = __float_as_int(logp);
+        row[2 * B] = __float_as_int(logit[kHeadRows - 1]);
+        row[3 * B] = __float_as_int(reward);
+        row[4 * B] = done ? 1 : 0;
+        for (int r = v2 + 5; r < p.spill_rows; ++r) spill_lane[t * slab + r * B] = 0;
+      }
+      int32_t* next_obs = kCollect && t + 1 < p.T ? spill_lane + (t + 1) * slab : nullptr;
       int obs_sum = 0;
       read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
         const int m = w & 0xFFF;
         set_features(frow, kv, v2, m);
         obs_sum += tcs(m);
+        if (kCollect && next_obs != nullptr) next_obs[kv * B] = m;
       });
       checksum += obs_sum;
     }
@@ -358,13 +307,13 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
   }
 }
 
-template <int BT>
+template <int BT, bool kCollect>
 int launch(const PolicyParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(policy_kernel<BT>,
+  cudaError_t err = cudaFuncSetAttribute(policy_kernel<BT, kCollect>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (p.B + BT - 1) / BT;
-  policy_kernel<BT><<<blocks, kThreads, smem, stream>>>(p);
+  policy_kernel<BT, kCollect><<<blocks, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,14 +324,16 @@ extern "C" {
 // Launch the policy rollout on `stream` with `smem_bytes` of dynamic shared
 // memory per block (ops/policy_rollout.py::policy_smem_bytes, the layout
 // policy_kernel carves); returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a lane block other than 32 or 64).
+// (cudaErrorInvalidValue for a lane block other than 32 or 64). A non-null
+// `spill` selects collect mode: the kernel then writes the (T, spill_rows,
+// B) int32 trajectory slabs there.
 int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
                      const void* tmpl_regs, const void* seeds, const void* tables, const void* w1frag,
                      const void* b1, const void* w2frag, const void* b2, const void* wta,
                      const void* ba, void* words_out, void* regs_out, void* rsum_out,
-                     void* counts_out, int B, int T, int width, int height, int view,
+                     void* counts_out, void* spill, int B, int T, int width, int height, int view,
                      int max_steps, int see_through_walls, int num_regs, int num_actions,
-                     int lane_block, int smem_bytes, void* stream) {
+                     int spill_rows, int lane_block, int smem_bytes, void* stream) {
   PolicyParams p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -400,6 +351,7 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.regs_out = static_cast<int32_t*>(regs_out);
   p.rsum_out = static_cast<float*>(rsum_out);
   p.counts_out = static_cast<int32_t*>(counts_out);
+  p.spill = static_cast<int32_t*>(spill);
   p.B = B;
   p.T = T;
   p.width = width;
@@ -409,9 +361,11 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.see_through_walls = see_through_walls;
   p.num_regs = num_regs;
   p.num_actions = num_actions;
+  p.spill_rows = spill_rows;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lane_block == 64) return launch<64>(p, smem_bytes, s);
-  if (lane_block == 32) return launch<32>(p, smem_bytes, s);
+  const bool collect = spill != nullptr;
+  if (lane_block == 64) return collect ? launch<64, true>(p, smem_bytes, s) : launch<64, false>(p, smem_bytes, s);
+  if (lane_block == 32) return collect ? launch<32, true>(p, smem_bytes, s) : launch<32, false>(p, smem_bytes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

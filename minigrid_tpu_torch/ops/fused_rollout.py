@@ -535,16 +535,23 @@ def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, stream
         rng = carry.rng
         if mode == "regen":
             rng = _replay_rng_chain(env, rng, epi[0])
-        metrics = RolloutMetrics(
-            episodes=_wrap_i32(epi.sum(dtype=torch.int64)),
-            total_reward=rsum.sum(),
-            total_steps=_wrap_i32(torch.tensor(b * num_steps, dtype=torch.int64, device=dev)),
-            obs_checksum=_wrap_i32(csum.sum(dtype=torch.int64)),
-            reset_overlaps=torch.zeros((), dtype=torch.int32, device=dev),
-        )
+        metrics = rollout_metrics(rsum, epi, csum, num_steps)
         return PackedCarry(words_f, regs_f, carry.tmpl_words, carry.tmpl_regs, rng), metrics
 
     return step_carry
+
+
+def rollout_metrics(rsum, epi, csum, num_steps: int) -> RolloutMetrics:
+    """A static-template call's batch totals from its `(1, B)` per-lane
+    reward sums, episode counts and obs checksums."""
+    b, dev = rsum.shape[1], rsum.device
+    return RolloutMetrics(
+        episodes=_wrap_i32(epi.sum(dtype=torch.int64)),
+        total_reward=rsum.sum(),
+        total_steps=_wrap_i32(torch.tensor(b * num_steps, dtype=torch.int64, device=dev)),
+        obs_checksum=_wrap_i32(csum.sum(dtype=torch.int64)),
+        reset_overlaps=torch.zeros((), dtype=torch.int32, device=dev),
+    )
 
 
 def build_carry_surface(env: Env, num_steps: int, mode: str, as_carry: bool, run_core, stream_fn):

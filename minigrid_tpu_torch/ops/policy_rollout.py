@@ -1,15 +1,19 @@
-"""Policy-in-the-loop evaluation: the actor inside the packed rollout, in
-one hand-written CUDA kernel, plus its plain twin (counterpart of
-`minigrid_tpu/ops/policy_rollout.py`, eval mode).
+"""The actor inside the packed rollout, in one hand-written CUDA kernel,
+plus its plain twin (counterpart of `minigrid_tpu/ops/policy_rollout.py`):
+policy-in-the-loop evaluation, and the trajectory-collecting rollout of
+the fused train step.
 
 Each step, every lane runs the `ActorCritic` actor on its pre-step view,
 draws an action by inverse CDF from one Threefry uniform of a precomputed
 `(T, B)` int32 seed (the key of `step(key, carry)` makes the seeds, as
 `jax.random.bits` does), and takes the packed step of
-`ops/fused_rollout.py`. Nothing but the carry and the metrics leaves the
-call. Which code runs is decided by where the tensors lie: on a CUDA
-device `run_policy_kernel` launches `csrc/policy_kernel.cu` (or raises);
-on the CPU it runs the plain twin `plain_policy_rollout`.
+`ops/fused_rollout.py`. In eval mode nothing but the carry and the
+metrics leaves the call; in collect mode each step also spills one slab
+of the trajectory (the pre-step obs words, the action, its
+log-probability, the critic's value, the reward and done). Which code
+runs is decided by where the tensors lie: on a CUDA device
+`run_policy_kernel` launches `csrc/policy_kernel.cu` (or raises); on the
+CPU it runs the plain twin `plain_policy_rollout`.
 
 `policy_logits` mirrors the flax forward on the JAX package's transposed,
 value-major weight layout (`EvalWeights`, kept at the public surface so
@@ -21,9 +25,9 @@ grid, `testing.dyadic_flax_params`) the port, the kernel and the JAX
 package agree byte for byte; under other weights the summation order can
 flip a bf16 rounding, and with it, rarely, a sampled action.
 
-Scope: eval mode, cached auto-reset, and regen on the static-layout
-families (Empty, DistShift). Collect mode (the trajectory spill), family
-hooks and chunked regen are not ported yet (ROADMAP.md).
+Scope: cached auto-reset, and regen on the static-layout families (Empty,
+DistShift). Family hooks and chunked regen are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,11 +47,14 @@ from minigrid_tpu_torch.models.policy import CHANNEL_WIDTHS
 from minigrid_tpu_torch.ops.fused_rollout import (
     _MAX_VIEW,
     _SMEM_LIMIT,
+    PackedCarry,
     _check_supported,
     _kernel_tables,
     _regen_is_static,
+    _replay_rng_chain,
     build_carry_surface,
     obs_core,
+    rollout_metrics,
     step_core,
 )
 from minigrid_tpu_torch.ops.packing import NUM_REGS
@@ -98,58 +105,103 @@ def _feature_permutation(view: int) -> np.ndarray:
 
 
 def _tree_tensor(x, device) -> torch.Tensor:
+    """A params leaf as f32 on `device`. A tensor stays in its autograd
+    graph, so weights built from leaves that require grad are
+    differentiable (`parallel/train.py` pulls cotangents back through
+    them)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to(device=device, dtype=torch.float32)
+        return x.to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.array(x, np.float32)).to(device)
 
 
-def eval_weights_from_params(params, view: int, device=None) -> EvalWeights:
-    """An `ActorCritic` module, or a flax params tree of numpy arrays ->
-    `EvalWeights` (transpose + permute) on `device` (default: the module's
-    device, or the card for a numpy tree)."""
+def _params_tree(params, device):
+    """(the `params` dict of a flax params tree, device). `params` is an
+    `ActorCritic` (detached weights, on its device unless `device` says
+    otherwise) or a flax tree of numpy arrays (on the card by default) or
+    of tensors (on their device by default)."""
     if isinstance(params, nn.Module):
         if device is None:
             device = next(params.parameters()).device
         params = params.flax_params()
-    device = default_device(device)
-    p = params["params"]
+    elif device is None and isinstance(params["params"]["torso_0"]["kernel"], torch.Tensor):
+        device = params["params"]["torso_0"]["kernel"].device
+    return params["params"], default_device(device)
+
+
+def _weights(params, view: int, device, critic: bool) -> EvalWeights:
+    p, device = _params_tree(params, device)
     f = functools.partial(_tree_tensor, device=device)
     perm = torch.from_numpy(_feature_permutation(view)).to(device)
     w1 = f(p["torso_0"]["kernel"])[perm, :]  # (980, H1)
     wa = f(p["actor"]["kernel"])  # (H2, A)
-    a = wa.shape[1]
-    wa_pad = torch.zeros((HEAD_ROWS, wa.shape[0]), dtype=torch.float32, device=device)
-    wa_pad[:a] = wa.T
-    ba_pad = torch.full((HEAD_ROWS, 1), -1e9, dtype=torch.float32, device=device)
-    ba_pad[:a, 0] = f(p["actor"]["bias"])
+    h2, a = wa.shape
+    if a > HEAD_ROWS - critic:
+        raise ValueError(f"{a} actions{' and the critic' if critic else ''} do not fit the {HEAD_ROWS}-row head")
+    pad = HEAD_ROWS - a - critic
+    wta = [wa.T, wa.new_zeros((pad, h2))]
+    ba = [f(p["actor"]["bias"])[:, None], wa.new_full((pad, 1), -1e9)]
+    if critic:  # head row 7
+        wta.append(f(p["critic"]["kernel"]).T)
+        ba.append(f(p["critic"]["bias"])[:, None])
     return EvalWeights(
         wt1=w1.T.to(torch.bfloat16).contiguous(),
         b1=f(p["torso_0"]["bias"]).to(torch.bfloat16)[:, None],
         wt2=f(p["torso_1"]["kernel"]).T.to(torch.bfloat16).contiguous(),
         b2=f(p["torso_1"]["bias"]).to(torch.bfloat16)[:, None],
-        wta=wa_pad,
-        ba=ba_pad,
+        wta=torch.cat(wta).contiguous(),
+        ba=torch.cat(ba),
     )
 
 
-def _bf16_bias_relu(acc: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """relu(bf16(acc) + bias) in bf16; the add runs in f32 and rounds once."""
-    h = acc.to(torch.bfloat16).float() + bias.float()
-    return torch.relu(h.to(torch.bfloat16))
+def eval_weights_from_params(params, view: int, device=None) -> EvalWeights:
+    """An `ActorCritic` module, or a flax params tree of numpy arrays or
+    tensors -> `EvalWeights` (transpose + permute) on `device` (default:
+    the module's or the tensors' device, or the card for a numpy tree)."""
+    return _weights(params, view, device, critic=False)
+
+
+def train_weights_from_params(params, view: int, device=None) -> EvalWeights:
+    """Like `eval_weights_from_params`, with the critic head in row 7.
+
+    From a tree of tensors that require grad the result is differentiable:
+    the permutation, transposes, bf16 casts and padding are linear, and the
+    adjoint of each bf16 cast is the cast back to f32, as in JAX."""
+    return _weights(params, view, device, critic=True)
+
+
+def _bf16_bias(acc: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """bf16(bf16(acc) + bias): the pre-activation; the add runs in f32 and
+    rounds once, as torch and XLA:CPU add two bf16."""
+    return (acc.to(torch.bfloat16).float() + bias.float()).to(torch.bfloat16)
+
+
+def features(vw: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
+    """(V², B) packed view + visibility -> (V²·20, B) f32 value-major
+    one-hot rows (exact 0/1); a value at or above its channel's width
+    matches no row."""
+    rows = []
+    for chan, width in zip((vw & 15, (vw >> 4) & 15, (vw >> 8) & 15), CHANNEL_WIDTHS):
+        chan = chan * vis
+        for val in range(width):
+            rows.append(chan == val)
+    return torch.cat(rows, dim=0).to(torch.float32)
+
+
+def torso(feats: torch.Tensor, w: EvalWeights):
+    """(V²·20, B) features -> the bf16 pre-activations `(h1_pre, h2_pre)`
+    of the two torso layers; each layer's input is the relu of the one
+    before. The bf16 products are taken as f32 GEMMs, which is exact for
+    bf16 inputs."""
+    h1p = _bf16_bias(w.wt1.float() @ feats, w.b1)
+    h2p = _bf16_bias(w.wt2.float() @ torch.relu(h1p).float(), w.b2)
+    return h1p, h2p
 
 
 def policy_logits(vw: torch.Tensor, vis: torch.Tensor, w: EvalWeights, view: int) -> torch.Tensor:
     """(V², B) packed view -> (8, B) f32 head rows. Mirrors the flax
-    forward (bf16 torso, f32 head) on the transposed layout; the bf16
-    products are taken as f32 GEMMs, which is exact for bf16 inputs."""
-    rows = []
-    for chan, width in zip(((vw & 15) * vis, ((vw >> 4) & 15) * vis, ((vw >> 8) & 15) * vis), CHANNEL_WIDTHS):
-        for val in range(width):
-            rows.append(chan == val)
-    feats = torch.cat(rows, dim=0).to(torch.float32)  # (V²·20, B), exact 0/1
-    h1 = _bf16_bias_relu(w.wt1.float() @ feats, w.b1)
-    h2 = _bf16_bias_relu(w.wt2.float() @ h1.float(), w.b2)
-    return w.wta @ h2.float() + w.ba
+    forward (bf16 torso, f32 head) on the transposed layout."""
+    _, h2p = torso(features(vw, vis), w)
+    return w.wta @ torch.relu(h2p).float() + w.ba
 
 
 def sample_categorical(logits: torch.Tensor, seed_row: torch.Tensor, num_actions: int) -> torch.Tensor:
@@ -189,11 +241,53 @@ def _seeds_for(key: torch.Tensor, num_steps: int, b: int) -> torch.Tensor:
     return random_bits(key, (num_steps, b), dtype=torch.int32)
 
 
-def plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig):
+def pack_obs_words(vw: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
+    """(V², B) view + visibility -> one int32 obs word per cell: the
+    `(type, color, state)` triple of the encoded observation, zero where
+    occluded (the compact form the collect mode spills)."""
+    return (vw & 0xFFF) * vis
+
+
+def obs_words_to_images(words: torch.Tensor, view: int) -> torch.Tensor:
+    """(..., V², B) packed obs words -> (..., B, V, V, 3) uint8 images in
+    the JAX package's `[x, y]` order."""
+    img = torch.stack([words & 15, (words >> 4) & 15, (words >> 8) & 15], dim=-1)  # (..., V², B, 3)
+    img = img.reshape(img.shape[:-3] + (view, view) + img.shape[-2:])  # (..., y, x, B, 3)
+    n = img.ndim
+    return img.permute(*range(n - 4), n - 2, n - 3, n - 4, n - 1).to(torch.uint8)
+
+
+def _spill_rows(v2: int) -> int:
+    """Rows of the per-step trajectory slab: the V² obs words and 5 scalar
+    rows (action, logp, value, reward, done), rounded up to a multiple of
+    8 as in the JAX package (56 at V = 7)."""
+    return ((v2 + 5 + 7) // 8) * 8
+
+
+def _traj_views(spill: torch.Tensor, v2: int):
+    """`(obs_words (T, V², B) i32, actions (T, B) i32, logp, value, reward
+    (T, B) f32, done (T, B) i32)`: views of the `(T, rows, B)` spill, the
+    float rows reinterpreted from their bits."""
+    return (
+        spill[:, :v2],
+        spill[:, v2],
+        spill[:, v2 + 1].view(torch.float32),
+        spill[:, v2 + 2].view(torch.float32),
+        spill[:, v2 + 3].view(torch.float32),
+        spill[:, v2 + 4],
+    )
+
+
+def plain_policy_rollout(
+    words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False
+):
     """`T = seeds.shape[0]` policy-driven packed steps as a loop of torch
     ops, on any device. Returns `(words', regs', rsum, episodes, checksum)`
-    with `(1, B)` per-lane accumulators (f32, int32, int32)."""
+    with `(1, B)` per-lane accumulators (f32, int32, int32); with
+    `collect=True` also the trajectory (`_traj_views` of a `(T, rows, B)`
+    int32 spill, rows as the kernel writes them, padding rows zero)."""
     v = config.agent_view_size
+    v2 = v * v
     b = words.shape[1]
     dev = words.device
     step = functools.partial(
@@ -212,12 +306,25 @@ def plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights: Eva
     rsum = torch.zeros((1, b), dtype=torch.float32, device=dev)
     epi = torch.zeros((1, b), dtype=torch.int32, device=dev)
     csum = torch.zeros((1, b), dtype=torch.int32, device=dev)
+    if collect:
+        spill = torch.zeros((seeds.shape[0], _spill_rows(v2), b), dtype=torch.int32, device=dev)
     for t in range(seeds.shape[0]):
-        a = sample_categorical(policy_logits(vw, vis, weights, v), seeds[t : t + 1], config.num_actions)
+        logits = policy_logits(vw, vis, weights, v)
+        a, logp = sample_categorical_with_logp(logits, seeds[t : t + 1], config.num_actions)
+        if collect:
+            spill[t, :v2] = pack_obs_words(vw, vis)
+            spill[t, v2] = a[0]
+            spill[t, v2 + 1] = logp[0].view(torch.int32)
+            spill[t, v2 + 2] = logits[7].view(torch.int32)
         words, regs, reward, done, obs_sum, vw, vis = step(words, regs, a, tmpl_words, tmpl_regs)
+        if collect:
+            spill[t, v2 + 3] = reward[0].view(torch.int32)
+            spill[t, v2 + 4] = done[0].to(torch.int32)
         rsum = rsum + reward
         epi = epi + done.to(torch.int32)
         csum = csum + obs_sum
+    if collect:
+        return words, regs, rsum, epi, csum, _traj_views(spill, v2)
     return words, regs, rsum, epi, csum
 
 
@@ -263,13 +370,16 @@ def policy_lane_block(config: EnvConfig) -> int:
     )
 
 
-def policy_rollout_supported(env: Env, mode: str = "cached") -> bool:
-    """True iff `build_policy_eval_rollout` runs `env` under `mode`: the base
+def policy_rollout_supported(env: Env, mode: str = "cached", collect: bool = False) -> bool:
+    """True iff the policy rollouts run `env` under `mode`: the base
     transition, cached mode or regen on a static layout, and a grid and
-    view the kernel's shared-memory budget takes."""
+    view the kernel's shared-memory budget takes. The collecting rollout
+    (`collect=True`) also needs head row 7 free for the critic."""
     if env.transition != BASE_STEP or mode not in ("cached", "regen"):
         return False
     if mode == "regen" and not _regen_is_static(env):
+        return False
+    if collect and env.config.num_actions >= HEAD_ROWS:
         return False
     try:
         policy_lane_block(env.config)
@@ -313,27 +423,33 @@ def _check_operands(operands, device) -> None:
             raise ValueError(f"policy kernel: {name} is on {t.device}, words on {device}")
 
 
-def run_policy_kernel(words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig):
+def run_policy_kernel(
+    words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False
+):
     """The policy kernel's wrapper: same arguments and results as
-    `plain_policy_rollout`.
+    `plain_policy_rollout`, the trajectory with `collect=True` as views of
+    one `(T, rows, B)` int32 spill that the kernel writes.
 
     CPU tensors run `plain_policy_rollout`; CUDA tensors launch the kernel
     on the current stream, and any other device, operand the kernel does
     not take, failed build or failed launch raises."""
     if words.device.type == "cpu":
-        return plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights, config)
+        return plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, collect)
     hw = config.width * config.height
     b = words.shape[1]
     t = seeds.shape[0]
     dev = words.device
-    f_total = config.agent_view_size**2 * _F
+    v2 = config.agent_view_size**2
+    if collect and config.num_actions >= HEAD_ROWS:
+        raise ValueError(f"policy kernel: collect mode reads the critic from head row {HEAD_ROWS - 1}, "
+                         f"which {config.num_actions} actions occupy")
     _check_operands((
         ("words", words, (hw, b), torch.int32),
         ("regs", regs, (NUM_REGS, b), torch.int32),
         ("tmpl_words", tmpl_words, (hw, b), torch.int32),
         ("tmpl_regs", tmpl_regs, (NUM_REGS, b), torch.int32),
         ("seeds", seeds, (t, b), torch.int32),
-        ("wt1", weights.wt1, (HIDDEN, f_total), torch.bfloat16),
+        ("wt1", weights.wt1, (HIDDEN, v2 * _F), torch.bfloat16),
         ("b1", weights.b1, (HIDDEN, 1), torch.bfloat16),
         ("wt2", weights.wt2, (HIDDEN, HIDDEN), torch.bfloat16),
         ("b2", weights.b2, (HIDDEN, 1), torch.bfloat16),
@@ -353,6 +469,8 @@ def run_policy_kernel(words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWe
     regs_out = torch.empty_like(regs)
     rsum = torch.empty((1, b), dtype=torch.float32, device=dev)
     counts = torch.empty((2, b), dtype=torch.int32, device=dev)
+    rows = _spill_rows(v2)
+    spill = torch.empty((t, rows, b), dtype=torch.int32, device=dev) if collect else None
     tables = _kernel_tables(config.width, config.height, config.agent_view_size, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -362,8 +480,9 @@ def run_policy_kernel(words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWe
                 w1frag, weights.b1, w2frag, weights.b2, weights.wta, weights.ba,
                 words_out, regs_out, rsum, counts,
             )),
+            ctypes.c_void_p(spill.data_ptr() if collect else None),
             b, t, config.width, config.height, config.agent_view_size, config.max_steps,
-            int(config.see_through_walls), NUM_REGS, config.num_actions, bt, policy_smem_bytes(config, bt),
+            int(config.see_through_walls), NUM_REGS, config.num_actions, rows, bt, policy_smem_bytes(config, bt),
             ctypes.c_void_p(stream),
         )
     if err != 0:
@@ -372,7 +491,8 @@ def run_policy_kernel(words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWe
         )
     global policy_kernel_launches
     policy_kernel_launches += 1
-    return words_out, regs_out, rsum, counts[0:1], counts[1:2]
+    out = (words_out, regs_out, rsum, counts[0:1], counts[1:2])
+    return out + (_traj_views(spill, v2),) if collect else out
 
 
 # --------------------------------------------------------------------------
@@ -405,3 +525,46 @@ def build_policy_eval_rollout(env: Env, params, num_steps: int, mode: str = "cac
         return _seeds_for(key.to(dev), num_steps, b)
 
     return build_carry_surface(env, num_steps, mode, as_carry, run_core, seeds_for)
+
+
+def _no_mark(_piece: str) -> None:
+    pass
+
+
+def build_fused_train_rollout(env: Env, num_steps: int, mode: str = "cached"):
+    """`rollout(weights, key, carry) -> (carry, traj, RolloutMetrics)`: the
+    trajectory-collecting policy rollout that feeds
+    `parallel.train.build_fused_train_step`.
+
+    `traj` is `(obs_w (T, V², B) i32, actions (T, B) i32, logp (T, B) f32,
+    value (T, B) f32, reward (T, B) f32, done (T, B) i32)`, each a view of
+    the one spill the kernel (or, for CPU tensors, the twin) writes: the
+    raw obs words, as the JAX package's `raw_obs=True` gives them
+    (`obs_words_to_images` turns them into images). `value` is head row 7
+    of the forward that drew the action. `weights` are `EvalWeights` in the
+    train layout (`train_weights_from_params`, the critic in head row 7),
+    passed on every call, so one built rollout serves every optimizer
+    step. `mark` is called after the seeds, the kernel and the replay, as
+    in `train_step`. Cached mode, and regen on the static-layout families;
+    random-layout regen needs chunked regen, not ported yet."""
+    _check_supported(env, mode)
+    if not policy_rollout_supported(env, mode, collect=True):
+        raise ValueError(f"fused train rollout (mode={mode!r}) does not support {env.env_id!r}")
+
+    @torch.no_grad()
+    def rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark):
+        b, dev = carry.words.shape[1], carry.words.device
+        seeds = _seeds_for(key.to(dev), num_steps, b)
+        mark("seeds")
+        words_f, regs_f, rsum, epi, csum, traj = run_policy_kernel(
+            carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, seeds, weights, env.config, collect=True
+        )
+        mark("collect")
+        rng = carry.rng
+        if mode == "regen":
+            rng = _replay_rng_chain(env, rng, epi[0])
+        mark("replay")
+        carry = PackedCarry(words_f, regs_f, carry.tmpl_words, carry.tmpl_regs, rng)
+        return carry, traj, rollout_metrics(rsum, epi, csum, num_steps)
+
+    return rollout

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from minigrid_tpu_torch import make
 from minigrid_tpu_torch.core.prng import key
-from minigrid_tpu_torch.utils.convert import carry_from_numpy, state_from_numpy
+from minigrid_tpu_torch.parallel.train import AdamState, init_train_state
+from minigrid_tpu_torch.utils.convert import carry_from_numpy, opt_state_from_optax, state_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FORBIDDEN = {"jax", "jaxlib", "flax", "minigrid_tpu"}
@@ -33,6 +35,26 @@ def test_numpy_conversions_default_to_the_card():
         state_from_numpy(leaves)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         carry_from_numpy(leaves)
+
+
+def test_train_state_defaults_to_the_card():
+    env = make("MiniGrid-Empty-5x5-v0")
+    adam = AdamState(np.int32(0), np.zeros(4, np.float32), np.zeros(4, np.float32))
+    optax_like = ((), (adam, ()))
+    if torch.cuda.is_available():
+        ts = init_train_state(env)
+        assert next(ts.params.parameters()).device.type == "cuda"
+        assert {x.device.type for x in ts.opt_state} == {"cuda"}
+        assert opt_state_from_optax(optax_like).mu.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_train_state(env)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            opt_state_from_optax(optax_like)
+    ts = init_train_state(env, device="cpu")
+    assert next(ts.params.parameters()).device.type == "cpu"
+    assert {x.device.type for x in ts.opt_state} == {"cpu"}
+    assert ts.opt_state.mu.shape == (318_984,) and int(ts.opt_state.count) == 0
 
 
 def _port_sources():

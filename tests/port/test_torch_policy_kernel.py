@@ -236,3 +236,66 @@ def test_cuda_eval_surface_matches_cpu_twin():
         assert torch.equal(getattr(mk, name).cpu(), getattr(mp, name)), name
     # The batch sum of per-lane rewards runs in another order on the card.
     torch.testing.assert_close(mk.total_reward.cpu(), mp.total_reward, rtol=1e-6, atol=0)
+
+
+def test_collect_wrapper_takes_plain_twin_on_cpu():
+    cfg = _cfg(9, 7, False)
+    args, seeds = _case(cfg, 32, 8, CPU)
+    w = tpr.train_weights_from_params(dyadic_flax_params(0), cfg.agent_view_size, device=CPU)
+    before = tpr.policy_kernel_launches
+    got = tpr.run_policy_kernel(*args, seeds, w, cfg, collect=True)
+    want = tpr.plain_policy_rollout(*args, seeds, w, cfg, collect=True)
+    eval_out = tpr.plain_policy_rollout(*args, seeds, w, cfg)
+    assert tpr.policy_kernel_launches == before
+    for g, x, e in zip(got[:5], want[:5], eval_out):
+        assert torch.equal(g, x) and torch.equal(g, e)
+    for g, x in zip(got[5], want[5]):
+        assert torch.equal(g, x)
+    obs_w, actions, _, value, reward, done = got[5]
+    assert tuple(obs_w.shape) == (8, 49, 32) and obs_w.dtype == torch.int32
+    assert int(done.sum()) == int(got[3].sum()) and torch.equal(reward.sum(0), got[2][0])
+    assert float(value.abs().max()) > 0 and int((obs_w >> 12).abs().max()) == 0  # 12-bit words
+
+
+def test_collect_needs_head_row_7_for_the_critic():
+    cfg = dataclasses.replace(_cfg(8, 8, True), num_actions=8)
+    args, seeds, w = _meta_operands(cfg)
+    with pytest.raises(ValueError, match="critic"):
+        tpr.run_policy_kernel(*args, seeds, w, cfg, collect=True)
+    env = make("MiniGrid-Empty-8x8-v0")
+    assert tpr.policy_rollout_supported(env, "regen", collect=True)
+    eight = dataclasses.replace(env, config=cfg)
+    assert tpr.policy_rollout_supported(eight, "cached") and not tpr.policy_rollout_supported(eight, "cached", True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "width,height,see_through_walls",
+    [(8, 8, True), (8, 8, False), (9, 7, True), (9, 7, False), (16, 16, True), (16, 16, False)],
+)
+def test_cuda_collect_spill_matches_plain_twin(width, height, see_through_walls):
+    """Under dyadic weights: the collect-mode spill byte-exact (every field,
+    f32 rows as bits) and the carry outputs equal to the twin's and to the
+    kernel's own eval mode."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cfg(width, height, see_through_walls)
+    args, seeds = _case(cfg, 2048, 32, dev, seed=width * height + see_through_walls)
+    w = tpr.train_weights_from_params(dyadic_flax_params(5), cfg.agent_view_size, device=dev)
+    before = tpr.policy_kernel_launches
+    got = tpr.run_policy_kernel(*args, seeds, w, cfg, collect=True)
+    eval_out = tpr.run_policy_kernel(*args, seeds, w, cfg)
+    want = tpr.plain_policy_rollout(*args, seeds, w, cfg, collect=True)
+    torch.cuda.synchronize()
+    assert tpr.policy_kernel_launches == before + 2
+    names = ("words", "regs", "rsum", "episodes", "checksum")
+    for name, g, e, x in zip(names, got[:5], eval_out, want[:5]):
+        if g.dtype == torch.float32:
+            g, e, x = g.view(torch.int32), e.view(torch.int32), x.view(torch.int32)
+        assert torch.equal(g, x) and torch.equal(g, e), name
+    for name, g, x in zip(("obs_w", "actions", "logp", "value", "reward", "done"), got[5], want[5]):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        if g.dtype == torch.float32:
+            g, x = g.view(torch.int32), x.view(torch.int32)
+        assert torch.equal(g, x), name
+    assert int(want[3].sum()) > 0

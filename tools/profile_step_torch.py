@@ -1,8 +1,9 @@
-"""Where one carry-surface `step` call of the PyTorch port spends its time
-on a CUDA card.
+"""Where one carry-surface `step` call, or one fused train step, of the
+PyTorch port spends its time on a CUDA card.
 
     python tools/profile_step_torch.py            # random policy
     python tools/profile_step_torch.py --policy   # ActorCritic in the loop
+    python tools/profile_step_torch.py --train    # the fused train step
 
 At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
 `chip_smoke.py`), runs the pieces of a regen `step(source, carry)` call
@@ -20,11 +21,28 @@ the other on the current stream, with a CUDA event between each:
             holds the gaps while the host launches the replay's ops
   sums      the metric sums
 
+With `--train`, at the train path's shape (B = 131,072, T = 256, as in
+`chip_smoke.py` phase 6), the pieces of `train_step(ts, carry, key)`
+(`minigrid_tpu_torch.parallel.train.build_fused_train_step`), timed by a
+CUDA event that the step itself records at the end of each piece (its
+`mark` argument), so the profile follows the step's own code:
+
+  weights   the train-layout weights under autograd (`_train_weights`)
+  seeds     the sampling seeds (`_seeds_for`)
+  collect   the policy kernel in collect mode (trajectory spill)
+  replay    the regen rng-chain replay
+  returns   `_trajectory_returns` and the advantages
+  grad      the gradient kernel (`build_grad_kernel`: G1 and G2 for every
+            time chunk, then the partial sums and the torso's bf16
+            rounding); the profiler table splits it into `grad_g1_kernel`
+            and `grad_g2_kernel`
+  pullback  the cotangents pulled back to the flax layout (`_pullback`)
+  optimizer clip + Adam on the flat vector and the updated module
+
 It prints each piece's ms per call, averaged over 3 calls after 2 warm-up
-calls, beside a whole `step` call timed the same way, and the replay's
-iterations per call. Then it wraps one whole `step` call in
-`torch.profiler` and prints the device-time table. The last line is one
-JSON object with the numbers. Needs a CUDA card; imports no JAX.
+calls, beside a whole call timed the same way. Then it wraps one whole
+call in `torch.profiler` and prints the device-time table. The last line
+is one JSON object with the numbers. Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +61,7 @@ from minigrid_tpu_torch.core.prng import key
 from minigrid_tpu_torch.models.policy import ActorCritic
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import policy_rollout as pr
+from minigrid_tpu_torch.parallel import train as tr
 
 ENV_ID = "MiniGrid-Empty-8x8-v0"
 BATCH = 2_097_152
@@ -50,6 +69,8 @@ NUM_STEPS = 256
 WARMUP = 2
 CALLS = 3
 PIECES = ("actions", "kernel", "replay", "sums")
+TRAIN_BATCH = 131_072
+TRAIN_PIECES = ("weights", "seeds", "collect", "replay", "returns", "grad", "pullback", "optimizer")
 
 
 def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
@@ -75,6 +96,80 @@ def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
     return fr.PackedCarry(words, regs, carry.tmpl_words, carry.tmpl_regs, rng), ms, iterations
 
 
+def timed_train_step(step, ts, carry, key_):
+    """One train step with a CUDA event at the end of each piece: (train
+    state, carry, ms per piece)."""
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def mark(piece):
+        events.append((piece, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    ts, carry, _ = step(ts, carry, key_, mark=mark)
+    torch.cuda.synchronize()
+    if tuple(p for p, _ in events[1:]) != TRAIN_PIECES:
+        raise RuntimeError(f"the train step marked {[p for p, _ in events[1:]]}, expected {TRAIN_PIECES}")
+    ms = {p: a.elapsed_time(b) for (_, a), (p, b) in zip(events, events[1:])}
+    return ts, carry, ms
+
+
+def main_train(dev, card) -> int:
+    env = make(ENV_ID)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), TRAIN_BATCH), "regen")
+    ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+    step = tr.build_fused_train_step(env, NUM_STEPS, mode="regen")
+    keys = iter([key(100 + i, device=dev) for i in range(WARMUP + 2 * CALLS + 1)])
+    for _ in range(WARMUP):
+        ts, carry, _ = step(ts, carry, next(keys))
+    totals = dict.fromkeys(TRAIN_PIECES, 0.0)
+    for _ in range(CALLS):
+        ts, carry, ms = timed_train_step(step, ts, carry, next(keys))
+        for p in TRAIN_PIECES:
+            totals[p] += ms[p]
+    pieces_ms = {p: totals[p] / CALLS for p in TRAIN_PIECES}
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CALLS):
+        ts, carry, _ = step(ts, carry, next(keys))
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / CALLS
+
+    whole = sum(pieces_ms.values())
+    for p in TRAIN_PIECES:
+        print(f"{p:9s} {pieces_ms[p]:.4f} ms/step ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
+    print(f"pieces sum {whole:.4f} ms/step; whole train step {step_ms:.4f} ms/step "
+          f"({TRAIN_BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
+
+    kernel_ms, device_ms = profile_one(lambda: step(ts, carry, next(keys)),
+                                       ("policy_kernel", "grad_g1_kernel", "grad_g2_kernel"))
+    print(json.dumps({
+        "card": card, "env_id": ENV_ID, "train": True, "batch_size": TRAIN_BATCH, "num_steps": NUM_STEPS,
+        "pieces_ms": pieces_ms, "step_ms": step_ms, "profiler_device_ms": device_ms, "profiler_kernel_ms": kernel_ms,
+    }), flush=True)
+    return 0
+
+
+def profile_one(fn, kernel_names):
+    """One call under `torch.profiler`: prints the device-time table and
+    returns ({kernel name: device ms}, all device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="device_time_total", row_limit=15), flush=True)
+    # Device-side events only, as the table's "Self CUDA time total" sums
+    # them: an op's self device time repeats that of the kernels it ran.
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    kernel_ms = {n: sum(e.self_device_time_total for e in device if n in e.key) / 1e3 for n in kernel_names}
+    return kernel_ms, sum(e.self_device_time_total for e in device) / 1e3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step_torch: needs a CUDA device", file=sys.stderr)
@@ -86,6 +181,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    if "--train" in sys.argv[1:]:
+        return main_train(dev, card)
     policy = "--policy" in sys.argv[1:]
     env = make(ENV_ID)
     carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
@@ -131,23 +228,11 @@ def main() -> int:
           f"({BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s); "
           f"replay {iterations / CALLS:.2f} iterations/call [{card}]", flush=True)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        carry, _ = step(next(sources), carry)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    print(events.table(sort_by="device_time_total", row_limit=15), flush=True)
-    # Device-side events only, as the table's "Self CUDA time total" sums
-    # them: an op's self device time repeats that of the kernels it ran.
-    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    kernel_us = sum(e.self_device_time_total for e in device if kernel_name in e.key)
-    device_us = sum(e.self_device_time_total for e in device)
+    kernel_ms, device_ms = profile_one(lambda: step(next(sources), carry), (kernel_name,))
     print(json.dumps({
         "card": card, "env_id": ENV_ID, "policy": policy, "batch_size": BATCH, "num_steps": NUM_STEPS,
         "pieces_ms": pieces_ms, "step_ms": step_ms, "replay_iterations_per_call": iterations / CALLS,
-        "profiler_device_ms": device_us / 1e3, "profiler_kernel_ms": kernel_us / 1e3,
+        "profiler_device_ms": device_ms, "profiler_kernel_ms": kernel_ms[kernel_name],
     }), flush=True)
     return 0
 
