@@ -69,6 +69,30 @@ result line):
      required to lie above the bound. Both kernels are timed at the main
      path's shape (mean of 3).
 
+  8. KeyCorridor regen, the slice's main path: KeyCorridorS6R3 (16x16,
+     occlusion, the pickup-target hook), `reset_batch(key(0), 32,768)`,
+     `packed_init(..., "regen")`, one warm-up call, then at
+     `regen_chunk` 128 and 32 a window of 5 timed `step(generator,
+     carry)` calls at T=256 (1,280 steps: every lane truncates once, at
+     step 1080), `packed_finish`. With every count set to 0 just before,
+     the rollout and connect kernels must launch and no other kernel;
+     each window prints env-steps/s, episodes, `reset_overlaps`, and per
+     call the launches, host syncs and re-entry passes; then the peak
+     device memory.
+  9. The path's kernels against their plain versions on the card, byte
+     for byte (reward sums bit for bit): (a) the whole chunked-regen step
+     at chunk 128 from phase 8's carry whose next call holds the mass
+     reset, through the kernels and through `build_packed_plain_rollout`
+     (whose refresh generates with the plain connect loop); (b) the
+     connect kernel on the generator's own plan for 32,768 lanes and on
+     numpy-random inputs (max_itrs 5000 and 7), timed on the plan, its
+     bound from the draws the plain version counts; (c) the chunked-regen
+     step at S3R1, S4R3 and S6R3 on planted pickup targets
+     (`testing.plant_pickup_target`), `max_steps` as registered and cut
+     to 5, chunks 4 and 8: `reset_overlaps` and successes must both occur;
+     and the rollout kernel with the hook and the control rows alone, one
+     128-step pass at phase 8's shape, timed.
+
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
 version's, its bound on this card (`bound_ms`: the larger of its bytes
@@ -79,6 +103,7 @@ computes the same function, that call's time (`library_ms`).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -120,6 +145,20 @@ TRAIN_SLICE_B = 65_536
 GRAD_HEAD_TOL = 1e-4
 GRAD_TORSO_TOL = 1e-3
 GRAD_SUMS_RTOL = 1e-4
+KC_ENV_ID = "MiniGrid-KeyCorridorS6R3-v0"
+KC_B = 32_768
+KC_T = 256
+KC_CHUNKS = (128, 32)
+# Episodes end by truncation, all lanes together at step 1080: 5 calls
+# (1,280 steps) hold one mass reset of every lane.
+KC_WINDOW = 5
+KC_CHECK_IDS = ("MiniGrid-KeyCorridorS3R1-v0", "MiniGrid-KeyCorridorS4R3-v0", "MiniGrid-KeyCorridorS6R3-v0")
+KC_CHECK_B = 8192
+KC_CHECK_T = 16
+KC_CUT_MAX_STEPS = 5
+KC_TIMED = 3
+GEN_SOURCE = "minigrid_tpu_torch/ops/csrc/gen_kernel.cu"
+GEN_REPLACES = "minigrid_tpu/ops/gen_kernel.py:70"
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -132,6 +171,21 @@ BF16_FLOP_PER_S = 989e12
 # updates, the done test, the reward, the write-back, the sums) about 30.
 ROLLOUT_INSTR_PER_VIEW_CELL = 9
 ROLLOUT_INSTR_PER_TRANSITION = 30
+# With occlusion, per view row: its transparency bits (2 per cell), the
+# 2(V-1) shift-and-or steps of the flood (3 each) and about 8 for its
+# edges; the hook and the commit rows add about 10 to the transition.
+ROLLOUT_INSTR_FLOOD_PER_CELL = 2
+ROLLOUT_INSTR_FLOOD_PER_SHIFT = 3
+ROLLOUT_INSTR_FLOOD_PER_ROW = 8
+ROLLOUT_INSTR_HOOK_CTL = 10
+# The fewest integer operations one connect-loop draw needs, from the
+# function: 21 Threefry-2x32 blocks (split(key, 5), then per randint a
+# split and two bits), each 20 rounds of add, rotate and xor plus 5 key
+# injections of 3 and 4 set-up operations (79); the four randint
+# reductions (2 mods, a multiply, an add, a mod: 5 each); the R*C-step
+# reachability flood (9 each); and about 30 for the door test and update.
+CONNECT_OPS_PER_DRAW_BASE = 21 * 79 + 4 * 5 + 30
+CONNECT_OPS_PER_FLOOD_STEP = 9
 
 
 def nvidia_smi(query: str) -> str:
@@ -658,6 +712,240 @@ def phase_train_vs_plain(dev, card, env, ts, warm_carry):
     return max_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms
 
 
+def phase_kc_main_path(dev, card):
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import _build
+    from minigrid_tpu_torch.ops import chunked_regen as cr
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+    from minigrid_tpu_torch.ops import grad_kernel as grk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    # Every kernel's count starts at 0 here and is read right after
+    # `packed_finish`: they count only this path's launches.
+    fr.rollout_kernel_launches = 0
+    gk.connect_kernel_launches = 0
+    _build.probe_launches = 0
+    pr.policy_kernel_launches = 0
+    grk.grad_kernel_launches = 0
+    cr.host_syncs = 0
+    cr.reentry_passes = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    env = make(KC_ENV_ID)
+    cfg = env.config
+    t0 = time.perf_counter()
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), KC_B), "regen")
+    torch.cuda.synchronize()
+    print(f"phase 8: {KC_ENV_ID} B={KC_B} T={KC_T} regen: reset_batch + packed_init "
+          f"{time.perf_counter() - t0:.3f} s, {gk.connect_kernel_launches} connect kernel launches", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    steps = {c: fr.build_fused_rollout(env, KC_T, mode="regen", as_carry=True, regen_chunk=c) for c in KC_CHUNKS}
+    carry, _ = steps[KC_CHUNKS[0]](gen, carry)  # warm-up
+    torch.cuda.synchronize()
+    warm_carry, reset_carry, done_steps = carry, None, KC_T
+    results = {}
+    for chunk in KC_CHUNKS:
+        before = (fr.rollout_kernel_launches, gk.connect_kernel_launches, cr.host_syncs, cr.reentry_passes)
+        metrics = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(KC_WINDOW):
+            if reset_carry is None and done_steps + KC_T > cfg.max_steps:
+                reset_carry = carry  # the carry whose next call holds the mass reset
+            carry, m = steps[chunk](gen, carry)
+            metrics.append(m)
+            done_steps += KC_T
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = (fr.rollout_kernel_launches, gk.connect_kernel_launches, cr.host_syncs, cr.reentry_passes)
+        per_call = [(a - b) / KC_WINDOW for a, b in zip(after, before)]
+        totals = {n: sum(int(getattr(m, n)) for m in metrics) for n in ("episodes", "obs_checksum", "reset_overlaps")}
+        reward = sum(float(m.total_reward) for m in metrics)
+        if any(int(m.total_steps) != KC_B * KC_T for m in metrics):
+            raise RuntimeError("phase 8: total_steps != B*T")
+        rate = KC_B * KC_T * KC_WINDOW / seconds
+        results[chunk] = {"seconds": seconds, "rate": rate, **totals, "reward": reward, "per_call": per_call}
+        print(f"phase 8: regen_chunk {chunk}: {KC_WINDOW} step calls {seconds:.4f} s, {rate:.6e} env-steps/s; "
+              f"episodes {totals['episodes']}, reset_overlaps {totals['reset_overlaps']}, reward {reward:.6f}; "
+              f"per call: rollout kernel launches {per_call[0]}, connect kernel launches {per_call[1]}, "
+              f"host syncs {per_call[2]}, re-entry passes {per_call[3]} [{card}]", flush=True)
+        if totals["episodes"] == 0 or totals["obs_checksum"] == 0:
+            raise RuntimeError(f"phase 8: no episode ended, or the checksum is 0, at regen_chunk {chunk}")
+    final = fr.packed_finish(env, carry)
+    torch.cuda.synchronize()
+    launches = {
+        "rollout_kernel": fr.rollout_kernel_launches,
+        "connect_kernel": gk.connect_kernel_launches,
+        "probe_kernel": _build.probe_launches,
+        "policy_kernel": pr.policy_kernel_launches,
+        "grad_kernel": grk.grad_kernel_launches,
+    }
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 8: launches on the KeyCorridor regen path {launches}; peak memory {peak} B "
+          f"({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    if launches["rollout_kernel"] == 0 or launches["connect_kernel"] == 0:
+        raise RuntimeError(f"phase 8: a kernel of the path did not launch: {launches}")
+    if launches["probe_kernel"] or launches["policy_kernel"] or launches["grad_kernel"]:
+        raise RuntimeError(f"phase 8: a kernel off the path launched: {launches}")
+    x, y = final.agent_pos[:, 0], final.agent_pos[:, 1]
+    if not bool(((x >= 1) & (x < cfg.width - 1) & (y >= 1) & (y < cfg.height - 1)).all()):
+        raise RuntimeError("phase 8: an agent left the grid's interior")
+    if not bool(((final.step_count >= 0) & (final.step_count < cfg.max_steps)).all()):
+        raise RuntimeError("phase 8: step_count out of [0, max_steps)")
+    return env, warm_carry, reset_carry, launches, results, peak
+
+
+def _same_carry_and_metrics(got, want):
+    """Names of carry leaves and metrics that differ (f32 bit for bit)."""
+    import torch
+
+    (cg, mg), (cw, mw) = got, want
+    bad = [n for n, a, b in zip(cg._fields, cg, cw) if not torch.equal(a, b)]
+    bad += [n for n, a, b in zip(mg._fields, mg, mw)
+            if not torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b)]
+    return bad
+
+
+def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+    from minigrid_tpu_torch.ops.packing import key_rows
+    from minigrid_tpu_torch.testing import plant_pickup_target
+    from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    cfg = env.config
+    # (a) The whole chunked-regen step at chunk 128 from the carry of phase 8
+    # whose next call holds the mass reset: kernels against plain versions.
+    out = {}
+    for name, build in (("kernel", fr.build_fused_rollout), ("plain", fr.build_packed_plain_rollout)):
+        step = build(env, KC_T, mode="regen", as_carry=True, regen_chunk=KC_CHUNKS[0])
+        g = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(g, reset_carry)
+        torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t0)
+    bad = _same_carry_and_metrics(out["kernel"][0], out["plain"][0])
+    m = out["kernel"][0][1]
+    print(f"phase 9a: chunked-regen step at chunk {KC_CHUNKS[0]}, B={KC_B} T={KC_T}, through the mass reset: "
+          f"kernels {out['kernel'][1]:.4f} s, plain versions {out['plain'][1]:.4f} s; episodes {int(m.episodes)}, "
+          f"reset_overlaps {int(m.reset_overlaps)}; differing: {bad or 'none'} [{card}]", flush=True)
+    if bad or int(m.episodes) < KC_B // 2:
+        raise RuntimeError(f"phase 9a failed: differing {bad}, episodes {int(m.episodes)}")
+
+    # (b) B4 alone: the generator's own connect inputs for B lanes (taken
+    # from one generate_packed call), and numpy-random ones with locked
+    # rooms, some lanes unable to connect, and a small max_itrs.
+    from minigrid_tpu_torch.envs.keycorridor import generate_packed
+
+    captured = []
+    run = gk.run_connect_kernel
+    gk.run_connect_kernel = lambda *a: captured.append(a) or run(*a)
+    try:
+        keys = torch.from_numpy(np.random.default_rng(8).integers(0, 2**32, (KC_B, 2), dtype=np.uint64).astype(np.int64))
+        generate_packed(keys.to(dev), cfg)
+    finally:
+        gk.run_connect_kernel = run
+    plan = captured[0]
+    rows, cols = cfg.num_rows, cfg.num_cols
+    rng = np.random.default_rng(9)
+    t = torch.from_numpy
+    locked = gk._pack_bits(t(rng.random((KC_B, rows * cols)) < 0.1))
+    hd0 = torch.cat([gk._pack_bits(t(rng.random((KC_B, rows * cols)) < 0.15)) for _ in range(4)])
+    random_in = (key_rows(t(rng.integers(0, 2**32, (KC_B, 2), dtype=np.uint64).astype(np.int64))),
+                 t(rng.integers(0, cols, (1, KC_B)).astype(np.int32)), t(rng.integers(0, rows, (1, KC_B)).astype(np.int32)),
+                 locked, hd0)
+    cases = [("generator plan", plan)] + [(f"random, max_itrs {mi}", tuple(x.to(dev) for x in random_in) + (rows, cols, mi))
+                                          for mi in (5000, 7)]
+    max_err, timing = 0.0, None
+    for name, args in cases:
+        got = gk.run_connect_kernel(*args)
+        want = gk.plain_connect_plan(*args)
+        torch.cuda.synchronize()
+        mism = {n: int((g != w).sum()) for n, g, w in zip(("doors", "colors", "draws"), got, want)}
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        draws = want[2].double()
+        print(f"phase 9b: connect kernel, {name}, B={KC_B}: draws mean {float(draws.mean()):.4f} max "
+              f"{int(draws.max())}; mismatches {mism}", flush=True)
+        if any(mism.values()):
+            raise RuntimeError(f"phase 9b failed on {name}: {mism}")
+        if timing is None:  # the main path's inputs
+            gk.run_connect_kernel(*args)  # warm
+            ms, _ = time_events(lambda: gk.run_connect_kernel(*args), KC_TIMED)
+            plain_ms, _ = time_events(lambda: gk.plain_connect_plan(*args), 1)
+            timing = (ms, plain_ms, float(draws.sum()), int(draws.max()), float(draws.mean()))
+    ops = (CONNECT_OPS_PER_DRAW_BASE + CONNECT_OPS_PER_FLOOD_STEP * rows * cols) * timing[2]
+    b4_bound = bound(4 * (2 + 3 + 4) * KC_B + 4 * (4 + rows * cols * 4 + 1) * KC_B, ops, int_issue_rate(dev))
+    print(f"phase 9b: connect kernel on the generator plan, B={KC_B}: {timing[0]:.6f} ms/call (mean of {KC_TIMED}), "
+          f"plain {timing[1]:.4f} ms; {timing[2]:.0f} draws (mean {timing[4]:.4f}, max {timing[3]}); bound "
+          f"{b4_bound} [{card}]", flush=True)
+
+    # (c) B1 with the hook and the control rows: the chunked-regen step
+    # through the kernels and through the plain versions, on planted
+    # targets, at two chunks, with max_steps as registered and cut.
+    overlaps, successes = 0, 0.0
+    for env_id in KC_CHECK_IDS:
+        base = make(env_id)
+        states = plant_pickup_target(state_to_numpy(base.reset_batch(key(3, device=dev), KC_CHECK_B)))
+        for max_steps in (base.config.max_steps, KC_CUT_MAX_STEPS):
+            e = base if max_steps == base.config.max_steps else dataclasses.replace(
+                base, config=dataclasses.replace(base.config, max_steps=max_steps))
+            carry = fr.packed_init(e, state_from_numpy(states, device=dev), "regen")
+            for chunk in (4, 8):
+                res = []
+                for build in (fr.build_fused_rollout, fr.build_packed_plain_rollout):
+                    step = build(e, KC_CHECK_T, mode="regen", as_carry=True, regen_chunk=chunk)
+                    res.append(step(torch.Generator(device=dev).manual_seed(chunk), carry))
+                bad = _same_carry_and_metrics(*res)
+                m = res[0][1]
+                overlaps += int(m.reset_overlaps)
+                successes += float(m.total_reward)
+                print(f"phase 9c: {env_id} max_steps {max_steps} chunk {chunk} B={KC_CHECK_B} T={KC_CHECK_T}: "
+                      f"episodes {int(m.episodes)}, reward {float(m.total_reward):.6f}, reset_overlaps "
+                      f"{int(m.reset_overlaps)}; differing: {bad or 'none'}", flush=True)
+                if bad:
+                    raise RuntimeError(f"phase 9c failed on {env_id} max_steps {max_steps} chunk {chunk}: {bad}")
+    if overlaps == 0 or successes <= 0:
+        raise RuntimeError(f"phase 9c: reset_overlaps {overlaps}, reward {successes}: the protocol was not exercised")
+
+    # B1 with the hook and the control rows alone, one 128-step pass of the
+    # main path's shape from phase 8's warm carry.
+    w = warm_carry
+    actions = torch.randint(0, 7, (KC_CHUNKS[0], KC_B), dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(12))
+    ctl = torch.zeros((3, KC_B), dtype=torch.int32, device=dev)
+    args = (w.words, w.regs, w.tmpl_words, w.tmpl_regs, actions, cfg)
+    fr.run_rollout_kernel(*args, transition=env.transition, ctl=ctl)  # warm
+    b1_ms, got = time_events(lambda: fr.run_rollout_kernel(*args, transition=env.transition, ctl=ctl), KC_TIMED)
+    b1_plain_ms, want = time_events(lambda: fr.plain_rollout(*args, transition=env.transition, ctl=ctl), 1)
+    counts, b1_err = compare(got[:5], want[:5])
+    counts["ctl"] = int((got[5] != want[5]).sum())
+    v2 = cfg.agent_view_size ** 2
+    v = cfg.agent_view_size
+    instr = (ROLLOUT_INSTR_PER_VIEW_CELL * v2 + ROLLOUT_INSTR_PER_TRANSITION + ROLLOUT_INSTR_HOOK_CTL
+             + v * (ROLLOUT_INSTR_FLOOD_PER_CELL * v + ROLLOUT_INSTR_FLOOD_PER_SHIFT * 2 * (v - 1)
+                    + ROLLOUT_INSTR_FLOOD_PER_ROW))
+    hw = cfg.width * cfg.height
+    b1_bound = bound(state_bytes(hw, KC_B, KC_CHUNKS[0]) + 2 * 12 * KC_B, instr * KC_B * KC_CHUNKS[0],
+                     int_issue_rate(dev))
+    print(f"phase 9: rollout kernel with the hook and the control rows, {KC_ENV_ID} B={KC_B} "
+          f"T={KC_CHUNKS[0]}: {b1_ms:.6f} ms/call (mean of {KC_TIMED}), plain {b1_plain_ms:.4f} ms, "
+          f"mismatches {counts}; bound {b1_bound} ({instr} instructions per lane-step) [{card}]", flush=True)
+    if any(counts.values()):
+        raise RuntimeError("phase 9: the rollout kernel with the hook differs from its plain version")
+    return (max_err, timing[0], timing[1], b4_bound), (b1_err, b1_ms, b1_plain_ms, b1_bound)
+
+
 def main() -> int:
     import torch
 
@@ -695,6 +983,12 @@ def main() -> int:
         dev, card, env, ts, warm_carry
     )
     del env, ts, warm_carry
+    torch.cuda.empty_cache()
+    env, warm_carry, reset_carry, kc_launches, _, _ = phase_kc_main_path(dev, card)
+    (b4_err, b4_ms, b4_plain_ms, b4_bound), (b1h_err, b1h_ms, b1h_plain_ms, b1h_bound) = phase_kc_vs_plain(
+        dev, card, env, warm_carry, reset_carry
+    )
+    del env, warm_carry, reset_carry
     torch.cuda.empty_cache()
 
     from minigrid_tpu_torch.ops import policy_rollout as pr
@@ -807,6 +1101,32 @@ def main() -> int:
             "plain_ms": grad_plain_ms,
             "bound_ms": grad_bound[0],
             "bound_by": grad_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "rollout_kernel_hook_ctl",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES,
+            "launches": kc_launches["rollout_kernel"],
+            "max_abs_err": b1h_err,
+            "ms": b1h_ms,
+            "plain_ms": b1h_plain_ms,
+            "bound_ms": b1h_bound[0],
+            "bound_by": b1h_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "connect_kernel",
+            "route": "cuda",
+            "source": GEN_SOURCE,
+            "replaces": GEN_REPLACES,
+            "launches": kc_launches["connect_kernel"],
+            "max_abs_err": b4_err,
+            "ms": b4_ms,
+            "plain_ms": b4_plain_ms,
+            "bound_ms": b4_bound[0],
+            "bound_by": b4_bound[1],
             "library_ms": None,
         },
     ]}), flush=True)

@@ -2,10 +2,14 @@
 
 The JAX package `minigrid_tpu` is the reference; this package mirrors its
 module paths so each piece has an obvious counterpart, and imports only
-`torch` and `numpy`. Ported so far, for the static-layout families Empty
-and DistShift on the steady carry surface: the packed rollout
-(`ops/fused_rollout.py`), its step loop in one hand-written CUDA kernel
-(`ops/csrc/rollout_kernel.cu`); policy-in-the-loop evaluation
+`torch` and `numpy`. Ported so far, on the steady carry surface: the
+packed rollout (`ops/fused_rollout.py`), its step loop in one
+hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for the
+static-layout families Empty and DistShift and for KeyCorridor (its
+pickup-target hook in the kernel; in regen mode exact chunked regen,
+`ops/chunked_regen.py`, with fresh layouts from its packed generator,
+whose door loop is a fourth kernel, `ops/csrc/gen_kernel.cu`); for the
+static-layout families, policy-in-the-loop evaluation
 (`ops/policy_rollout.py`, `models/policy.py`) in a second one
 (`ops/csrc/policy_kernel.cu`); and the fused train step
 (`parallel/train.py::build_fused_train_step`): that kernel in collect mode

@@ -33,5 +33,10 @@ YELLOW = 4
 GREY = 5
 NUM_COLORS = 6
 
+COLOR_TO_IDX = {"red": RED, "green": GREEN, "blue": BLUE, "purple": PURPLE, "yellow": YELLOW, "grey": GREY}
+# Generators draw colours from the sorted names (the reference's
+# COLOR_NAMES: blue, green, grey, purple, red, yellow).
+COLOR_NAMES = sorted(COLOR_TO_IDX)
+
 # Heading id -> (dx, dy): 0=right(+x), 1=down(+y), 2=left, 3=up.
 DIR_TO_VEC = ((1, 0), (0, 1), (-1, 0), (0, -1))

@@ -14,6 +14,11 @@ both output words of `threefry2x32(k0, k1, 0, c)`, and word `i` of a bits
 draw (row-major flat index) is `x0 ^ x1` of `threefry2x32(k0, k1,
 hi32(i), lo32(i))`.
 
+`bits`, `randint` and `categorical` are the draws the generators make
+(`jax.random.bits(key, (), uint32)`, `jax.random.randint(key, (), lo,
+hi)` and `jax.random.categorical(key, logits)`), vectorised over a batch
+of keys.
+
 `key` makes its tensor on the card unless the caller names a device, as
 every entry point of the port does.
 """
@@ -120,3 +125,55 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
     """int64 uint32 values -> int32 with the same bit patterns (the
     reference's `bitcast_convert_type(uint32 -> int32)`)."""
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def bits(keys: torch.Tensor) -> torch.Tensor:
+    """`jax.random.bits(key, (), uint32)` per key of a `(..., 2)` key
+    tensor: `x0 ^ x1` of `threefry2x32(k0, k1, 0, 0)`, as int64 uint32
+    values of shape `(...)`."""
+    x0, x1 = threefry2x32(keys[..., 0], keys[..., 1], 0, 0)
+    return x0 ^ x1
+
+
+def randint(keys: torch.Tensor, lo, hi) -> torch.Tensor:
+    """`jax.random.randint(key, (), lo, hi)` (int32) per key of a `(..., 2)`
+    key tensor; `lo` and `hi` are ints or int tensors that broadcast
+    against `keys[..., 0]`.
+
+    The double draw of `jax._src.random._randint`: `k1, k2 = split(key)`,
+    `higher = bits(k1)`, `lower = bits(k2)`, then `((higher mod n) ·
+    ((2^16 mod n)^2 mod n) + lower mod n) mod n` in uint32 arithmetic for
+    the span `n = hi - lo` (1 where `hi <= lo`)."""
+    dev = keys.device
+    lo = torch.as_tensor(lo, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(hi, dtype=torch.int64, device=dev)
+    higher, lower = bits(split(keys, 2)).unbind(-1)  # one Threefry pass for both
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & MASK32)
+    mult = (65536 % span) ** 2 % span
+    off = ((((higher % span) * mult) & MASK32) + lower % span) & MASK32
+    return (lo + off % span).to(torch.int32)
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` per row, for `(B, 2)` keys and
+    `(B, N)` logits whose entries are 0 or -inf (a uniform draw over a
+    mask, the only kind the generators make). Returns `(B,)` int64.
+
+    jax 0.9 takes `argmax(logits + gumbel)` with `gumbel = -log(-log(u))`
+    in f32, `u = max(tiny, f·(1 - tiny) + tiny)` and `f = (bits >> 9) ·
+    2^-23` from `bits(key, (N,))`. `u` rises strictly with `m = bits >>
+    9`, and so does jax's f32 gumbel over all 2^23 values of `m`
+    (asserted in tests/port/test_torch_prng.py), so the draw is the first
+    index of the largest `m` among the finite logits: an integer argmax,
+    free of any float `log` that could round apart from XLA's."""
+    b, n = logits.shape
+    out = torch.empty(b, dtype=torch.int64, device=logits.device)
+    idx = torch.arange(n, dtype=torch.int64, device=logits.device)
+    rows = max(1, _BITS_CHUNK // max(n, 1))  # lanes per Threefry pass
+    for start in range(0, b, rows):
+        k = keys[start : start + rows]
+        x0, x1 = threefry2x32(k[:, 0:1], k[:, 1:2], 0, idx)  # (rows, N)
+        m = (x0 ^ x1) >> 9
+        score = torch.where(torch.isfinite(logits[start : start + rows]), m * n + (n - 1 - idx), -1)
+        out[start : start + rows] = score.argmax(dim=1)
+    return out

@@ -1,11 +1,13 @@
 """Registrations of the ported env ids, in the JAX package's order
-(`minigrid_tpu/envs/_register_all.py`): the static-layout families only."""
+(`minigrid_tpu/envs/_register_all.py`): the static-layout families Empty
+and DistShift, and KeyCorridor."""
 
 from __future__ import annotations
 
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.envs import distshift as _distshift
 from minigrid_tpu_torch.envs import empty as _empty
+from minigrid_tpu_torch.envs import keycorridor as _keycorridor
 from minigrid_tpu_torch.envs.registry import register
 
 for _size in (5, 6, 8, 16):
@@ -37,4 +39,21 @@ for _v, _row in ((1, 2), (2, 5)):
             strip2_row=_row,
         ),
         _distshift.generate,
+    )
+
+# Three columns of rooms; max_steps = 30 * room_size**2.
+for _rs, _rows in ((3, 1), (3, 2), (3, 3), (4, 3), (5, 3), (6, 3)):
+    register(
+        f"MiniGrid-KeyCorridorS{_rs}R{_rows}-v0",
+        EnvConfig(
+            family="keycorridor",
+            width=(_rs - 1) * 3 + 1,
+            height=(_rs - 1) * _rows + 1,
+            max_steps=30 * _rs * _rs,
+            room_size=_rs,
+            num_rows=_rows,
+            num_cols=3,
+        ),
+        _keycorridor.generate,
+        _keycorridor.TRANSITION,
     )

@@ -1,10 +1,12 @@
 """The environment bundle (counterpart of `minigrid_tpu/envs/base.py`).
 
 An `Env` pairs a static `EnvConfig` with a batched generator
-`generate(keys (B, 2), config) -> EnvState` and names its transition.
-The port runs only the base transition (`BASE_STEP`), and only inside the
-packed rollout (`ops/fused_rollout.py`); the per-env step and observation
-engine of the JAX package is not ported yet.
+`generate(keys (B, 2), config) -> EnvState` and names its transition: the
+base transition (`BASE_STEP`) or a family's, whose packed hook
+(`ops/packed_hooks.py`) the packed rollout runs after the base
+transition. The port runs transitions only inside the packed rollout
+(`ops/fused_rollout.py`); the per-env step and observation engine of the
+JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from minigrid_tpu_torch.core.state import EnvConfig, EnvState
 
 GenerateFn = Callable[[torch.Tensor, EnvConfig], EnvState]
 
-# The base transition (the reference's MiniGridEnv.step). Families with
-# their own step rules get their own names once their hooks are ported.
+# The base transition (the reference's MiniGridEnv.step). A family with its
+# own step rules names its hook instead (KeyCorridor: "pickup_target").
 BASE_STEP = "base"
 
 

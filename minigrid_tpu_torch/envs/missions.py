@@ -1,28 +1,50 @@
 """Mission strings as integer tuples (counterpart of
 `minigrid_tpu/envs/missions.py`).
 
-Template ids are assigned in registration order, and the family modules
-are imported in the JAX package's order (`envs/_register_all.py`), so a
-template gets the id the JAX package gives it.
+A template's id is its index in the JAX package's table, which assigns
+ids in the order in which its families register them. The port registers
+only the families it has ported, so it keeps a copy of that whole table
+instead of counting its own registrations: an id is then the same
+whichever families are ported.
 """
 
 from __future__ import annotations
-
-from typing import List
 
 import numpy as np
 
 from minigrid_tpu_torch.core.state import MISSION_LEN
 
-_TEMPLATES: List[str] = [""]  # template 0: empty mission
+# The JAX package's templates, in its id order (template 0: empty mission).
+TEMPLATES = (
+    "",
+    "get to the green goal square",
+    "avoid the lava and get to the green goal square",
+    "find the opening and get to the green goal square",
+    "Reach the goal",
+    "use the key to open the door and then get to the goal",
+    "go to the matching object at the end of the hallway",
+    "get a {c0} {t1}",
+    "go get a {c0} {t1}",
+    "fetch a {c0} {t1}",
+    "go fetch a {c0} {t1}",
+    "you must fetch a {c0} {t1}",
+    "go to the {c0} door",
+    "go to the {c0} {t1}",
+    "put the {c0} {t1} near the {c2} {t3}",
+    "open the red door then the blue door",
+    "traverse the rooms to get to the goal",
+    "get the {c0} key from the {c1} room, unlock the {c2} door and go to the goal",
+    "open the door",
+    "pick up the {c0} {t1}",
+    "pick up the {c0} ball",
+)
 
 
 def register_template(fmt: str) -> int:
-    """Register a mission template and return its id (idempotent)."""
-    if fmt in _TEMPLATES:
-        return _TEMPLATES.index(fmt)
-    _TEMPLATES.append(fmt)
-    return len(_TEMPLATES) - 1
+    """The id of a mission template (its index in `TEMPLATES`)."""
+    if fmt not in TEMPLATES:
+        raise ValueError(f"mission template {fmt!r} is not in the JAX package's table")
+    return TEMPLATES.index(fmt)
 
 
 def encode(template_id: int, *slots: int) -> np.ndarray:

@@ -6,7 +6,7 @@ import dataclasses
 from typing import Dict, List
 
 from minigrid_tpu_torch.core.state import EnvConfig
-from minigrid_tpu_torch.envs.base import Env, GenerateFn
+from minigrid_tpu_torch.envs.base import BASE_STEP, Env, GenerateFn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -14,16 +14,20 @@ class EnvSpec:
     env_id: str
     config: EnvConfig
     generate: GenerateFn
+    transition: str = BASE_STEP
 
 
 registry: Dict[str, EnvSpec] = {}
 env_list: List[str] = []  # registration order
 
 
-def register(env_id: str, config: EnvConfig, generate: GenerateFn) -> None:
+def register(env_id: str, config: EnvConfig, generate: GenerateFn, transition: str = BASE_STEP) -> None:
+    """Register an id with its configuration, its batched generator and the
+    name of its transition (`BASE_STEP`, or a family hook's name in
+    `ops/packed_hooks.py`)."""
     if env_id in registry:
         raise ValueError(f"duplicate env id: {env_id}")
-    registry[env_id] = EnvSpec(env_id, config, generate)
+    registry[env_id] = EnvSpec(env_id, config, generate, transition)
     env_list.append(env_id)
 
 
@@ -36,4 +40,4 @@ def make(env_id: str) -> Env:
             f"{env_list}); see ROADMAP.md for the order of the rest"
         )
     spec = registry[env_id]
-    return Env(spec.env_id, spec.config, spec.generate)
+    return Env(spec.env_id, spec.config, spec.generate, spec.transition)

@@ -116,7 +116,7 @@ def _open() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr = ctypes.c_void_p
-        lib.mg_rollout_launch.argtypes = [ptr] * 10 + [ctypes.c_int] * 9 + [ptr]
+        lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 10 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
         lib.mg_policy_launch.argtypes = [ptr] * 17 + [ctypes.c_int] * 12 + [ptr]
         lib.mg_policy_launch.restype = ctypes.c_int
@@ -124,6 +124,8 @@ def _open() -> ctypes.CDLL:
             [ptr] * 17 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_int, ptr]
         )
         lib.mg_grad_launch.restype = ctypes.c_int
+        lib.mg_connect_launch.argtypes = [ptr] * 8 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4 + [ptr]
+        lib.mg_connect_launch.restype = ctypes.c_int
         lib.mg_probe_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
         lib.mg_probe_launch.restype = ctypes.c_int
         lib.mg_error_string.argtypes = [ctypes.c_int]

@@ -69,6 +69,7 @@
 
 #include "policy_device.cuh"
 #include "step_device.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -95,36 +96,13 @@ struct PolicyParams {
   int B, T, width, height, view, max_steps, see_through_walls, num_regs, num_actions, spill_rows;
 };
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
-
-// First output word of Threefry-2x32 (20 rounds): core/prng.py::threefry2x32.
-__device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1, uint32_t x0,
-                                                uint32_t x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  return x0;
-}
-
 // `sample_categorical_with_logp` for one lane: inverse CDF over the first
 // A logits. With kLogp it also sets `logp` to the drawn action's
 // log-probability, (l_a - m) - log(total), as the reference orders it.
 template <bool kLogp>
 __device__ __forceinline__ int sample_action(const float (&logit)[kHeadRows], int num_actions,
                                              int32_t seed, float& logp) {
-  const uint32_t u31 = threefry_x0(static_cast<uint32_t>(seed), kSeedSalt, 0u, 0u) & 0x7FFFFFFFu;
+  const uint32_t u31 = threefry2x32(static_cast<uint32_t>(seed), kSeedSalt, 0u, 0u).x & 0x7FFFFFFFu;
   const float u01 = __fmul_rn(__int2float_rn(static_cast<int>(u31)), 0x1p-31f);
   float m = logit[0];
 #pragma unroll
@@ -270,7 +248,10 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
       float logp = 0.0f;
       const int a = sample_action<kCollect>(logit, p.num_actions, p.seeds[t * B + lane], logp);
       bool done;
-      const float reward = step_lane(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, s, done);
+      float reward;
+      Ctl no_ctl{};
+      step_lane_ex<kHookNone, false>(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, 0, s,
+                                     no_ctl, reward, done);
       if (done) {
         reset_any = true;
         episodes += 1;

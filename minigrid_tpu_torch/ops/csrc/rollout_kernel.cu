@@ -2,14 +2,18 @@
 // probe kernel at the end of the file.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/fused_rollout.py::_rollout_kernel
-// (the base step: no family hooks, no chunked-regen control rows, no matmul
-// row reader). It runs T environment steps per lane in one launch and
-// computes what that kernel computes: the 7-action transition, the
+// (the base step, the pickup-target hook and the chunked-regen control
+// rows; the other family hooks and the matmul row reader are still to
+// port). It runs T environment steps per lane in one launch and computes
+// what that kernel computes: the 7-action transition, the family hook, the
 // forward-cell write-back, the re-centring on a forward move, template
 // auto-reset, the V*V egocentric view read with out-of-bounds wall fill and
 // the carried-object overlay, the occlusion flood, and the per-step obs
 // checksum; outputs are the final words and registers, the per-lane reward
-// sum (f32), the per-lane episode count and the per-lane checksum.
+// sum (f32), the per-lane episode count and the per-lane checksum. Under
+// the chunked-regen commit protocol (`chunk_exact` there, a non-null
+// `ctl_in` here) the (3, B) control rows come in and go out, T is the chunk
+// length, and a lane that froze or committed its T steps stops.
 //
 // What bounds it on the card: integer ALU work per lane-step (about V*V
 // view-cell reads, each an address computation, a bounds test and a
@@ -23,9 +27,11 @@
 //    memory as [HW][bt] int32, so neighbouring threads touch neighbouring
 //    banks whatever row each reads, and the global (HW, B) layout loads and
 //    stores coalesced.
-//  * The per-lane step, its row-offset re-centring, the reward's rounding
-//    and the view read are in step_device.cuh, which the policy kernel
-//    shares.
+//  * The per-lane step, its row-offset re-centring, the reward's rounding,
+//    the hooks, the commit protocol and the view read are in
+//    step_device.cuh, which the policy kernel shares. The hook id and the
+//    control rows are template parameters, so the base step compiles as
+//    it did without them.
 
 #include <cstddef>
 #include <cstdint>
@@ -43,13 +49,16 @@ struct Params {
   const int32_t* tmpl_regs;   // (num_regs, B)
   const int32_t* actions;     // (T, B)
   const int32_t* tables;      // [off_fwd (4); off_view (4 * V * V)]
+  const int32_t* ctl_in;      // (3, B) commit rows, or null
   int32_t* words_out;
   int32_t* regs_out;
   float* rsum_out;     // (B,)
   int32_t* counts_out;  // (2, B): episodes; obs checksum
+  int32_t* ctl_out;     // (3, B), when ctl_in is not null
   int B, T, width, height, view, max_steps, see_through_walls, num_regs;
 };
 
+template <int kHook, bool kCtl>
 __global__ void rollout_kernel(const Params p) {
   extern __shared__ int32_t smem[];
   const int bt = blockDim.x;
@@ -68,6 +77,12 @@ __global__ void rollout_kernel(const Params p) {
 
   Lane s;
   load_lane(g, bt, p.words_in, p.regs_in, B, lane, sh.hw, s);
+  Ctl ctl{};
+  if (kCtl) {
+    ctl.consumed = p.ctl_in[lane];
+    ctl.steps_done = p.ctl_in[B + lane];
+    ctl.frozen = p.ctl_in[2 * B + lane];
+  }
   bool reset_any = false;
   float rsum = 0.0f;
   int episodes = 0;
@@ -76,7 +91,12 @@ __global__ void rollout_kernel(const Params p) {
   for (int t = 0; t < p.T; ++t) {
     const int a = p.actions[t * B + lane];
     bool done;
-    const float reward = step_lane(g, bt, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, s, done);
+    float reward;
+    // Only under kCtl can a step go uncommitted, and the lane then stays
+    // frozen or finished for the rest of the launch.
+    if (!step_lane_ex<kHook, kCtl>(g, bt, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s,
+                                   ctl, reward, done))
+      break;
     if (done) {
       reset_any = true;
       episodes += 1;
@@ -93,6 +113,22 @@ __global__ void rollout_kernel(const Params p) {
   p.rsum_out[lane] = rsum;
   p.counts_out[lane] = episodes;
   p.counts_out[B + lane] = checksum;
+  if (kCtl) {
+    p.ctl_out[lane] = ctl.consumed;
+    p.ctl_out[B + lane] = ctl.steps_done;
+    p.ctl_out[2 * B + lane] = ctl.frozen;
+  }
+}
+
+template <int kHook, bool kCtl>
+int launch(const Params& p, int lane_block, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(rollout_kernel<kHook, kCtl>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (p.B + lane_block - 1) / lane_block;
+  rollout_kernel<kHook, kCtl><<<blocks, lane_block, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The launch check (replaces the TPU capability probe
@@ -116,12 +152,16 @@ int mg_probe_launch(const void* in, void* out, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the rollout on `stream`; returns the cudaError_t of the launch.
+// Launch the rollout on `stream` with family hook `hook` (kHookNone or
+// kHookPickupTarget); a non-null `ctl_in` runs the chunked-regen commit
+// protocol and writes `ctl_out`. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for an unknown hook).
 int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
                       const void* tmpl_regs, const void* actions, const void* tables,
-                      void* words_out, void* regs_out, void* rsum_out, void* counts_out, int B,
-                      int T, int width, int height, int view, int max_steps,
-                      int see_through_walls, int num_regs, int lane_block, void* stream) {
+                      const void* ctl_in, void* words_out, void* regs_out, void* rsum_out,
+                      void* counts_out, void* ctl_out, int B, int T, int width, int height,
+                      int view, int max_steps, int see_through_walls, int num_regs, int hook,
+                      int lane_block, void* stream) {
   Params p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -129,6 +169,8 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
   p.tmpl_regs = static_cast<const int32_t*>(tmpl_regs);
   p.actions = static_cast<const int32_t*>(actions);
   p.tables = static_cast<const int32_t*>(tables);
+  p.ctl_in = static_cast<const int32_t*>(ctl_in);
+  p.ctl_out = static_cast<int32_t*>(ctl_out);
   p.words_out = static_cast<int32_t*>(words_out);
   p.regs_out = static_cast<int32_t*>(regs_out);
   p.rsum_out = static_cast<float*>(rsum_out);
@@ -144,12 +186,17 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
 
   const size_t smem = (static_cast<size_t>(width) * height * lane_block + 4 + 4 * view * view) *
                       sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + lane_block - 1) / lane_block;
-  rollout_kernel<<<blocks, lane_block, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ctl = ctl_in != nullptr;
+  if (hook == kHookNone) {
+    return ctl ? launch<kHookNone, true>(p, lane_block, smem, st)
+               : launch<kHookNone, false>(p, lane_block, smem, st);
+  }
+  if (hook == kHookPickupTarget) {
+    return ctl ? launch<kHookPickupTarget, true>(p, lane_block, smem, st)
+               : launch<kHookPickupTarget, false>(p, lane_block, smem, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* mg_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

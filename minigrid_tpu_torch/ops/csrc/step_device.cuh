@@ -2,9 +2,10 @@
 // and policy_kernel.cu): the 7-action transition, the forward-cell
 // write-back, the re-centring on a forward move, template auto-reset, and
 // the V*V egocentric view read with out-of-bounds wall fill, the
-// carried-object overlay and the occlusion flood. The JAX package's
-// counterparts are `_step_core` and `_obs_core` in
-// minigrid_tpu/ops/fused_rollout.py, without family hooks.
+// carried-object overlay and the occlusion flood, with the family hooks
+// and the chunked-regen commit rows the rollout kernel takes. The JAX
+// package's counterparts are `_step_core` and `_obs_core` in
+// minigrid_tpu/ops/fused_rollout.py.
 //
 // One thread owns one lane. Its grid lives in shared memory as a column of
 // a [HW][bt] int32 block: row r at g[r * bt]. The TPU kernel rolls the
@@ -46,10 +47,12 @@ struct StepShape {
   int width, height, hw, view, max_steps, see_through_walls;
 };
 
-// A lane's scalar registers and its grid's row offset.
+// A lane's scalar registers, its grid's row offset, and the two aux rows
+// the hooks read (those of the current episode).
 struct Lane {
   int x, y, d, ct, cc, cct, ccc, sc;
   int shift;  // logical row s is physical row (s + shift) % hw
+  int aux0, aux1;
 };
 
 __device__ __forceinline__ int wrap_row(int p, int hw) { return p >= hw ? p - hw : p; }
@@ -78,15 +81,43 @@ __device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* wor
   s.ccc = regs[6 * B + lane];
   s.sc = regs[7 * B + lane];
   s.shift = 0;
+  s.aux0 = regs[kNumScalars * B + lane];
+  s.aux1 = regs[(kNumScalars + 1) * B + lane];
 }
 
-// One transition under action `a`, then template auto-reset. `tab` holds
-// off_fwd (4 entries) then off_view (4 * V * V). Returns the reward and
-// sets `done` (terminated or truncated, so the lane was reset).
-__device__ __forceinline__ float step_lane(int32_t* g, int bt, const int32_t* tab,
-                                           const int32_t* tmpl_words, const int32_t* tmpl_regs,
-                                           size_t B, int lane, const StepShape& sh, int a, Lane& s,
-                                           bool& done) {
+// Family hooks after the base transition (ops/packed_hooks.py; the JAX
+// package's ops/packed_hooks.py). The id is a template parameter of the
+// kernels, so the base step compiles without any hook code.
+constexpr int kHookNone = 0;
+constexpr int kHookPickupTarget = 1;  // _hook_pickup_target
+
+// A lane's exact-chunked-regen commit rows (ops/chunked_regen.py,
+// invariants I2-I3): this launch's template used, steps committed toward
+// the chunk, lane frozen for the rest of the launch.
+struct Ctl {
+  int consumed, steps_done, frozen;
+};
+
+// One transition under action `a`, the family hook `kHook`, then template
+// auto-reset. `tab` holds off_fwd (4 entries) then off_view (4 * V * V).
+// Sets `reward` and `done` (terminated or truncated, so the lane was
+// reset) and returns true if the step was committed.
+//
+// With kCtl the step runs under the commit protocol: it is skipped once
+// the lane has committed `chunk_len` steps or is frozen, and a step that
+// ends an episode while this launch's template is already consumed
+// freezes the lane and is discarded whole. So `done` is decided before the
+// grid is written: nothing of a step that is not committed is left behind,
+// and it adds 0 to reward, episodes and checksum.
+template <int kHook, bool kCtl>
+__device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* tab,
+                                             const int32_t* tmpl_words, const int32_t* tmpl_regs,
+                                             size_t B, int lane, const StepShape& sh, int a,
+                                             int chunk_len, Lane& s, Ctl& ctl, float& reward,
+                                             bool& done) {
+  reward = 0.0f;
+  done = false;
+  if (kCtl && (ctl.steps_done >= chunk_len || ctl.frozen != 0)) return false;
   const int hw = sh.hw;
   const int fp = wrap_row(s.shift + tab[s.d], hw);  // forward cell, physical row
   const int fw = g[fp * bt];
@@ -106,11 +137,10 @@ __device__ __forceinline__ float step_lane(int32_t* g, int bt, const int32_t* ta
 
   const int sc1 = s.sc + 1;
   const bool hit_goal = is_fwd && ft == kGoal;
-  const bool terminated = hit_goal || (is_fwd && ft == kLava);
-  const float reward =
-      hit_goal ? __fsub_rn(1.0f, __fmul_rn(0.9f, __fdiv_rn(static_cast<float>(sc1),
-                                                            static_cast<float>(sh.max_steps))))
-               : 0.0f;
+  bool terminated = hit_goal || (is_fwd && ft == kLava);
+  const float success = __fsub_rn(
+      1.0f, __fmul_rn(0.9f, __fdiv_rn(static_cast<float>(sc1), static_cast<float>(sh.max_steps))));
+  float r = hit_goal ? success : 0.0f;
 
   const bool hands_empty = s.ct == 0;
   const bool do_pickup = a == 3 && (ft == kKey || ft == kBall || ft == kBox) && hands_empty;
@@ -131,18 +161,33 @@ __device__ __forceinline__ float step_lane(int32_t* g, int bt, const int32_t* ta
   if (is_toggle && ft == kBox) {
     new_fwd = static_cast<uint32_t>(fct > 0 ? fct : kEmptyWord) | (static_cast<uint32_t>(fcc) << 4);
   }
-  g[fp * bt] = static_cast<int32_t>(new_fwd);
 
   const int ct1 = do_pickup ? ft : (do_drop ? 0 : s.ct);
   const int cc1 = do_pickup ? fc : (do_drop ? 0 : s.cc);
   const int cct1 = do_pickup ? fct : (do_drop ? 0 : s.cct);
   const int ccc1 = do_pickup ? fcc : (do_drop ? 0 : s.ccc);
 
-  if (moves) s.shift = fp;  // re-centre: the forward cell becomes row 0
+  if (kHook == kHookPickupTarget) {
+    // A pickup that leaves the agent carrying the aux target succeeds.
+    if (a == 3 && ct1 == s.aux0 && cc1 == s.aux1) {
+      r = success;
+      terminated = true;
+    }
+  }
+  const bool d = terminated || sc1 >= sh.max_steps;
+  if (kCtl) {
+    if (d && ctl.consumed == 1) {  // would reuse the consumed template: freeze
+      ctl.frozen = 1;
+      return false;
+    }
+    ctl.steps_done += 1;
+    if (d) ctl.consumed = 1;
+  }
 
-  done = terminated || sc1 >= sh.max_steps;
-  if (done) {
-    for (int r = 0; r < hw; ++r) g[r * bt] = tmpl_words[r * B + lane];
+  g[fp * bt] = static_cast<int32_t>(new_fwd);
+  if (moves) s.shift = fp;  // re-centre: the forward cell becomes row 0
+  if (d) {
+    for (int row = 0; row < hw; ++row) g[row * bt] = tmpl_words[row * B + lane];
     s.shift = 0;
     s.x = tmpl_regs[0 * B + lane];
     s.y = tmpl_regs[1 * B + lane];
@@ -152,6 +197,8 @@ __device__ __forceinline__ float step_lane(int32_t* g, int bt, const int32_t* ta
     s.cct = tmpl_regs[5 * B + lane];
     s.ccc = tmpl_regs[6 * B + lane];
     s.sc = 0;
+    s.aux0 = tmpl_regs[kNumScalars * B + lane];  // the new episode's aux rows
+    s.aux1 = tmpl_regs[(kNumScalars + 1) * B + lane];
   } else {
     s.x = moves ? s.x + dirx : s.x;
     s.y = moves ? s.y + diry : s.y;
@@ -162,7 +209,9 @@ __device__ __forceinline__ float step_lane(int32_t* g, int bt, const int32_t* ta
     s.ccc = ccc1;
     s.sc = sc1;
   }
-  return reward;
+  reward = r;
+  done = d;
+  return true;
 }
 
 // The lane's egocentric view: calls visit(kv, word) with kv = j * V + i for

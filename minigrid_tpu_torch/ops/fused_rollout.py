@@ -15,15 +15,18 @@ int32 register file. Two backends run the same step semantics:
     on any device. It is the reference the kernel is held against, the
     role `build_packed_xla_rollout` plays in the JAX package.
 
-Semantics are the JAX package's `_step_core`/`_obs_core` without family
-hooks: the 7-action base transition, forward-cell write-back, the
-re-centring roll on a forward move, template auto-reset, the V² egocentric
-view with out-of-bounds wall fill and the carried-object overlay, the
-occlusion flood, and the per-step obs checksum. Modes: "cached" (every
-reset replays the lane's pinned layout) and "regen" for the static-layout
-families (Empty, DistShift), where the template IS the fresh layout and
-only each lane's rng reset chain has to be advanced after the call
-(`_replay_rng_chain`).
+Semantics are the JAX package's `_step_core`/`_obs_core`: the 7-action
+base transition, the family's post-hook (`ops/packed_hooks.py`; the
+pickup-target hook so far), forward-cell write-back, the re-centring roll
+on a forward move, template auto-reset, the V² egocentric view with
+out-of-bounds wall fill and the carried-object overlay, the occlusion
+flood, and the per-step obs checksum. Modes: "cached" (every reset
+replays the lane's pinned layout) and "regen". In regen mode the
+static-layout families (Empty, DistShift) keep the template as the fresh
+layout and only advance each lane's rng reset chain after the call
+(`_replay_rng_chain`); a random-layout family with a packed generator
+(KeyCorridor) runs exact chunked regen (`ops/chunked_regen.py`), whose
+commit rows `step_core` and the kernel take as `chunk_ctl`.
 
 Integer results are byte-exact against the JAX package. `total_reward`
 is a batch sum of per-lane sums, taken in another order than the JAX
@@ -42,8 +45,11 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.rollout import RolloutMetrics, random_policy
-from minigrid_tpu_torch.core.state import EnvConfig, EnvState
+from minigrid_tpu_torch.core.state import AUX_LEN, EnvConfig, EnvState
 from minigrid_tpu_torch.envs.base import BASE_STEP, Env
+from minigrid_tpu_torch.ops.chunked_regen import build_chunked_regen
+from minigrid_tpu_torch.ops.packed_gen import get_packed_generator
+from minigrid_tpu_torch.ops.packed_hooks import KERNEL_HOOK_IDS, HookVals, packed_hook
 from minigrid_tpu_torch.ops.packing import (
     EMPTY_WORD,
     NUM_REGS,
@@ -90,12 +96,23 @@ def step_core(
     max_steps: int,
     see_through_walls: bool,
     with_obs: bool = False,
+    hook=None,
+    chunk_ctl=None,
+    chunk_len=None,
 ):
-    """One packed transition + auto-reset + obs checksum.
+    """One packed transition + family hook + auto-reset + obs checksum:
+    the JAX package's `_step_core`.
 
     Returns `(words2, regs2, reward (1,B) f32, done (1,B) bool,
-    obs_sum (1,B) int32)`: the JAX package's `_step_core` without hooks.
-    With `with_obs`, the post-step view `(vw, vis)` (`obs_core`) follows."""
+    obs_sum (1,B) int32)`. `hook` is a post-hook of `ops/packed_hooks.py`
+    (None for the base step). With `chunk_ctl`, the `(3, B)` int32 commit
+    rows of exact chunked regen (`consumed`, `steps_done`, `frozen`;
+    `ops/chunked_regen.py` I2-I3) and the chunk length `chunk_len`: a lane
+    that has committed `chunk_len` steps or is frozen does nothing, and a
+    step that ends an episode while the lane's template is already consumed
+    freezes the lane and is discarded whole (state, reward, done, obs
+    checksum); the updated rows follow `obs_sum`. With `with_obs`, the
+    post-step view `(vw, vis)` (`obs_core`) comes last."""
     hw = width * height
     off_fwd, _, _, _ = _dir_tables(width, height, view)
     dev = words.device
@@ -151,6 +168,7 @@ def step_core(
     sc1f = sc1.to(torch.float32)
     success = 1.0 - 0.9 * (sc1f / torch.full_like(sc1f, float(max_steps)))
     reward = torch.where(hit_goal, success, torch.zeros_like(success))
+    assert (chunk_ctl is None) == (chunk_len is None)
 
     hands_empty = ct == 0
     can_pickup = (ft == C.KEY) | (ft == C.BALL) | (ft == C.BOX)
@@ -182,6 +200,12 @@ def step_core(
     off_f = _sel4(d, [torch.full_like(d, o) for o in off_fwd])  # (1, B)
     words1 = torch.where(iota_hw == off_f, new_fwd, words)
 
+    if hook is not None:
+        reward, terminated = hook(
+            HookVals(a=a, ct1=ct1, cc1=cc1, reward=reward, terminated=terminated, success=success,
+                     aux=regs[R_AUX : R_AUX + AUX_LEN])
+        )
+
     # Re-centre the grid on the agent after a forward move.
     words_m = words1
     for i, o in enumerate(off_fwd):
@@ -200,15 +224,33 @@ def step_core(
     tail2 = torch.where(done, tmpl_regs[R_AUX:], regs[R_AUX:])
     regs2 = torch.cat(new_scalars + [sc2, tail2], dim=0)
 
+    # ---- the exact-chunked-regen commit protocol --------------------------
+    if chunk_ctl is not None:
+        consumed, steps_done, frozen = chunk_ctl[0:1], chunk_ctl[1:2], chunk_ctl[2:3]
+        active = (steps_done < chunk_len) & (frozen == 0)
+        freeze_now = active & done & (consumed == 1)
+        commit = active & ~freeze_now
+        words2 = torch.where(commit, words2, words)
+        regs2 = torch.where(commit, regs2, regs)
+        done = done & commit
+        reward = torch.where(commit, reward, torch.zeros_like(reward))
+        ctl2 = torch.cat([torch.where(done, torch.ones_like(consumed), consumed), steps_done + _i32(commit),
+                          frozen | _i32(freeze_now)])
+
     # ---- post-step observation and its checksum --------------------------
     vw, vis = obs_core(
         words2, regs2, width=width, height=height, view=view, see_through_walls=see_through_walls
     )
     tcs = (vw & 15) + ((vw >> 4) & 15) + ((vw >> 8) & 15)
     obs_sum = (tcs * vis).sum(dim=0, keepdim=True, dtype=torch.int32)
+    out = (words2, regs2, reward, done)
+    if chunk_ctl is not None:
+        out += (torch.where(commit, obs_sum, torch.zeros_like(obs_sum)), ctl2)
+    else:
+        out += (obs_sum,)
     if with_obs:
-        return words2, regs2, reward, done, obs_sum, vw, vis
-    return words2, regs2, reward, done, obs_sum
+        out += (vw, vis)
+    return out
 
 
 def obs_core(
@@ -264,10 +306,13 @@ def obs_core(
     return vw, vis
 
 
-def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig):
+def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig, transition=BASE_STEP, ctl=None):
     """`T = actions.shape[0]` packed steps as a loop of torch ops, on any
-    device. Returns `(words', regs', rsum, episodes, checksum)` with
-    `(1, B)` per-lane accumulators (f32, int32, int32)."""
+    device, under `transition`'s hook. Returns `(words', regs', rsum,
+    episodes, checksum)` with `(1, B)` per-lane accumulators (f32, int32,
+    int32). With `ctl`, the `(3, B)` int32 commit rows of exact chunked
+    regen, the T steps are one chunk under the commit protocol, and the
+    updated rows come last."""
     b = words.shape[1]
     dev = words.device
     rsum = torch.zeros((1, b), dtype=torch.float32, device=dev)
@@ -280,14 +325,22 @@ def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig
         view=config.agent_view_size,
         max_steps=config.max_steps,
         see_through_walls=config.see_through_walls,
+        hook=packed_hook(transition),
     )
+    if ctl is not None:
+        step = functools.partial(step, chunk_len=actions.shape[0])
     for t in range(actions.shape[0]):
-        words, regs, reward, done, obs_sum = step(
-            words, regs, actions[t : t + 1], tmpl_words, tmpl_regs
-        )
+        if ctl is None:
+            words, regs, reward, done, obs_sum = step(words, regs, actions[t : t + 1], tmpl_words, tmpl_regs)
+        else:
+            words, regs, reward, done, obs_sum, ctl = step(
+                words, regs, actions[t : t + 1], tmpl_words, tmpl_regs, chunk_ctl=ctl
+            )
         rsum = rsum + reward
         epi = epi + _i32(done)
         csum = csum + obs_sum
+    if ctl is not None:
+        return words, regs, rsum, epi, csum, ctl
     return words, regs, rsum, epi, csum
 
 
@@ -337,16 +390,19 @@ def _check_operand(name, t, rows, b, dtype=torch.int32):
         raise ValueError(f"rollout kernel: {name} is not contiguous")
 
 
-def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig):
+def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig, transition=BASE_STEP, ctl=None):
     """The rollout kernel's wrapper: same arguments and results as
     `plain_rollout`.
 
     CPU tensors run `plain_rollout`; CUDA tensors launch the kernel on the
-    current stream, and any other device, a failed build or a failed launch
-    raises."""
+    current stream, and any other device, a transition whose hook the
+    kernel lacks, a failed build or a failed launch raises."""
     if words.device.type == "cpu":
-        return plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config)
+        return plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config, transition, ctl)
     from minigrid_tpu_torch.ops import _build
+
+    packed_hook(transition)  # raises for a hook that is not ported
+    hook_id = KERNEL_HOOK_IDS[transition]
 
     hw = config.width * config.height
     b = words.shape[1]
@@ -357,6 +413,7 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
         ("tmpl_words", tmpl_words, hw),
         ("tmpl_regs", tmpl_regs, NUM_REGS),
         ("actions", actions, t),
+        *((("ctl", ctl, 3),) if ctl is not None else ()),
     ):
         _check_operand(name, x, rows, b)
         if x.device != words.device:
@@ -371,16 +428,19 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
     regs_out = torch.empty_like(regs)
     rsum = torch.empty((1, b), dtype=torch.float32, device=dev)
     counts = torch.empty((2, b), dtype=torch.int32, device=dev)
+    ctl_out = torch.empty((3, b), dtype=torch.int32, device=dev) if ctl is not None else None
     tables = _kernel_tables(config.width, config.height, config.agent_view_size, dev)
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr() if x is not None else None)
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mg_rollout_launch(
-            *(ctypes.c_void_p(x.data_ptr()) for x in (
-                words, regs, tmpl_words, tmpl_regs, actions, tables,
-                words_out, regs_out, rsum, counts,
-            )),
+            *map(ptr, (words, regs, tmpl_words, tmpl_regs, actions, tables, ctl,
+                       words_out, regs_out, rsum, counts, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size,
-            config.max_steps, int(config.see_through_walls), NUM_REGS, bt,
+            config.max_steps, int(config.see_through_walls), NUM_REGS, hook_id, bt,
             ctypes.c_void_p(stream),
         )
     if err != 0:
@@ -390,6 +450,8 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
         )
     global rollout_kernel_launches
     rollout_kernel_launches += 1
+    if ctl is not None:
+        return words_out, regs_out, rsum, counts[0:1], counts[1:2], ctl_out
     return words_out, regs_out, rsum, counts[0:1], counts[1:2]
 
 
@@ -425,16 +487,20 @@ def _regen_is_static(env: Env) -> bool:
 
 
 def _check_supported(env: Env, mode: str) -> None:
-    if env.transition != BASE_STEP:
-        raise NotImplementedError(
-            f"{env.env_id}: family step hooks are not ported yet (see ROADMAP.md)"
-        )
+    """Raise unless the packed rollout runs `env` under `mode`: the base
+    step or a ported hook; cached mode, or regen on a static layout or on a
+    family whose packed generator is ported (chunked regen)."""
+    try:
+        packed_hook(env.transition)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{env.env_id}: {e}") from None
     if mode not in ("regen", "cached"):
         raise ValueError(f"unknown auto-reset mode {mode!r}")
-    if mode == "regen" and not _regen_is_static(env):
+    if mode == "regen" and not _regen_is_static(env) and get_packed_generator(env) is None:
         raise NotImplementedError(
-            f"{env.env_id}: regen mode on a random-layout family needs chunked "
-            "regen, which is not ported yet (see ROADMAP.md); use mode='cached'"
+            f"{env.env_id}: regen mode on a random-layout family runs chunked regen, which needs "
+            f"the family's packed generator; {env.config.family!r} has none in the port yet "
+            "(see ROADMAP.md); use mode='cached'"
         )
 
 
@@ -457,16 +523,21 @@ def _unpack_rolled(cfg: EnvConfig, words_f: torch.Tensor, regs_f: torch.Tensor) 
 
 def _prepare_packed(env: Env, states: EnvState, mode: str = "regen"):
     """Packed, agent-centred live state and reset template. The template
-    is each lane's layout regenerated from its rng leaf; in cached mode
-    its rng rows are pinned back to the live key."""
+    is each lane's layout regenerated from its rng leaf (by the family's
+    packed generator where it has one); in cached mode its rng rows are
+    pinned back to the live key."""
     cfg = env.config
     words0, regs0 = _pack_rolled(cfg, states)
-    if env.generate is None:
+    gp = get_packed_generator(env)
+    if gp is not None:
+        tmpl_words, tmpl_regs = gp(states.rng, cfg)
+    elif env.generate is None:
         raise NotImplementedError(
             f"{env.env_id}: the port cannot generate this family yet; build the "
             "carry from the JAX package's (utils/convert.py)"
         )
-    tmpl_words, tmpl_regs = _pack_rolled(cfg, env.generate(states.rng, cfg))
+    else:
+        tmpl_words, tmpl_regs = _pack_rolled(cfg, env.generate(states.rng, cfg))
     if mode == "cached":
         tmpl_regs[R_RNG : R_RNG + 2] = key_rows(states.rng)
     return words0, regs0, tmpl_words, tmpl_regs
@@ -554,11 +625,22 @@ def rollout_metrics(rsum, epi, csum, num_steps: int) -> RolloutMetrics:
     )
 
 
+def _fit_chunk(num_steps: int, chunk: int) -> int:
+    """The largest divisor of `num_steps` that is at most `chunk`."""
+    tc = min(chunk, num_steps)
+    while num_steps % tc:
+        tc -= 1
+    return tc
+
+
 def build_carry_surface(env: Env, num_steps: int, mode: str, as_carry: bool, run_core, stream_fn):
     """The carry step of `_make_plain_carry_step`, or with `as_carry=False`
     `rollout(source, states) -> (states, RolloutMetrics)` around it."""
     _check_supported(env, mode)
-    step_carry = _make_plain_carry_step(env, num_steps, mode, run_core, stream_fn)
+    return _surface(env, mode, as_carry, _make_plain_carry_step(env, num_steps, mode, run_core, stream_fn))
+
+
+def _surface(env: Env, mode: str, as_carry: bool, step_carry):
     if as_carry:
         return step_carry
 
@@ -573,25 +655,66 @@ def _actions_for(env: Env, num_steps: int, actions_override):
     return lambda generator, b, dev: _action_stream(env, num_steps, generator, b, dev, actions_override)
 
 
+def _build_rollout(env, num_steps, mode, as_carry, actions_override, regen_chunk, refresh_block, run):
+    """The surfaces of `build_fused_rollout` and `build_packed_plain_rollout`
+    over `run` (`run_rollout_kernel` or `plain_rollout`): chunked regen for
+    a random-layout family in regen mode, else the static-template step.
+    With `plain_rollout` the template refresh generates with the plain
+    versions of the generation kernels too."""
+    _check_supported(env, mode)
+    run_core = functools.partial(run, transition=env.transition)
+    stream_fn = _actions_for(env, num_steps, actions_override)
+    if mode == "regen" and not _regen_is_static(env):
+        tc = _fit_chunk(num_steps, regen_chunk)
+
+        def chunk_fn(words, regs, tmpl_words, tmpl_regs, actions, ctl):
+            return run_core(words, regs, tmpl_words, tmpl_regs, actions, env.config, ctl=ctl)
+
+        generate = functools.partial(get_packed_generator(env), plain=run is plain_rollout)
+        step_carry = build_chunked_regen(env, num_steps, tc, chunk_fn, stream_fn, generate, refresh_block)
+    else:
+        step_carry = _make_plain_carry_step(env, num_steps, mode, run_core, stream_fn)
+    return _surface(env, mode, as_carry, step_carry)
+
+
 def build_fused_rollout(
-    env: Env, num_steps: int, mode: str = "regen", as_carry: bool = False, actions_override=None
+    env: Env,
+    num_steps: int,
+    mode: str = "regen",
+    as_carry: bool = False,
+    actions_override=None,
+    regen_chunk: int = 32,
+    refresh_block=None,
 ):
     """`rollout(generator, states) -> (states, RolloutMetrics)`, or with
     `as_carry=True` the steady surface `step(generator, carry) -> (carry,
     RolloutMetrics)` (see `packed_init`/`packed_finish`). The step loop
     runs in the CUDA kernel for CUDA tensors and in the plain twin for CPU
     tensors. `actions_override` (`(T, B)` or `(T,)`) replaces the random
-    policy."""
-    return build_carry_surface(
-        env, num_steps, mode, as_carry, run_rollout_kernel, _actions_for(env, num_steps, actions_override)
+    policy.
+
+    In regen mode a random-layout family runs exact chunked regen
+    (`ops/chunked_regen.py`): kernel passes of `regen_chunk` steps (the
+    largest divisor of `num_steps` up to it), with the templates of the
+    lanes that reset regenerated between passes in slices of
+    `refresh_block` lanes (default `chunked_regen.refresh_block_size`);
+    `reset_overlaps` counts the steps deferred to a re-entry pass."""
+    return _build_rollout(
+        env, num_steps, mode, as_carry, actions_override, regen_chunk, refresh_block, run_rollout_kernel
     )
 
 
 def build_packed_plain_rollout(
-    env: Env, num_steps: int, mode: str = "regen", as_carry: bool = False, actions_override=None
+    env: Env,
+    num_steps: int,
+    mode: str = "regen",
+    as_carry: bool = False,
+    actions_override=None,
+    regen_chunk: int = 32,
+    refresh_block=None,
 ):
     """The plain-torch twin of `build_fused_rollout` (same surfaces and
     results), on any device."""
-    return build_carry_surface(
-        env, num_steps, mode, as_carry, plain_rollout, _actions_for(env, num_steps, actions_override)
+    return _build_rollout(
+        env, num_steps, mode, as_carry, actions_override, regen_chunk, refresh_block, plain_rollout
     )

@@ -370,6 +370,17 @@ def policy_lane_block(config: EnvConfig) -> int:
     )
 
 
+def _check_policy_path(env: Env, mode: str) -> None:
+    """Raise unless the policy kernel runs `env` under `mode`: the packed
+    rollout's checks, and then neither a family hook nor chunked regen,
+    which the policy kernel does not have yet."""
+    _check_supported(env, mode)
+    if env.transition != BASE_STEP or (mode == "regen" and not _regen_is_static(env)):
+        raise NotImplementedError(
+            f"{env.env_id}: the policy rollouts run no family hooks and no chunked regen yet (see ROADMAP.md)"
+        )
+
+
 def policy_rollout_supported(env: Env, mode: str = "cached", collect: bool = False) -> bool:
     """True iff the policy rollouts run `env` under `mode`: the base
     transition, cached mode or regen on a static layout, and a grid and
@@ -512,7 +523,7 @@ def build_policy_eval_rollout(env: Env, params, num_steps: int, mode: str = "cac
     only seeds the per-(step, lane) sampling stream, as in the JAX package.
     The loop runs in the CUDA kernel for CUDA tensors and in the plain twin
     for CPU tensors."""
-    _check_supported(env, mode)
+    _check_policy_path(env, mode)
     if not policy_rollout_supported(env, mode):
         raise ValueError(f"policy rollout (mode={mode!r}) does not support {env.env_id!r}")
     view = env.config.agent_view_size
@@ -547,7 +558,7 @@ def build_fused_train_rollout(env: Env, num_steps: int, mode: str = "cached"):
     step. `mark` is called after the seeds, the kernel and the replay, as
     in `train_step`. Cached mode, and regen on the static-layout families;
     random-layout regen needs chunked regen, not ported yet."""
-    _check_supported(env, mode)
+    _check_policy_path(env, mode)
     if not policy_rollout_supported(env, mode, collect=True):
         raise ValueError(f"fused train rollout (mode={mode!r}) does not support {env.env_id!r}")
 

@@ -13,6 +13,9 @@ kernels and their plain twins.
 `dyadic_flax_params` draws `ActorCritic` weights on a sparse dyadic grid,
 under which every f32 sum of the actor is exact in any order: the policy
 kernel, its twin and the JAX package then agree bit for bit.
+
+`plant_pickup_target` doctors states of a pickup-target family (as the
+JAX package's tests do) so that the hook's success fires.
 """
 
 from __future__ import annotations
@@ -77,6 +80,21 @@ def random_packed_case(
     tmpl_words, tmpl_regs = _states(rng, width, height, batch, max_steps)
     tmpl_regs[R_SC] = 0
     return dict(words=words, regs=regs, tmpl_words=tmpl_words, tmpl_regs=tmpl_regs)
+
+
+def plant_pickup_target(states: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A copy of a state dictionary (`utils.convert.state_to_numpy`'s) with
+    every agent at (1, 1) facing right, hands free, at its aux target
+    (type `aux[0]`, colour `aux[1]`) planted at (2, 1): a pickup there
+    succeeds."""
+    s = {k: np.array(v) for k, v in states.items()}
+    s["agent_pos"][:] = 1
+    s["agent_dir"][:] = 0
+    s["grid"][:, 1, 2, :] = 0
+    s["grid"][:, 1, 2, 0] = s["aux"][:, 0]
+    s["grid"][:, 1, 2, 1] = s["aux"][:, 1]
+    s["carrying"][:] = 0
+    return s
 
 
 def _sparse_dyadic(rng: np.random.Generator, n_in: int, n_out: int, nnz: int, steps, scale: float):

@@ -1,5 +1,8 @@
 """The port's Threefry and key recipes, bit for bit against jax.random and
-the JAX package's `core.prng` on numpy-made keys."""
+the JAX package's `core.prng` on numpy-made keys: split, bits, randint
+(static and per-lane bounds) and categorical over 0/-inf masks."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -49,3 +52,74 @@ def test_key_matches_prng_key(seed):
 def test_key_rejects_negative_seed():
     with pytest.raises(ValueError):
         prng.key(-1, device="cpu")
+
+
+# randint spans (lo, hi): the generators draw 0..cols, 0..rows, 0..4, 0..6
+# and door rows ty+1..ty+rs-1; hi <= lo gives lo.
+SPANS = [(0, 1), (0, 3), (0, 4), (0, 6), (0, 30), (1, 5), (7, 12), (11, 41), (3, 3)]
+
+
+def _draw_inputs():
+    """Keys, per-lane bounds (spans 1-30, some hi <= lo) and 0/-inf masks
+    (all-False rows get the JAX package's fallback: zero logits)."""
+    rng = np.random.default_rng(12)
+    lo = rng.integers(0, 20, N_KEYS).astype(np.int32)
+    hi = lo + rng.integers(-2, 31, N_KEYS).astype(np.int32)
+    valid = rng.random((N_KEYS, 96)) < rng.random((N_KEYS, 1))  # 0 to 96 valid cells a row
+    valid[:64] = False
+    logits = np.where(valid, 0.0, -np.inf).astype(np.float32)
+    logits[~valid.any(axis=1)] = 0.0
+    return _keys(11), lo, hi, logits
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_draws():
+    """jax.random's draws on `_draw_inputs()`, in one compile: randint over
+    every static span, randint with the per-lane bounds, categorical."""
+    keys, lo, hi, logits = _draw_inputs()
+
+    def draw(k, a, b, lg):
+        static = jnp.stack([jax.random.randint(k, (), l_, h_) for l_, h_ in SPANS])
+        return static, jax.random.randint(k, (), a, b), jax.random.categorical(k, lg)
+
+    return tuple(np.asarray(x) for x in jax.jit(jax.vmap(draw))(jnp.asarray(keys), lo, hi, logits))
+
+
+@pytest.mark.parametrize("i", range(len(SPANS)), ids=[f"{lo}-{hi}" for lo, hi in SPANS])
+def test_randint_matches_jax_random_randint(i):
+    keys = _draw_inputs()[0]
+    lo, hi = SPANS[i]
+    got = prng.randint(_t(keys), lo, hi)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _jax_draws()[0][:, i])
+
+
+def test_randint_per_lane_bounds_match_jax():
+    keys, lo, hi, _ = _draw_inputs()
+    got = prng.randint(_t(keys), torch.from_numpy(lo), torch.from_numpy(hi))
+    np.testing.assert_array_equal(got.numpy(), _jax_draws()[1])
+
+
+def test_categorical_matches_jax_random_categorical_on_masks():
+    keys, _, _, logits = _draw_inputs()
+    got = prng.categorical(_t(keys), torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), _jax_draws()[2])
+
+
+def test_jax_gumbel_rises_strictly_with_the_uniform_bits():
+    """Road (b) of the port's categorical: jax 0.9's gumbel `-log(-log(u))`
+    in f32 (`_gumbel`, mode "low", `u = uniform(tiny, 1)`), evaluated by
+    XLA over every one of the 2^23 values `m = bits >> 9` that `u` can
+    take, is strictly increasing in `m`. So `argmax(logits + gumbel)` over
+    0/-inf logits is the first index of the largest `m` among the valid
+    cells, which `prng.categorical` takes with an integer argmax."""
+
+    def gumbel_of_m(m):
+        floats = jax.lax.bitcast_convert_type(m | jnp.uint32(0x3F800000), jnp.float32) - 1.0
+        tiny = jnp.float32(np.finfo(np.float32).tiny)
+        u = jnp.maximum(tiny, floats * (jnp.float32(1.0) - tiny) + tiny)
+        return -jnp.log(-jnp.log(u))
+
+    g = np.asarray(jax.jit(gumbel_of_m)(jnp.arange(2**23, dtype=jnp.uint32)))
+    assert np.isfinite(g).all()
+    assert (np.diff(g) > 0).all()

@@ -4,6 +4,7 @@ PyTorch port spends its time on a CUDA card.
     python tools/profile_step_torch.py            # random policy
     python tools/profile_step_torch.py --policy   # ActorCritic in the loop
     python tools/profile_step_torch.py --train    # the fused train step
+    python tools/profile_step_torch.py --regen [--chunk N]  # KeyCorridor regen
 
 At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
 `chip_smoke.py`), runs the pieces of a regen `step(source, carry)` call
@@ -39,8 +40,32 @@ CUDA event that the step itself records at the end of each piece (its
   pullback  the cotangents pulled back to the flax layout (`_pullback`)
   optimizer clip + Adam on the flat vector and the updated module
 
+With `--regen`, at the KeyCorridor regen path's shape (KeyCorridorS6R3,
+B = 32,768, T = 256, `regen_chunk` N, default 128, as in `chip_smoke.py`
+phase 8), the pieces of a chunked-regen call
+(`minigrid_tpu_torch.ops.chunked_regen.build_chunked_regen`), timed by
+CUDA events the call records through its `mark` argument and summed over
+its chunks:
+
+  actions   the random policy's `(T, B)` draw
+  kernel    pass 1 of each chunk: the rollout kernel with the hook and
+            the control rows
+  refresh   the chain advance and the template refresh of the lanes that
+            reset (`masked_template_refresh`: the plain-torch generator,
+            the connect kernel inside it); its lane count is read on the
+            host
+  reentry   the re-entry passes, the check for unfinished lanes included
+  sums      the metrics
+
+Episodes end by truncation, all lanes together at step 1080, so after one
+warm-up call it times a window of 5 calls (1,280 steps, one mass reset),
+then runs the next 5-call window under `torch.profiler`, whose table
+splits the device time into the rollout kernel, the connect kernel and
+the generator's torch ops.
+
 It prints each piece's ms per call, averaged over 3 calls after 2 warm-up
-calls, beside a whole call timed the same way. Then it wraps one whole
+calls (with `--regen`, over its window), beside a whole call timed the
+same way. Then it wraps one whole
 call in `torch.profiler` and prints the device-time table. The last line
 is one JSON object with the numbers. Needs a CUDA card; imports no JAX.
 """
@@ -59,7 +84,9 @@ import torch
 from minigrid_tpu_torch import make
 from minigrid_tpu_torch.core.prng import key
 from minigrid_tpu_torch.models.policy import ActorCritic
+from minigrid_tpu_torch.ops import chunked_regen as cr
 from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.ops import gen_kernel as gk
 from minigrid_tpu_torch.ops import policy_rollout as pr
 from minigrid_tpu_torch.parallel import train as tr
 
@@ -71,6 +98,10 @@ CALLS = 3
 PIECES = ("actions", "kernel", "replay", "sums")
 TRAIN_BATCH = 131_072
 TRAIN_PIECES = ("weights", "seeds", "collect", "replay", "returns", "grad", "pullback", "optimizer")
+REGEN_ENV_ID = "MiniGrid-KeyCorridorS6R3-v0"
+REGEN_BATCH = 32_768
+REGEN_WINDOW = 5  # calls: 1,280 steps hold one truncation at step 1080
+REGEN_PIECES = ("actions", "kernel", "refresh", "reentry", "sums")
 
 
 def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
@@ -152,8 +183,76 @@ def main_train(dev, card) -> int:
     return 0
 
 
+def timed_marks(call):
+    """`call(mark)` with a CUDA event at each mark: (its result, ms summed
+    per piece name)."""
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+    events[0][1].record()
+
+    def mark(piece):
+        events.append((piece, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    out = call(mark)
+    torch.cuda.synchronize()
+    ms = {}
+    for (_, a), (p, b) in zip(events, events[1:]):
+        ms[p] = ms.get(p, 0.0) + a.elapsed_time(b)
+    return out, ms
+
+
+def main_regen(dev, card, chunk: int) -> int:
+    env = make(REGEN_ENV_ID)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), REGEN_BATCH), "regen")
+    step = fr.build_fused_rollout(env, NUM_STEPS, mode="regen", as_carry=True, regen_chunk=chunk)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    carry, _ = step(gen, carry)  # warm-up
+    torch.cuda.synchronize()
+    counts0 = (fr.rollout_kernel_launches, gk.connect_kernel_launches, cr.host_syncs, cr.reentry_passes)
+    totals = dict.fromkeys(REGEN_PIECES, 0.0)
+    episodes = overlaps = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REGEN_WINDOW):
+        (carry, metrics), ms = timed_marks(lambda mark: step(gen, carry, mark=mark))
+        for p in REGEN_PIECES:
+            totals[p] += ms[p]
+        episodes += int(metrics.episodes)
+        overlaps += int(metrics.reset_overlaps)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / REGEN_WINDOW
+    counts = [(b - a) / REGEN_WINDOW for a, b in zip(counts0, (
+        fr.rollout_kernel_launches, gk.connect_kernel_launches, cr.host_syncs, cr.reentry_passes))]
+    pieces_ms = {p: totals[p] / REGEN_WINDOW for p in REGEN_PIECES}
+    whole = sum(pieces_ms.values())
+    for p in REGEN_PIECES:
+        print(f"{p:8s} {pieces_ms[p]:.4f} ms/call ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
+    print(f"pieces sum {whole:.4f} ms/call; whole step call {step_ms:.4f} ms/call "
+          f"({REGEN_BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s), {REGEN_WINDOW}-call window, "
+          f"regen_chunk {chunk}: episodes {episodes}, reset_overlaps {overlaps}; per call: rollout kernel "
+          f"launches {counts[0]}, connect kernel launches {counts[1]}, host syncs {counts[2]}, "
+          f"re-entry passes {counts[3]} [{card}]", flush=True)
+
+    def window():
+        nonlocal carry
+        for _ in range(REGEN_WINDOW):
+            carry, _ = step(gen, carry)
+
+    kernel_ms, device_ms = profile_one(window, ("rollout_kernel", "connect_kernel"))
+    print(json.dumps({
+        "card": card, "env_id": REGEN_ENV_ID, "regen_chunk": chunk, "batch_size": REGEN_BATCH,
+        "num_steps": NUM_STEPS, "window_calls": REGEN_WINDOW, "pieces_ms": pieces_ms, "step_ms": step_ms,
+        "launches_per_call": {"rollout_kernel": counts[0], "connect_kernel": counts[1]},
+        "host_syncs_per_call": counts[2], "reentry_passes_per_call": counts[3],
+        "episodes": episodes, "reset_overlaps": overlaps,
+        "profiler_window_device_ms": device_ms, "profiler_window_kernel_ms": kernel_ms,
+    }), flush=True)
+    return 0
+
+
 def profile_one(fn, kernel_names):
-    """One call under `torch.profiler`: prints the device-time table and
+    """`fn()` under `torch.profiler`: prints the device-time table and
     returns ({kernel name: device ms}, all device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -183,6 +282,10 @@ def main() -> int:
 
     if "--train" in sys.argv[1:]:
         return main_train(dev, card)
+    if "--regen" in sys.argv[1:]:
+        args = sys.argv[1:]
+        chunk = int(args[args.index("--chunk") + 1]) if "--chunk" in args else 128
+        return main_regen(dev, card, chunk)
     policy = "--policy" in sys.argv[1:]
     env = make(ENV_ID)
     carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
