@@ -41,7 +41,7 @@ result line):
      slices of 65,536 lanes with the matching columns of the same seeds
      (both timed, the twin as the sum of its slices), and on random
      packed states at 8x8 and 9x7 with and without see-through walls and
-     at 16x16, B=8192, T=64. Under phase 4's weights, after T=1, at most
+     at 16x16 and 25x25 (32-lane blocks), B=8192, T=64. Under phase 4's weights, after T=1, at most
      1e-4 of 65,536 lanes may differ (the f32 sums run in another order
      on the tensor cores and can flip a near-tie draw). The kernel alone
      is timed at the main path's shape and weights (mean of 3).
@@ -92,6 +92,35 @@ result line):
      to 5, chunks 4 and 8: `reset_overlaps` and successes must both occur;
      and the rollout kernel with the hook and the control rows alone, one
      128-step pass at phase 8's shape, timed.
+ 10. MultiRoom regen, this slice's main path: MultiRoom-N4-S5 (25x25,
+     occlusion, the base step), `reset_batch(key(0), 32,768)`,
+     `packed_init(..., "regen")`, T=288, `regen_chunk` 96. From
+     `reset_batch` every lane truncates at steps 80, 160, 240, ..., so a
+     call holds 3 or 4 mass resets and some chunks hold two (re-entry).
+     (a) The random policy (`build_fused_rollout`) and (b) the seeded
+     `ActorCritic` in the loop (`build_policy_eval_rollout`), each one
+     warm-up and 3 timed `step` calls from the same carry. With every
+     count set to 0 just before each window, (a) must launch only the
+     rollout and room-chain kernels, (b) only the policy and room-chain
+     kernels; each window prints env-steps/s, episodes, `reset_overlaps`,
+     per call the launches, host syncs and re-entry passes, and the peak
+     device memory; deferred resets must occur.
+ 11. The slice's kernels against their plain versions on the card, byte
+     for byte (reward sums bit for bit): (a) the room-chain kernel on the
+     generator's own retry keys and room counts for 32,768 lanes of N4-S5
+     and N6 (the chain, its count, the attempts and the key rows), timed,
+     its bound from the attempts and rows the plain version counts, and
+     the warp divergence (the mean over 32-lane warps of the warp's most
+     attempts, over the mean); (b) the whole random-policy chunked-regen
+     step from phase 10's carry whose call deferred resets, through the
+     kernels and through `build_packed_plain_rollout`; (c) the same for
+     policy evaluation under dyadic weights against
+     `build_policy_eval_plain_rollout`, at the full 32,768 lanes; (d) the
+     policy kernel at 25x25 on random packed states runs in phase 5; (e)
+     both chunked-regen steps at N2-S4 with `max_steps` cut to 3, chunk 8,
+     B=8192, T=16, where lanes end two episodes in a chunk; and the
+     rollout kernel (hookless) and the policy kernel (BT=32) under the
+     control rows alone, one 96-step pass at phase 10's shape, timed.
 
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
@@ -126,7 +155,7 @@ POLICY_SOURCE = "minigrid_tpu_torch/ops/csrc/policy_kernel.cu"
 POLICY_REPLACES = "minigrid_tpu/ops/policy_rollout.py:282"
 POLICY_T = 256
 SLICE_B = 65_536
-POLICY_CHECK_CONFIGS = [(8, 8, True), (8, 8, False), (9, 7, True), (9, 7, False), (16, 16, False)]
+POLICY_CHECK_CONFIGS = [(8, 8, True), (8, 8, False), (9, 7, True), (9, 7, False), (16, 16, False), (25, 25, False)]
 FLAX_T1_MAX_SHARE = 1e-4
 POLICY_TIMED_CALLS = 3
 GRAD_SOURCE = "minigrid_tpu_torch/ops/csrc/grad_kernel.cu"
@@ -159,6 +188,20 @@ KC_CUT_MAX_STEPS = 5
 KC_TIMED = 3
 GEN_SOURCE = "minigrid_tpu_torch/ops/csrc/gen_kernel.cu"
 GEN_REPLACES = "minigrid_tpu/ops/gen_kernel.py:70"
+MR_REPLACES = "minigrid_tpu/ops/gen_kernel.py:224"
+MR_ENV_ID = "MiniGrid-MultiRoom-N4-S5-v0"
+MR_B = 32_768
+# Every lane truncates together at steps 80, 160, 240, ...: a 288-step call
+# holds 3 or 4 mass resets, and some 96-step chunks hold two (re-entry).
+MR_T = 288
+MR_CHUNK = 96
+MR_TIMED = 3
+MR_CHAIN_IDS = ("MiniGrid-MultiRoom-N4-S5-v0", "MiniGrid-MultiRoom-N6-v0")
+MR_CUT_ID = "MiniGrid-MultiRoom-N2-S4-v0"
+MR_CUT_MAX_STEPS = 3
+MR_CUT_CHUNK = 8
+MR_CUT_B = 8192
+MR_CUT_T = 16
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -186,6 +229,15 @@ ROLLOUT_INSTR_HOOK_CTL = 10
 # reachability flood (9 each); and about 30 for the door test and update.
 CONNECT_OPS_PER_DRAW_BASE = 21 * 79 + 4 * 5 + 30
 CONNECT_OPS_PER_FLOOD_STEP = 9
+# The fewest integer operations of the room-chain loop, from the function:
+# per key row 5 Threefry-2x32 blocks (the row's key, its split, two bits)
+# and its randint reduction (6; the exit-position row reduces twice, counted
+# once); per try about 40 (the exit and corner selects, the bounds and the
+# overlap tests); per attempt the split (2 blocks) and about 20 to keep the
+# best chain. Rows and tries are those the plain version counts.
+MR_OPS_PER_ROW = 5 * 79 + 6
+MR_OPS_PER_TRY = 40
+MR_OPS_PER_ATTEMPT = 2 * 79 + 20
 
 
 def nvidia_smi(query: str) -> str:
@@ -946,6 +998,286 @@ def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
     return (max_err, timing[0], timing[1], b4_bound), (b1_err, b1_ms, b1_plain_ms, b1_bound)
 
 
+def _zero_counts():
+    """Set every kernel's launch count, and chunked regen's host-sync and
+    re-entry counts, to 0."""
+    from minigrid_tpu_torch.ops import _build
+    from minigrid_tpu_torch.ops import chunked_regen as cr
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+    from minigrid_tpu_torch.ops import grad_kernel as grk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    fr.rollout_kernel_launches = gk.connect_kernel_launches = gk.mr_chain_kernel_launches = 0
+    _build.probe_launches = pr.policy_kernel_launches = grk.grad_kernel_launches = 0
+    cr.host_syncs = cr.reentry_passes = 0
+
+
+def _counts():
+    from minigrid_tpu_torch.ops import _build
+    from minigrid_tpu_torch.ops import chunked_regen as cr
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+    from minigrid_tpu_torch.ops import grad_kernel as grk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    return {
+        "rollout_kernel": fr.rollout_kernel_launches,
+        "policy_kernel": pr.policy_kernel_launches,
+        "mr_chain_kernel": gk.mr_chain_kernel_launches,
+        "connect_kernel": gk.connect_kernel_launches,
+        "probe_kernel": _build.probe_launches,
+        "grad_kernel": grk.grad_kernel_launches,
+        "host_syncs": cr.host_syncs,
+        "reentry_passes": cr.reentry_passes,
+    }
+
+
+def _mr_window(name, step, sources, carry, env, dev, card, path_kernels):
+    """One warm-up call, then `MR_TIMED` timed calls with every count set to
+    0 just before them. Returns (the carry before each timed call, their
+    metrics, the counts, env-steps/s, peak memory)."""
+    import torch
+
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+
+    cfg = env.config
+    carry, _ = step(sources[0], carry)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    befores, metrics = [], []
+    t0 = time.perf_counter()
+    for source in sources[1:]:
+        befores.append(carry)
+        carry, m = step(source, carry)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    final = fr.packed_finish(env, carry)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    totals = {n: sum(int(getattr(m, n)) for m in metrics) for n in ("episodes", "obs_checksum", "reset_overlaps")}
+    rate = MR_B * MR_T * MR_TIMED / seconds
+    per_call = {n: c / MR_TIMED for n, c in counts.items() if c}
+    print(f"phase 10{name}: {MR_TIMED} step calls {seconds:.4f} s, {rate:.6e} env-steps/s; episodes "
+          f"{totals['episodes']}, reset_overlaps {totals['reset_overlaps']}, reward "
+          f"{sum(float(m.total_reward) for m in metrics):.6f}; per call {per_call}; peak memory {peak} B "
+          f"({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    if any(int(m.total_steps) != MR_B * MR_T for m in metrics):
+        raise RuntimeError(f"phase 10{name}: total_steps != B*T")
+    if totals["episodes"] < MR_B or totals["obs_checksum"] == 0 or totals["reset_overlaps"] == 0:
+        raise RuntimeError(f"phase 10{name}: the mass resets or the re-entry did not run: {totals}")
+    kernels = {n: c for n, c in counts.items() if n.endswith("_kernel")}
+    if any(kernels[n] == 0 for n in path_kernels) or any(c for n, c in kernels.items() if n not in path_kernels):
+        raise RuntimeError(f"phase 10{name}: launches {kernels}; the path runs {path_kernels} and no other kernel")
+    x, y = final.agent_pos[:, 0], final.agent_pos[:, 1]
+    if not bool(((x >= 1) & (x < cfg.width - 1) & (y >= 1) & (y < cfg.height - 1)).all()):
+        raise RuntimeError(f"phase 10{name}: an agent left the grid's interior")
+    if not bool(((final.step_count >= 0) & (final.step_count < cfg.max_steps)).all()):
+        raise RuntimeError(f"phase 10{name}: step_count out of [0, max_steps)")
+    return befores, metrics, counts, rate, peak
+
+
+def phase_mr_main_path(dev, card):
+    """MultiRoom-N4-S5 regen at full size, (a) under the random policy and
+    (b) with the seeded ActorCritic in the loop, both through chunked regen
+    at chunk 96 from one `packed_init`."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    env = make(MR_ENV_ID)
+    t0 = time.perf_counter()
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), MR_B), "regen")
+    torch.cuda.synchronize()
+    print(f"phase 10: {MR_ENV_ID} B={MR_B} T={MR_T} regen_chunk {MR_CHUNK}: reset_batch + packed_init "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    step = fr.build_fused_rollout(env, MR_T, mode="regen", as_carry=True, regen_chunk=MR_CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = _mr_window("a", step, [gen] * (1 + MR_TIMED), carry0, env, dev, card,
+                      ("rollout_kernel", "mr_chain_kernel"))
+    model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    pstep = pr.build_policy_eval_rollout(env, model, MR_T, mode="regen", as_carry=True, regen_chunk=MR_CHUNK)
+    policy = _mr_window("b", pstep, [key(100 + i, device=dev) for i in range(1 + MR_TIMED)], carry0, env, dev,
+                        card, ("policy_kernel", "mr_chain_kernel"))
+    return env, model, rand, policy
+
+
+def _overlap_carry(window):
+    """The carry of a window whose next call deferred the most resets."""
+    befores, metrics = window[0], window[1]
+    i = max(range(len(metrics)), key=lambda j: int(metrics[j].reset_overlaps))
+    return befores[i]
+
+
+def phase_mr_vs_plain(dev, card, env, rand, policy):
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.envs.multiroom import MAX_ATTEMPTS
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.ops.packing import key_rows
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    # (a) B5 on the generator's own retry keys and room counts.
+    chain = {}
+    for env_id in MR_CHAIN_IDS:
+        cfg = make(env_id).config
+        keys = torch.from_numpy(np.random.default_rng(8).integers(0, 2**32, (MR_B, 2), dtype=np.uint64)
+                                .astype(np.int64)).to(dev)
+        k, _ = prng.split(keys, 2).unbind(1)
+        ks = prng.split(k, 6).unbind(1)
+        args = (key_rows(ks[1]), prng.randint(ks[0], cfg.min_num_rooms, cfg.max_num_rooms + 1)[None].contiguous(),
+                cfg, MAX_ATTEMPTS)
+        gk.run_mr_chain_kernel(*args)  # warm
+        ms, got = time_events(lambda: gk.run_mr_chain_kernel(*args), MR_TIMED)
+        plain_ms, want = time_events(lambda: gk.plain_mr_chain(*args), 1)
+        mism = {n: int((g != w).sum()) for n, g, w in zip(("rooms", "count", "attempts", "rows"), got, want)}
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        att, rows = want[2][0].double(), want[3][0].double()
+        attempts, rows_total = float(att.sum()), float(rows.sum())
+        tries = (rows_total - 4 * attempts) / 5
+        ops = rows_total * MR_OPS_PER_ROW + tries * MR_OPS_PER_TRY + attempts * MR_OPS_PER_ATTEMPT
+        nbytes = 4 * 3 * MR_B + 4 * (6 * cfg.max_num_rooms + 3) * MR_B
+        b5_bound = bound(nbytes, ops, int_issue_rate(dev))
+        warp_att = float(att.reshape(-1, 32).max(dim=1).values.mean())
+        warp_rows = float(rows.reshape(-1, 32).max(dim=1).values.mean())
+        print(f"phase 11a: room-chain kernel, {env_id}, B={MR_B}: {ms:.6f} ms/call (mean of {MR_TIMED}), plain "
+              f"{plain_ms:.4f} ms; attempts mean {float(att.mean()):.4f} max {int(att.max())}, mean of the "
+              f"32-lane warp's max {warp_att:.4f} ({warp_att / float(att.mean()):.3f}x); rows mean "
+              f"{float(rows.mean()):.4f}, warp max mean {warp_rows:.4f} ({warp_rows / float(rows.mean()):.3f}x); "
+              f"count == num_rooms on {int((want[1] == args[1]).sum())} lanes; bound {b5_bound} "
+              f"({ops:.6e} operations); mismatches {mism} [{card}]", flush=True)
+        if any(mism.values()):
+            raise RuntimeError(f"phase 11a failed on {env_id}: {mism}")
+        chain[env_id] = (err, ms, plain_ms, b5_bound)
+
+    # (b) The whole random-policy chunked-regen step from phase 10's carry
+    # whose call deferred resets: kernels against plain versions.
+    carry = _overlap_carry(rand)
+    out = {}
+    for name, build in (("kernel", fr.build_fused_rollout), ("plain", fr.build_packed_plain_rollout)):
+        step = build(env, MR_T, mode="regen", as_carry=True, regen_chunk=MR_CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(torch.Generator(device=dev).manual_seed(7), carry)
+        torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t0)
+    bad = _same_carry_and_metrics(out["kernel"][0], out["plain"][0])
+    m = out["kernel"][0][1]
+    print(f"phase 11b: random-policy chunked-regen step, B={MR_B} T={MR_T} chunk {MR_CHUNK}: kernels "
+          f"{out['kernel'][1]:.4f} s, plain versions {out['plain'][1]:.4f} s; episodes {int(m.episodes)}, "
+          f"reset_overlaps {int(m.reset_overlaps)}; differing: {bad or 'none'} [{card}]", flush=True)
+    if bad or int(m.episodes) < MR_B or int(m.reset_overlaps) == 0:
+        raise RuntimeError(f"phase 11b failed: differing {bad}, episodes {int(m.episodes)}, "
+                           f"reset_overlaps {int(m.reset_overlaps)}")
+
+    # (c) The policy-eval chunked-regen step under dyadic weights, kernel
+    # against twin, from phase 10's carry whose call deferred resets.
+    params = dyadic_flax_params(7)
+    carry = _overlap_carry(policy)
+    out = {}
+    for name, build in (("kernel", pr.build_policy_eval_rollout), ("twin", pr.build_policy_eval_plain_rollout)):
+        step = build(env, params, MR_T, mode="regen", as_carry=True, regen_chunk=MR_CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(key(300, device=dev), carry)
+        torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t0)
+    bad = _same_carry_and_metrics(out["kernel"][0], out["twin"][0])
+    m = out["kernel"][0][1]
+    print(f"phase 11c: policy-eval chunked-regen step, dyadic weights, B={MR_B} T={MR_T} chunk {MR_CHUNK}: "
+          f"kernels {out['kernel'][1]:.4f} s, twin {out['twin'][1]:.4f} s; episodes {int(m.episodes)}, "
+          f"reset_overlaps {int(m.reset_overlaps)}; differing: {bad or 'none'} [{card}]", flush=True)
+    if bad or int(m.episodes) < MR_B or int(m.reset_overlaps) == 0:
+        raise RuntimeError(f"phase 11c failed: differing {bad}, episodes {int(m.episodes)}, "
+                           f"reset_overlaps {int(m.reset_overlaps)}")
+
+    # (d) B2 at 25x25 on random packed states runs in phase 5
+    # (POLICY_CHECK_CONFIGS). (e) B1 <kHookNone, kCtl> and B2 with kCtl where
+    # lanes end two episodes in a chunk: N2-S4, max_steps cut, both steps
+    # through the kernels and through the plain versions.
+    cut = make(MR_CUT_ID)
+    cut = dataclasses.replace(cut, config=dataclasses.replace(cut.config, max_steps=MR_CUT_MAX_STEPS))
+    carry = fr.packed_init(cut, cut.reset_batch(key(3, device=dev), MR_CUT_B), "regen")
+    for path, builds, source in (
+        ("random", (fr.build_fused_rollout, fr.build_packed_plain_rollout), None),
+        ("policy", (pr.build_policy_eval_rollout, pr.build_policy_eval_plain_rollout), "key"),
+    ):
+        res = []
+        for build in builds:
+            args = (cut, MR_CUT_T) if path == "random" else (cut, params, MR_CUT_T)
+            step = build(*args, mode="regen", as_carry=True, regen_chunk=MR_CUT_CHUNK)
+            src = torch.Generator(device=dev).manual_seed(5) if source is None else key(5, device=dev)
+            res.append(step(src, carry))
+        bad = _same_carry_and_metrics(*res)
+        m = res[0][1]
+        print(f"phase 11e: {path}, {MR_CUT_ID} max_steps {MR_CUT_MAX_STEPS} chunk {MR_CUT_CHUNK} B={MR_CUT_B} "
+              f"T={MR_CUT_T}: episodes {int(m.episodes)}, reset_overlaps {int(m.reset_overlaps)}; differing: "
+              f"{bad or 'none'}", flush=True)
+        if bad or int(m.reset_overlaps) == 0:
+            raise RuntimeError(f"phase 11e failed on the {path} path: differing {bad}, "
+                               f"reset_overlaps {int(m.reset_overlaps)}")
+
+    # The kernels alone under the commit rows, one 96-step pass of the main
+    # path's shape from phase 10's carries: B1 hookless, B2 at BT = 32 under
+    # dyadic weights; each against its plain version, byte for byte.
+    cfg = env.config
+    hw, v = cfg.width * cfg.height, cfg.agent_view_size
+    ctl = torch.zeros((3, MR_B), dtype=torch.int32, device=dev)
+    w = rand[0][0]
+    actions = torch.randint(0, 7, (MR_CHUNK, MR_B), dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(12))
+    args = (w.words, w.regs, w.tmpl_words, w.tmpl_regs, actions, cfg)
+    fr.run_rollout_kernel(*args, ctl=ctl)  # warm
+    b1_ms, got = time_events(lambda: fr.run_rollout_kernel(*args, ctl=ctl), MR_TIMED)
+    b1_plain_ms, want = time_events(lambda: fr.plain_rollout(*args, ctl=ctl), 1)
+    counts, b1_err = compare(got[:5], want[:5])
+    counts["ctl"] = int((got[5] != want[5]).sum())
+    instr = (ROLLOUT_INSTR_PER_VIEW_CELL * v * v + ROLLOUT_INSTR_PER_TRANSITION + ROLLOUT_INSTR_HOOK_CTL
+             + v * (ROLLOUT_INSTR_FLOOD_PER_CELL * v + ROLLOUT_INSTR_FLOOD_PER_SHIFT * 2 * (v - 1)
+                    + ROLLOUT_INSTR_FLOOD_PER_ROW))
+    b1_bound = bound(state_bytes(hw, MR_B, MR_CHUNK) + 2 * 12 * MR_B, instr * MR_B * MR_CHUNK, int_issue_rate(dev))
+    print(f"phase 11: rollout kernel with the control rows, {MR_ENV_ID} B={MR_B} T={MR_CHUNK}: {b1_ms:.6f} "
+          f"ms/call (mean of {MR_TIMED}), plain {b1_plain_ms:.4f} ms, mismatches {counts}; bound {b1_bound} "
+          f"({instr} instructions per lane-step) [{card}]", flush=True)
+    if any(counts.values()):
+        raise RuntimeError("phase 11: the rollout kernel with the control rows differs from its plain version")
+
+    p = policy[0][0]
+    weights = pr.eval_weights_from_params(params, v, device=dev)
+    seeds = pr._seeds_for(key(301, device=dev), MR_CHUNK, MR_B)
+    args = (p.words, p.regs, p.tmpl_words, p.tmpl_regs, seeds, weights, cfg)
+    pr.run_policy_kernel(*args, ctl=ctl)  # warm
+    b2_ms, got = time_events(lambda: pr.run_policy_kernel(*args, ctl=ctl), MR_TIMED)
+    b2_plain_ms, want = time_events(lambda: pr.plain_policy_rollout(*args, ctl=ctl), 1)
+    counts, b2_err = compare(got[:5], want[:5])
+    counts["ctl"] = int((got[5] != want[5]).sum())
+    weight_bytes = pr.HIDDEN * v * v * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2 + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4
+    flop = 3 * v * v * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
+    b2_bound = bound(state_bytes(hw, MR_B, MR_CHUNK) + 2 * 12 * MR_B + weight_bytes, flop * MR_B * MR_CHUNK,
+                     BF16_FLOP_PER_S)
+    print(f"phase 11: policy kernel with the control rows, BT={pr.policy_lane_block(cfg)}, {MR_ENV_ID} B={MR_B} "
+          f"T={MR_CHUNK}, dyadic weights: {b2_ms:.6f} ms/call (mean of {MR_TIMED}), twin {b2_plain_ms:.4f} ms, "
+          f"mismatches {counts}; bound {b2_bound} [{card}]", flush=True)
+    if any(counts.values()):
+        raise RuntimeError("phase 11: the policy kernel with the control rows differs from its twin")
+    _, ms5, plain5, bound5 = chain[MR_ENV_ID]
+    return ((max(c[0] for c in chain.values()), ms5, plain5, bound5), (b1_err, b1_ms, b1_plain_ms, b1_bound),
+            (b2_err, b2_ms, b2_plain_ms, b2_bound))
+
+
 def main() -> int:
     import torch
 
@@ -989,6 +1321,12 @@ def main() -> int:
         dev, card, env, warm_carry, reset_carry
     )
     del env, warm_carry, reset_carry
+    torch.cuda.empty_cache()
+    env, _, rand, policy = phase_mr_main_path(dev, card)
+    mr_launches = {"a": rand[2], "b": policy[2]}
+    (b5_err, b5_ms, b5_plain_ms, b5_bound), (b1c_err, b1c_ms, b1c_plain_ms, b1c_bound), (
+        b2c_err, b2c_ms, b2c_plain_ms, b2c_bound) = phase_mr_vs_plain(dev, card, env, rand, policy)
+    del env, rand, policy
     torch.cuda.empty_cache()
 
     from minigrid_tpu_torch.ops import policy_rollout as pr
@@ -1127,6 +1465,45 @@ def main() -> int:
             "plain_ms": b4_plain_ms,
             "bound_ms": b4_bound[0],
             "bound_by": b4_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "mr_chain_kernel",
+            "route": "cuda",
+            "source": GEN_SOURCE,
+            "replaces": MR_REPLACES,
+            "launches": mr_launches["a"]["mr_chain_kernel"] + mr_launches["b"]["mr_chain_kernel"],
+            "max_abs_err": b5_err,
+            "ms": b5_ms,
+            "plain_ms": b5_plain_ms,
+            "bound_ms": b5_bound[0],
+            "bound_by": b5_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "rollout_kernel_ctl",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES,
+            "launches": mr_launches["a"]["rollout_kernel"],
+            "max_abs_err": b1c_err,
+            "ms": b1c_ms,
+            "plain_ms": b1c_plain_ms,
+            "bound_ms": b1c_bound[0],
+            "bound_by": b1c_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "policy_kernel_ctl",
+            "route": "cuda",
+            "source": POLICY_SOURCE,
+            "replaces": POLICY_REPLACES,
+            "launches": mr_launches["b"]["policy_kernel"],
+            "max_abs_err": b2c_err,
+            "ms": b2c_ms,
+            "plain_ms": b2c_plain_ms,
+            "bound_ms": b2c_bound[0],
+            "bound_by": b2c_bound[1],
             "library_ms": None,
         },
     ]}), flush=True)

@@ -6,12 +6,13 @@ module paths so each piece has an obvious counterpart, and imports only
 packed rollout (`ops/fused_rollout.py`), its step loop in one
 hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for the
 static-layout families Empty and DistShift and for KeyCorridor (its
-pickup-target hook in the kernel; in regen mode exact chunked regen,
-`ops/chunked_regen.py`, with fresh layouts from its packed generator,
-whose door loop is a fourth kernel, `ops/csrc/gen_kernel.cu`); for the
-static-layout families, policy-in-the-loop evaluation
-(`ops/policy_rollout.py`, `models/policy.py`) in a second one
-(`ops/csrc/policy_kernel.cu`); and the fused train step
+pickup-target hook in the kernel) and MultiRoom, which in regen mode run
+exact chunked regen (`ops/chunked_regen.py`) with fresh layouts from
+their packed generators, whose plan loops are kernels of their own
+(`ops/csrc/gen_kernel.cu`); for the static-layout families and MultiRoom,
+policy-in-the-loop evaluation (`ops/policy_rollout.py`,
+`models/policy.py`) in a second one (`ops/csrc/policy_kernel.cu`); and,
+for the static-layout families, the fused train step
 (`parallel/train.py::build_fused_train_step`): that kernel in collect mode
 spills the trajectory, a third one (`ops/csrc/grad_kernel.cu`) runs the
 actor-critic gradient pass, then clip + Adam. Entry points make their

@@ -144,10 +144,23 @@ def randint(keys: torch.Tensor, lo, hi) -> torch.Tensor:
     `higher = bits(k1)`, `lower = bits(k2)`, then `((higher mod n) ·
     ((2^16 mod n)^2 mod n) + lower mod n) mod n` in uint32 arithmetic for
     the span `n = hi - lo` (1 where `hi <= lo`)."""
-    dev = keys.device
+    higher, lower = randint_bits(keys)
+    return randint_from_bits(higher, lower, lo, hi)
+
+
+def randint_bits(keys: torch.Tensor):
+    """The `(higher, lower)` uint32 words `randint` reduces, per key of a
+    `(..., 2)` key tensor: `bits` of the two children of `split(key)`."""
+    return bits(split(keys, 2)).unbind(-1)  # one Threefry pass for both
+
+
+def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, lo, hi) -> torch.Tensor:
+    """`randint`'s reduction of its two words to `[lo, hi)` (int32); a key
+    whose words are reduced twice, over two spans, is two `randint` draws
+    from the same key."""
+    dev = higher.device
     lo = torch.as_tensor(lo, dtype=torch.int64, device=dev)
     hi = torch.as_tensor(hi, dtype=torch.int64, device=dev)
-    higher, lower = bits(split(keys, 2)).unbind(-1)  # one Threefry pass for both
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & MASK32)
     mult = (65536 % span) ** 2 % span
     off = ((((higher % span) * mult) & MASK32) + lower % span) & MASK32

@@ -1,6 +1,6 @@
 """Registrations of the ported env ids, in the JAX package's order
 (`minigrid_tpu/envs/_register_all.py`): the static-layout families Empty
-and DistShift, and KeyCorridor."""
+and DistShift, MultiRoom and KeyCorridor."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.envs import distshift as _distshift
 from minigrid_tpu_torch.envs import empty as _empty
 from minigrid_tpu_torch.envs import keycorridor as _keycorridor
+from minigrid_tpu_torch.envs import multiroom as _multiroom
 from minigrid_tpu_torch.envs.registry import register
 
 for _size in (5, 6, 8, 16):
@@ -39,6 +40,22 @@ for _v, _row in ((1, 2), (2, 5)):
             strip2_row=_row,
         ),
         _distshift.generate,
+    )
+
+# A 25x25 grid; max_steps = 20 * max_num_rooms.
+for _name, _min, _max, _maxsz in (("N2-S4", 2, 2, 4), ("N4-S5", 4, 4, 5), ("N6", 6, 6, 10)):
+    register(
+        f"MiniGrid-MultiRoom-{_name}-v0",
+        EnvConfig(
+            family="multiroom",
+            width=25,
+            height=25,
+            max_steps=_max * 20,
+            min_num_rooms=_min,
+            max_num_rooms=_max,
+            max_room_size=_maxsz,
+        ),
+        _multiroom.generate,
     )
 
 # Three columns of rooms; max_steps = 30 * room_size**2.

@@ -2,8 +2,7 @@
 // collect mode.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/policy_rollout.py::_policy_kernel
-// (no family hooks, no chunked-regen control rows). It runs T steps per
-// lane in one launch. Each step takes the actor on the lane's pre-step
+// (no family hooks yet). It runs T steps per lane in one launch. Each step takes the actor on the lane's pre-step
 // view, as `policy_logits` computes it: value-major one-hot features of the
 // (V*V) view (hidden cells read as value 0) -> (256 x V*V*20) bf16 product
 // -> bf16 + b1 -> relu -> (256 x 256) bf16 product -> bf16 + b2 -> relu ->
@@ -17,7 +16,11 @@
 // (spill_rows, B) int32 slab per step, in the JAX package's layout: the
 // pre-step obs words (type | colour << 4 | state << 8, 0 where hidden),
 // then the action, the bits of logp and of the value (head row 7), the bits
-// of the reward, done, and zero rows up to spill_rows.
+// of the reward, done, and zero rows up to spill_rows. Under the
+// chunked-regen commit protocol (`chunk_exact` there; the kCtl template
+// flag and a non-null `ctl_in` here, in eval mode) the (3, B) control rows
+// come in and go out, T is the chunk length, and a lane that is frozen or
+// has committed its T steps takes no further step.
 //
 // What bounds it on the card: arithmetic. At Empty-8x8 a lane-step needs
 // 147 W1 rows of 256 (37,632 adds, counted as the input needs them), a
@@ -58,6 +61,12 @@
 //    a time: a slab's obs rows while the view is read (at the load for
 //    step 0, after step t - 1 for step t), its scalar rows after the draw
 //    and the env step. Nothing is written after the last step.
+//  * Under kCtl a lane that can no longer commit stays in the T loop,
+//    since all 256 threads take part in the products and the barriers: it
+//    draws no action, takes no step, adds nothing to its sums, reads no
+//    view (its feature row stays zero) and writes nothing until the end.
+//    step_lane_ex decides the commit before it writes the grid, so the
+//    step that freezes a lane leaves no trace.
 //  * Shared memory at 8x8, BT = 64: features 125 KB, h1 33 KB, h2 36 KB,
 //    head weights 10 KB, grids 16 KB: 221 KB, one block per SM.
 
@@ -93,6 +102,8 @@ struct PolicyParams {
   float* rsum_out;      // (B,)
   int32_t* counts_out;  // (2, B): episodes; obs checksum
   int32_t* spill;       // collect mode: (T, spill_rows, B); unused in eval mode
+  const int32_t* ctl_in;  // kCtl: (3, B) commit rows
+  int32_t* ctl_out;       // kCtl: (3, B)
   int B, T, width, height, view, max_steps, see_through_walls, num_regs, num_actions, spill_rows;
 };
 
@@ -131,7 +142,7 @@ __device__ __forceinline__ int sample_action(const float (&logit)[kHeadRows], in
   return action;
 }
 
-template <int BT, bool kCollect>
+template <int BT, bool kCollect, bool kCtl>
 __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams p) {
   constexpr int kNTiles = BT / 8;  // n8 tiles of the products
   constexpr int kH2Stride = BT + 8;
@@ -182,12 +193,18 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
   const size_t slab = static_cast<size_t>(p.spill_rows) * B;
   int32_t* spill_lane = kCollect ? p.spill + lane : nullptr;
   Lane s{};
+  Ctl ctl{};
   bool reset_any = false;
   float rsum = 0.0f;
   int episodes = 0;
   int checksum = 0;
   if (live) {
     load_lane(g, BT, p.words_in, p.regs_in, B, lane, sh.hw, s);
+    if (kCtl) {
+      ctl.consumed = p.ctl_in[lane];
+      ctl.steps_done = p.ctl_in[B + lane];
+      ctl.frozen = p.ctl_in[2 * B + lane];
+    }
     read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
       set_features(frow, kv, v2, w & 0xFFF);
       if (kCollect) spill_lane[kv * B] = w & 0xFFF;
@@ -242,39 +259,41 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
     __syncthreads();
 
     // ---- per lane: logits, the draw, the env step, the next view ----
-    if (live) {
+    if (live && (!kCtl || (ctl.steps_done < p.T && ctl.frozen == 0))) {
       float logit[kHeadRows];
       head_logits<BT>(logit, part_s, ba_s, tid);
       float logp = 0.0f;
       const int a = sample_action<kCollect>(logit, p.num_actions, p.seeds[t * B + lane], logp);
       bool done;
       float reward;
-      Ctl no_ctl{};
-      step_lane_ex<kHookNone, false>(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, 0, s,
-                                     no_ctl, reward, done);
-      if (done) {
-        reset_any = true;
-        episodes += 1;
+      // Under kCtl a step that would reuse the consumed template freezes
+      // the lane instead and leaves nothing behind.
+      if (step_lane_ex<kHookNone, kCtl>(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s,
+                                        ctl, reward, done)) {
+        if (done) {
+          reset_any = true;
+          episodes += 1;
+        }
+        rsum = __fadd_rn(rsum, reward);
+        if (kCollect) {
+          int32_t* row = spill_lane + t * slab + v2 * B;
+          row[0] = a;
+          row[B] = __float_as_int(logp);
+          row[2 * B] = __float_as_int(logit[kHeadRows - 1]);
+          row[3 * B] = __float_as_int(reward);
+          row[4 * B] = done ? 1 : 0;
+          for (int r = v2 + 5; r < p.spill_rows; ++r) spill_lane[t * slab + r * B] = 0;
+        }
+        int32_t* next_obs = kCollect && t + 1 < p.T ? spill_lane + (t + 1) * slab : nullptr;
+        int obs_sum = 0;
+        read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
+          const int m = w & 0xFFF;
+          set_features(frow, kv, v2, m);
+          obs_sum += tcs(m);
+          if (kCollect && next_obs != nullptr) next_obs[kv * B] = m;
+        });
+        checksum += obs_sum;
       }
-      rsum = __fadd_rn(rsum, reward);
-      if (kCollect) {
-        int32_t* row = spill_lane + t * slab + v2 * B;
-        row[0] = a;
-        row[B] = __float_as_int(logp);
-        row[2 * B] = __float_as_int(logit[kHeadRows - 1]);
-        row[3 * B] = __float_as_int(reward);
-        row[4 * B] = done ? 1 : 0;
-        for (int r = v2 + 5; r < p.spill_rows; ++r) spill_lane[t * slab + r * B] = 0;
-      }
-      int32_t* next_obs = kCollect && t + 1 < p.T ? spill_lane + (t + 1) * slab : nullptr;
-      int obs_sum = 0;
-      read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
-        const int m = w & 0xFFF;
-        set_features(frow, kv, v2, m);
-        obs_sum += tcs(m);
-        if (kCollect && next_obs != nullptr) next_obs[kv * B] = m;
-      });
-      checksum += obs_sum;
     }
     __syncthreads();
   }
@@ -285,16 +304,21 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
     p.rsum_out[lane] = rsum;
     p.counts_out[lane] = episodes;
     p.counts_out[B + lane] = checksum;
+    if (kCtl) {
+      p.ctl_out[lane] = ctl.consumed;
+      p.ctl_out[B + lane] = ctl.steps_done;
+      p.ctl_out[2 * B + lane] = ctl.frozen;
+    }
   }
 }
 
-template <int BT, bool kCollect>
+template <int BT, bool kCollect, bool kCtl>
 int launch(const PolicyParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(policy_kernel<BT, kCollect>,
+  cudaError_t err = cudaFuncSetAttribute(policy_kernel<BT, kCollect, kCtl>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (p.B + BT - 1) / BT;
-  policy_kernel<BT, kCollect><<<blocks, kThreads, smem, stream>>>(p);
+  policy_kernel<BT, kCollect, kCtl><<<blocks, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,12 +331,15 @@ extern "C" {
 // policy_kernel carves); returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a lane block other than 32 or 64). A non-null
 // `spill` selects collect mode: the kernel then writes the (T, spill_rows,
-// B) int32 trajectory slabs there.
+// B) int32 trajectory slabs there. A non-null `ctl_in` runs the
+// chunked-regen commit protocol and writes `ctl_out`; collect mode does not
+// take it yet (cudaErrorInvalidValue).
 int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
                      const void* tmpl_regs, const void* seeds, const void* tables, const void* w1frag,
                      const void* b1, const void* w2frag, const void* b2, const void* wta,
                      const void* ba, void* words_out, void* regs_out, void* rsum_out,
-                     void* counts_out, void* spill, int B, int T, int width, int height, int view,
+                     void* counts_out, void* spill, const void* ctl_in, void* ctl_out, int B, int T,
+                     int width, int height, int view,
                      int max_steps, int see_through_walls, int num_regs, int num_actions,
                      int spill_rows, int lane_block, int smem_bytes, void* stream) {
   PolicyParams p;
@@ -333,6 +360,8 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.rsum_out = static_cast<float*>(rsum_out);
   p.counts_out = static_cast<int32_t*>(counts_out);
   p.spill = static_cast<int32_t*>(spill);
+  p.ctl_in = static_cast<const int32_t*>(ctl_in);
+  p.ctl_out = static_cast<int32_t*>(ctl_out);
   p.B = B;
   p.T = T;
   p.width = width;
@@ -345,8 +374,16 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.spill_rows = spill_rows;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool collect = spill != nullptr;
-  if (lane_block == 64) return collect ? launch<64, true>(p, smem_bytes, s) : launch<64, false>(p, smem_bytes, s);
-  if (lane_block == 32) return collect ? launch<32, true>(p, smem_bytes, s) : launch<32, false>(p, smem_bytes, s);
+  const bool ctl = ctl_in != nullptr;
+  if (collect && ctl) return static_cast<int>(cudaErrorInvalidValue);
+  if (lane_block == 64) {
+    return collect ? launch<64, true, false>(p, smem_bytes, s)
+                   : (ctl ? launch<64, false, true>(p, smem_bytes, s) : launch<64, false, false>(p, smem_bytes, s));
+  }
+  if (lane_block == 32) {
+    return collect ? launch<32, true, false>(p, smem_bytes, s)
+                   : (ctl ? launch<32, false, true>(p, smem_bytes, s) : launch<32, false, false>(p, smem_bytes, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

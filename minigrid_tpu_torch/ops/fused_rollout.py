@@ -25,7 +25,7 @@ replays the lane's pinned layout) and "regen". In regen mode the
 static-layout families (Empty, DistShift) keep the template as the fresh
 layout and only advance each lane's rng reset chain after the call
 (`_replay_rng_chain`); a random-layout family with a packed generator
-(KeyCorridor) runs exact chunked regen (`ops/chunked_regen.py`), whose
+(KeyCorridor, MultiRoom) runs exact chunked regen (`ops/chunked_regen.py`), whose
 commit rows `step_core` and the kernel take as `chunk_ctl`.
 
 Integer results are byte-exact against the JAX package. `total_reward`

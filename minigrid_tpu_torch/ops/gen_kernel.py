@@ -1,6 +1,10 @@
-"""RoomGrid's `connect_all` door loop: one CUDA kernel, plus its plain
-version (counterpart of `minigrid_tpu/ops/gen_kernel.py::connect_plan_batched`
-and its Pallas kernel `_connect_kernel`).
+"""The layout generators' plan loops, each one CUDA kernel plus its plain
+version (counterpart of `minigrid_tpu/ops/gen_kernel.py`): RoomGrid's
+`connect_all` door loop (`connect_plan_batched`, Pallas kernel
+`_connect_kernel`) and MultiRoom's room-chain retry loop
+(`multiroom_chain_batched`, Pallas kernel `_mr_chain_kernel`).
+
+The connect loop.
 
 Per lane, random unlocked doors are added until every room is reachable
 from the start room, or `max_itrs` draws were made. The loop state is
@@ -25,6 +29,19 @@ their colours and the draw count are byte-exact against the JAX package.
 The JAX package switches to `vmap(connect_plan)` when `rows·cols > 30`
 (the masks no longer fit an int32); no registered family gets there, and
 the port raises instead.
+
+The room-chain loop (`envs/multiroom.py::_plan`'s retry loop). Per lane,
+`key, sub = split(key)` and one `_try_chain(sub)` attempt, keeping the
+candidate chain when it has more rooms than the best so far, until the
+best has the lane's room count or `max_attempts` attempts were made.
+
+  * `run_mr_chain_kernel` — the wrapper of the CUDA kernel
+    `csrc/gen_kernel.cu::mr_chain_kernel` (one thread per lane). A CUDA
+    tensor launches it (or the call raises); a CPU tensor runs
+    `plain_mr_chain`.
+  * `plain_mr_chain` — the loop as torch ops: each attempt is
+    `envs/multiroom.py::_try_chain` over the lanes that have not
+    converged, which is the gating `vmap`'s while-batching applies.
 """
 
 from __future__ import annotations
@@ -35,12 +52,14 @@ import torch
 
 from minigrid_tpu_torch.core import prng
 from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.envs import multiroom
 from minigrid_tpu_torch.envs.roomgrid import COLOR_ORDER, _neighbor_idx, neighbor_exists
 from minigrid_tpu_torch.ops.packing import key_rows
 
-# Launches of the CUDA connect kernel in this process (plain integer; the
-# wrapper adds one per launch and nowhere else).
+# Launches of the CUDA connect and room-chain kernels in this process
+# (plain integers; each wrapper adds one per launch and nowhere else).
 connect_kernel_launches = 0
+mr_chain_kernel_launches = 0
 
 _MAX_ROOMS = 30  # room bitmasks live in the low bits of an int32
 _CHECK_EVERY = 8  # plain version: draws between host checks of "all done"
@@ -206,3 +225,98 @@ def connect_plan_batched(
     has_door = ((hd.T[:, :, None] >> room[None, None, :]) & 1).bool()  # (B, 4, RC)
     has_door = has_door.transpose(1, 2).reshape(b, rows, cols, 4)
     return has_door, colors.T.reshape(b, rows, cols, 4).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# MultiRoom's room-chain retry loop
+# ---------------------------------------------------------------------------
+
+_MAX_CHAIN_ROOMS = 8  # the kernel keeps a lane's chain in fixed-size arrays
+_CHAIN_FIELDS = 6  # top x, top y, size x, size y, entry x, entry y
+
+
+def plain_mr_chain(keys, num_rooms, config: EnvConfig, max_attempts: int):
+    """The plain version of the kernel, same arguments and results as
+    `run_mr_chain_kernel`: `keys` `(2, B)` int32 key words (bit patterns,
+    `_plan`'s retry key), `num_rooms` `(1, B)` int32. Returns `(rooms
+    (6, nmax, B), count (1, B), attempts (1, B), rows (1, B))`, all
+    int32: per room slot its top x, top y, size x, size y, entry x and
+    entry y (zeros past the chain's count), the best chain's room count,
+    the attempts the lane made, and the key rows its attempts needed
+    (`envs/multiroom.py::_try_chain`; the kernel draws just those)."""
+    nmax = config.max_num_rooms
+    b, dev = keys.shape[1], keys.device
+    key = (keys.T.to(torch.int64) & prng.MASK32).contiguous()  # (B, 2)
+    nr = num_rooms[0].to(torch.int64)
+    rooms = torch.zeros((_CHAIN_FIELDS, nmax, b), dtype=torch.int32, device=dev)
+    count = torch.zeros(b, dtype=torch.int64, device=dev)
+    attempts = torch.zeros(b, dtype=torch.int64, device=dev)
+    rows = torch.zeros(b, dtype=torch.int64, device=dev)
+    while True:
+        idx = torch.nonzero((count < nr) & (attempts < max_attempts)).flatten()
+        if idx.numel() == 0:  # reading the count waits on the device
+            break
+        children = prng.split(key[idx], 2)
+        key[idx] = children[:, 0]
+        cand, used = multiroom._try_chain(children[:, 1], config, nr[idx])
+        better = cand.count.to(torch.int64) > count[idx]
+        fields = torch.cat([cand.tops, cand.sizes, cand.entry], dim=2).permute(2, 1, 0)  # (6, nmax, n)
+        rooms[:, :, idx] = torch.where(better, fields, rooms[:, :, idx])
+        count[idx] = torch.where(better, cand.count.to(torch.int64), count[idx])
+        attempts[idx] += 1
+        rows[idx] += used
+    return rooms, count[None].to(torch.int32), attempts[None].to(torch.int32), rows[None].to(torch.int32)
+
+
+def run_mr_chain_kernel(keys, num_rooms, config: EnvConfig, max_attempts: int):
+    """The room-chain kernel's wrapper: same arguments and results as
+    `plain_mr_chain`. CPU tensors run the plain version; CUDA tensors
+    launch the kernel on the current stream, and any other device, a
+    chain longer than the kernel keeps, a failed build or a failed launch
+    raises."""
+    if keys.device.type == "cpu":
+        return plain_mr_chain(keys, num_rooms, config, max_attempts)
+    from minigrid_tpu_torch.ops import _build
+
+    if not 1 <= config.max_num_rooms <= _MAX_CHAIN_ROOMS:
+        raise ValueError(f"room-chain kernel: max_num_rooms {config.max_num_rooms} not in [1, {_MAX_CHAIN_ROOMS}]")
+    b = keys.shape[1]
+    for name, x, n in (("keys", keys, 2), ("num_rooms", num_rooms, 1)):
+        if x.device != keys.device or x.device.type != "cuda":
+            raise ValueError(f"room-chain kernel: {name} is on {x.device}, expected {keys.device} (CUDA)")
+        if x.dtype != torch.int32 or tuple(x.shape) != (n, b) or not x.is_contiguous():
+            raise ValueError(f"room-chain kernel: {name} must be contiguous int32 {(n, b)}, got {x.dtype}{tuple(x.shape)}")
+    if b == 0:
+        raise ValueError("room-chain kernel: empty batch")
+    dev = keys.device
+    lib = _build.load_library(dev)
+    nmax = config.max_num_rooms
+    rooms = torch.empty((_CHAIN_FIELDS, nmax, b), dtype=torch.int32, device=dev)
+    count = torch.empty((1, b), dtype=torch.int32, device=dev)
+    attempts = torch.empty((1, b), dtype=torch.int32, device=dev)
+    rows = torch.empty((1, b), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mg_mr_chain_launch(
+            *(ctypes.c_void_p(x.data_ptr()) for x in (keys, num_rooms, rooms, count, attempts, rows)),
+            b, config.width, config.height, nmax, config.max_room_size, max_attempts, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"room-chain kernel launch failed: CUDA error {err} ({lib.mg_error_string(err).decode()})")
+    global mr_chain_kernel_launches
+    mr_chain_kernel_launches += 1
+    return rooms, count, attempts, rows
+
+
+def multiroom_chain_batched(retry_keys, num_rooms, config: EnvConfig, max_attempts: int, plain: bool = False):
+    """The room-chain loop with the JAX package's arguments and results:
+    `retry_keys` `(B, 2)` key words (`_plan`'s `ks[1]`), `num_rooms`
+    `(B,)` -> `(tops (B, nmax, 2), sizes, entry, count (B,))` int32. The
+    loop runs in the kernel for CUDA tensors and in the plain version for
+    CPU tensors, or with `plain=True` in the plain version on any device."""
+    b = retry_keys.shape[0]
+    rooms, count, _, _ = (plain_mr_chain if plain else run_mr_chain_kernel)(
+        key_rows(retry_keys), num_rooms.to(torch.int32).reshape(1, b).contiguous(), config, max_attempts
+    )
+    rooms = rooms.permute(2, 1, 0)  # (B, nmax, 6)
+    return rooms[..., 0:2], rooms[..., 2:4], rooms[..., 4:6], count[0]

@@ -22,13 +22,16 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import sampling
 from minigrid_tpu_torch.core.state import AUX_LEN, MISSION_LEN
-from minigrid_tpu_torch.ops.packing import R_X, R_Y, _roll_to_base, key_rows
+from minigrid_tpu_torch.ops.packing import EMPTY_WORD, R_X, R_Y, _roll_to_base, key_rows
 
 
 def cell_word(typ: int, color=0, state: int = 0):
     """A cell's packed int32 word (`pack_states` encoding); `color` is an
     int or a `(B,)` tensor."""
     return typ | (color << 4) | (state << 8)
+
+
+GOAL_WORD = cell_word(C.GOAL, C.GREEN)
 
 
 def xy_iota(height: int, width: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -41,6 +44,32 @@ def xy_iota(height: int, width: int, device="cpu") -> Tuple[torch.Tensor, torch.
 def _row(v):
     """A `(B,)` tensor as a `(1, B)` row; ints stay ints."""
     return v[None, :] if isinstance(v, torch.Tensor) and v.ndim else v
+
+
+def empty_words(height: int, width: int, b: int, device="cpu") -> torch.Tensor:
+    """All-empty `(HW, B)` int32 words (`core.state.empty_state`'s grid)."""
+    return torch.full((height * width, b), EMPTY_WORD, dtype=torch.int32, device=device)
+
+
+def paint_rect_words(words, xs, ys, x0, y0, x1, y1, word) -> torch.Tensor:
+    """Fill `x0 <= x < x1` and `y0 <= y < y1` with `word` per lane (the
+    packed `core.grid.paint_rect`); bounds are ints or `(B,)`, and a range
+    that reaches past the grid paints only the cells inside it."""
+    mask = (xs >= _row(x0)) & (xs < _row(x1)) & (ys >= _row(y0)) & (ys < _row(y1))
+    return torch.where(mask, _row(word), words)
+
+
+def outline_rect_words(words, xs, ys, tx, ty, sx, sy, word, active=None) -> torch.Tensor:
+    """Paint the outline of the rectangle `[t, t + s)` (a room's four wall
+    strips) in one mask: the cells inside it on its border. `active` (B,)
+    bool masks whole lanes."""
+    tx, ty, sx, sy = (_row(v) for v in (tx, ty, sx, sy))
+    inside = (xs >= tx) & (xs < tx + sx) & (ys >= ty) & (ys < ty + sy)
+    border = (xs == tx) | (xs == tx + sx - 1) | (ys == ty) | (ys == ty + sy - 1)
+    mask = inside & border
+    if active is not None:
+        mask = mask & active[None, :]
+    return torch.where(mask, _row(word), words)
 
 
 def set_cell_words(words, xs, ys, x, y, word, active=None) -> torch.Tensor:

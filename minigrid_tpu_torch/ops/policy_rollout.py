@@ -25,9 +25,12 @@ grid, `testing.dyadic_flax_params`) the port, the kernel and the JAX
 package agree byte for byte; under other weights the summation order can
 flip a bf16 rounding, and with it, rarely, a sampled action.
 
-Scope: cached auto-reset, and regen on the static-layout families (Empty,
-DistShift). Family hooks and chunked regen are not ported yet
-(ROADMAP.md).
+Scope: the base transition, in cached mode and in regen mode. Regen on
+a static-layout family (Empty, DistShift) keeps the template; on a
+random-layout family (MultiRoom) evaluation runs exact chunked regen
+(`ops/chunked_regen.py`), the kernel and its twin under the commit rows
+`ctl`. Family hooks, and the collecting rollout on a random layout (the
+spill merge, I6 there), are the next slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,19 +47,23 @@ from minigrid_tpu_torch.core.prng import default_device, hash_u31, random_bits
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.envs.base import BASE_STEP, Env
 from minigrid_tpu_torch.models.policy import CHANNEL_WIDTHS
+from minigrid_tpu_torch.ops.chunked_regen import build_chunked_regen
 from minigrid_tpu_torch.ops.fused_rollout import (
     _MAX_VIEW,
     _SMEM_LIMIT,
     PackedCarry,
     _check_supported,
+    _fit_chunk,
     _kernel_tables,
     _regen_is_static,
     _replay_rng_chain,
+    _surface,
     build_carry_surface,
     obs_core,
     rollout_metrics,
     step_core,
 )
+from minigrid_tpu_torch.ops.packed_gen import get_packed_generator
 from minigrid_tpu_torch.ops.packing import NUM_REGS
 
 _F = sum(CHANNEL_WIDTHS)  # 20 features per cell
@@ -279,13 +286,20 @@ def _traj_views(spill: torch.Tensor, v2: int):
 
 
 def plain_policy_rollout(
-    words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False
+    words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False,
+    ctl=None,
 ):
     """`T = seeds.shape[0]` policy-driven packed steps as a loop of torch
     ops, on any device. Returns `(words', regs', rsum, episodes, checksum)`
     with `(1, B)` per-lane accumulators (f32, int32, int32); with
     `collect=True` also the trajectory (`_traj_views` of a `(T, rows, B)`
-    int32 spill, rows as the kernel writes them, padding rows zero)."""
+    int32 spill, rows as the kernel writes them, padding rows zero). With
+    `ctl`, the `(3, B)` int32 commit rows of exact chunked regen (eval
+    mode only), the T steps are one chunk under the commit protocol, and
+    the updated rows come last."""
+    if collect and ctl is not None:
+        raise NotImplementedError("the collecting policy rollout under chunked regen needs the spill merge "
+                                  "(ROADMAP.md, the next slice)")
     v = config.agent_view_size
     v2 = v * v
     b = words.shape[1]
@@ -299,6 +313,8 @@ def plain_policy_rollout(
         see_through_walls=config.see_through_walls,
         with_obs=True,
     )
+    if ctl is not None:
+        step = functools.partial(step, chunk_len=seeds.shape[0])
     vw, vis = obs_core(
         words, regs, width=config.width, height=config.height, view=v,
         see_through_walls=config.see_through_walls,
@@ -316,7 +332,12 @@ def plain_policy_rollout(
             spill[t, v2] = a[0]
             spill[t, v2 + 1] = logp[0].view(torch.int32)
             spill[t, v2 + 2] = logits[7].view(torch.int32)
-        words, regs, reward, done, obs_sum, vw, vis = step(words, regs, a, tmpl_words, tmpl_regs)
+        if ctl is None:
+            words, regs, reward, done, obs_sum, vw, vis = step(words, regs, a, tmpl_words, tmpl_regs)
+        else:
+            words, regs, reward, done, obs_sum, ctl, vw, vis = step(
+                words, regs, a, tmpl_words, tmpl_regs, chunk_ctl=ctl
+            )
         if collect:
             spill[t, v2 + 3] = reward[0].view(torch.int32)
             spill[t, v2 + 4] = done[0].to(torch.int32)
@@ -325,6 +346,8 @@ def plain_policy_rollout(
         csum = csum + obs_sum
     if collect:
         return words, regs, rsum, epi, csum, _traj_views(spill, v2)
+    if ctl is not None:
+        return words, regs, rsum, epi, csum, ctl
     return words, regs, rsum, epi, csum
 
 
@@ -370,25 +393,32 @@ def policy_lane_block(config: EnvConfig) -> int:
     )
 
 
-def _check_policy_path(env: Env, mode: str) -> None:
+def _check_policy_path(env: Env, mode: str, collect: bool = False) -> None:
     """Raise unless the policy kernel runs `env` under `mode`: the packed
-    rollout's checks, and then neither a family hook nor chunked regen,
-    which the policy kernel does not have yet."""
+    rollout's checks, and then no family hook, and no collecting rollout
+    under chunked regen, which the policy kernel does not have yet."""
     _check_supported(env, mode)
-    if env.transition != BASE_STEP or (mode == "regen" and not _regen_is_static(env)):
+    if env.transition != BASE_STEP:
         raise NotImplementedError(
-            f"{env.env_id}: the policy rollouts run no family hooks and no chunked regen yet (see ROADMAP.md)"
+            f"{env.env_id}: the policy rollouts run no family hooks yet; they come with the next slice "
+            "(ROADMAP.md, queue A)"
+        )
+    if collect and mode == "regen" and not _regen_is_static(env):
+        raise NotImplementedError(
+            f"{env.env_id}: the collecting policy rollout on a random layout needs chunked regen's spill "
+            "merge, which comes with the next slice (ROADMAP.md, queue A)"
         )
 
 
 def policy_rollout_supported(env: Env, mode: str = "cached", collect: bool = False) -> bool:
     """True iff the policy rollouts run `env` under `mode`: the base
-    transition, cached mode or regen on a static layout, and a grid and
-    view the kernel's shared-memory budget takes. The collecting rollout
-    (`collect=True`) also needs head row 7 free for the critic."""
+    transition; cached mode, regen on a static layout, or (evaluation
+    only) chunked regen on a family with a packed generator; and a grid
+    and view the kernel's shared-memory budget takes. The collecting
+    rollout (`collect=True`) also needs head row 7 free for the critic."""
     if env.transition != BASE_STEP or mode not in ("cached", "regen"):
         return False
-    if mode == "regen" and not _regen_is_static(env):
+    if mode == "regen" and not _regen_is_static(env) and (collect or get_packed_generator(env) is None):
         return False
     if collect and env.config.num_actions >= HEAD_ROWS:
         return False
@@ -435,7 +465,8 @@ def _check_operands(operands, device) -> None:
 
 
 def run_policy_kernel(
-    words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False
+    words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False,
+    ctl=None,
 ):
     """The policy kernel's wrapper: same arguments and results as
     `plain_policy_rollout`, the trajectory with `collect=True` as views of
@@ -445,7 +476,10 @@ def run_policy_kernel(
     on the current stream, and any other device, operand the kernel does
     not take, failed build or failed launch raises."""
     if words.device.type == "cpu":
-        return plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, collect)
+        return plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, collect, ctl)
+    if collect and ctl is not None:
+        raise NotImplementedError("policy kernel: collect mode takes no chunked-regen control rows yet "
+                                  "(ROADMAP.md, the next slice)")
     hw = config.width * config.height
     b = words.shape[1]
     t = seeds.shape[0]
@@ -466,6 +500,7 @@ def run_policy_kernel(
         ("b2", weights.b2, (HIDDEN, 1), torch.bfloat16),
         ("wta", weights.wta, (HEAD_ROWS, HIDDEN), torch.float32),
         ("ba", weights.ba, (HEAD_ROWS, 1), torch.float32),
+        *((("ctl", ctl, (3, b), torch.int32),) if ctl is not None else ()),
     ), dev)
     if b == 0 or t == 0:
         raise ValueError(f"policy kernel: empty batch or step count ({b}, {t})")
@@ -482,6 +517,7 @@ def run_policy_kernel(
     counts = torch.empty((2, b), dtype=torch.int32, device=dev)
     rows = _spill_rows(v2)
     spill = torch.empty((t, rows, b), dtype=torch.int32, device=dev) if collect else None
+    ctl_out = torch.empty((3, b), dtype=torch.int32, device=dev) if ctl is not None else None
     tables = _kernel_tables(config.width, config.height, config.agent_view_size, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -491,7 +527,7 @@ def run_policy_kernel(
                 w1frag, weights.b1, w2frag, weights.b2, weights.wta, weights.ba,
                 words_out, regs_out, rsum, counts,
             )),
-            ctypes.c_void_p(spill.data_ptr() if collect else None),
+            *(ctypes.c_void_p(x.data_ptr() if x is not None else None) for x in (spill, ctl, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size, config.max_steps,
             int(config.see_through_walls), NUM_REGS, config.num_actions, rows, bt, policy_smem_bytes(config, bt),
             ctypes.c_void_p(stream),
@@ -503,7 +539,9 @@ def run_policy_kernel(
     global policy_kernel_launches
     policy_kernel_launches += 1
     out = (words_out, regs_out, rsum, counts[0:1], counts[1:2])
-    return out + (_traj_views(spill, v2),) if collect else out
+    if collect:
+        return out + (_traj_views(spill, v2),)
+    return out + (ctl_out,) if ctl is not None else out
 
 
 # --------------------------------------------------------------------------
@@ -511,30 +549,56 @@ def run_policy_kernel(
 # --------------------------------------------------------------------------
 
 
-def build_policy_eval_rollout(env: Env, params, num_steps: int, mode: str = "cached", as_carry: bool = False):
+def build_policy_eval_rollout(
+    env: Env, params, num_steps: int, mode: str = "cached", as_carry: bool = False, regen_chunk: int = 32
+):
     """`rollout(key, states) -> (states, RolloutMetrics)` with the actor in
     the loop, or with `as_carry=True` the steady surface `step(key, carry)
     -> (carry, RolloutMetrics)` over a `PackedCarry` from `packed_init`.
 
     `params` is an `ActorCritic` or a flax params tree of numpy arrays,
-    converted on every call (`eval_weights_from_params`, far cheaper than
-    the rollout), so a module updated in place between calls is evaluated
-    with its new weights. The `(2,)` key
+    converted on every kernel pass (`eval_weights_from_params`, far
+    cheaper than the pass), so a module updated in place between calls is
+    evaluated with its new weights. The `(2,)` key
     only seeds the per-(step, lane) sampling stream, as in the JAX package.
     The loop runs in the CUDA kernel for CUDA tensors and in the plain twin
-    for CPU tensors."""
+    for CPU tensors. In regen mode a random-layout family runs exact
+    chunked regen as `build_fused_rollout` does: kernel passes of
+    `regen_chunk` steps (the largest divisor of `num_steps` up to it), the
+    seed stream pre-shifted per lane as the actions are there."""
+    return _build_policy_eval(env, params, num_steps, mode, as_carry, regen_chunk, run_policy_kernel)
+
+
+def build_policy_eval_plain_rollout(
+    env: Env, params, num_steps: int, mode: str = "cached", as_carry: bool = False, regen_chunk: int = 32
+):
+    """The plain twin of `build_policy_eval_rollout` (same surfaces and
+    results) on any device: `plain_policy_rollout`, and a template refresh
+    that generates with the plain versions of the generation kernels."""
+    return _build_policy_eval(env, params, num_steps, mode, as_carry, regen_chunk, plain_policy_rollout)
+
+
+def _build_policy_eval(env: Env, params, num_steps: int, mode: str, as_carry: bool, regen_chunk: int, run):
     _check_policy_path(env, mode)
     if not policy_rollout_supported(env, mode):
         raise ValueError(f"policy rollout (mode={mode!r}) does not support {env.env_id!r}")
     view = env.config.agent_view_size
 
-    def run_core(words, regs, tmpl_words, tmpl_regs, seeds, config):
+    def run_core(words, regs, tmpl_words, tmpl_regs, seeds, config, ctl=None):
         weights = eval_weights_from_params(params, view, device=words.device)
-        return run_policy_kernel(words, regs, tmpl_words, tmpl_regs, seeds, weights, config)
+        return run(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, ctl=ctl)
 
     def seeds_for(key, b, dev):
         return _seeds_for(key.to(dev), num_steps, b)
 
+    if mode == "regen" and not _regen_is_static(env):
+
+        def chunk_fn(words, regs, tmpl_words, tmpl_regs, seeds, ctl):
+            return run_core(words, regs, tmpl_words, tmpl_regs, seeds, env.config, ctl=ctl)
+
+        generate = functools.partial(get_packed_generator(env), plain=run is plain_policy_rollout)
+        tc = _fit_chunk(num_steps, regen_chunk)
+        return _surface(env, mode, as_carry, build_chunked_regen(env, num_steps, tc, chunk_fn, seeds_for, generate))
     return build_carry_surface(env, num_steps, mode, as_carry, run_core, seeds_for)
 
 
@@ -557,8 +621,9 @@ def build_fused_train_rollout(env: Env, num_steps: int, mode: str = "cached"):
     passed on every call, so one built rollout serves every optimizer
     step. `mark` is called after the seeds, the kernel and the replay, as
     in `train_step`. Cached mode, and regen on the static-layout families;
-    random-layout regen needs chunked regen, not ported yet."""
-    _check_policy_path(env, mode)
+    random-layout regen needs chunked regen's spill merge, the next
+    slice."""
+    _check_policy_path(env, mode, collect=True)
     if not policy_rollout_supported(env, mode, collect=True):
         raise ValueError(f"fused train rollout (mode={mode!r}) does not support {env.env_id!r}")
 

@@ -19,7 +19,7 @@ from minigrid_tpu_torch.ops.fused_rollout import kernel_lane_block
 
 def test_ported_ids_keep_the_jax_registration_order():
     assert env_list == [e for e in jax_env_list if e in env_list]
-    assert len(env_list) == 12  # Empty (4), DistShift (2), KeyCorridor (6)
+    assert len(env_list) == 15  # Empty (4), DistShift (2), KeyCorridor (6), MultiRoom (3)
 
 
 @pytest.mark.parametrize("env_id", jax_env_list)

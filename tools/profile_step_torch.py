@@ -4,7 +4,8 @@ PyTorch port spends its time on a CUDA card.
     python tools/profile_step_torch.py            # random policy
     python tools/profile_step_torch.py --policy   # ActorCritic in the loop
     python tools/profile_step_torch.py --train    # the fused train step
-    python tools/profile_step_torch.py --regen [--chunk N]  # KeyCorridor regen
+    python tools/profile_step_torch.py --regen [--env ID] [--steps T] [--chunk N] [--policy]
+                                                  # chunked regen
 
 At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
 `chip_smoke.py`), runs the pieces of a regen `step(source, carry)` call
@@ -40,28 +41,32 @@ CUDA event that the step itself records at the end of each piece (its
   pullback  the cotangents pulled back to the flax layout (`_pullback`)
   optimizer clip + Adam on the flat vector and the updated module
 
-With `--regen`, at the KeyCorridor regen path's shape (KeyCorridorS6R3,
-B = 32,768, T = 256, `regen_chunk` N, default 128, as in `chip_smoke.py`
-phase 8), the pieces of a chunked-regen call
+With `--regen`, at B = 32,768 on a random-layout family (`--env`, default
+KeyCorridorS6R3; T `--steps`, default 256; `regen_chunk` `--chunk`,
+default 128: `chip_smoke.py` phase 8's shape; phase 10's is
+`--env MiniGrid-MultiRoom-N4-S5-v0 --steps 288 --chunk 96`), the pieces
+of a chunked-regen call
 (`minigrid_tpu_torch.ops.chunked_regen.build_chunked_regen`), timed by
 CUDA events the call records through its `mark` argument and summed over
 its chunks:
 
-  actions   the random policy's `(T, B)` draw
-  kernel    pass 1 of each chunk: the rollout kernel with the hook and
-            the control rows
+  actions   the random policy's `(T, B)` draw, or with `--policy` the
+            sampling seeds of the seeded `ActorCritic` in the loop
+  kernel    pass 1 of each chunk: the rollout kernel (or the policy
+            kernel) under the control rows
   refresh   the chain advance and the template refresh of the lanes that
             reset (`masked_template_refresh`: the plain-torch generator,
-            the connect kernel inside it); its lane count is read on the
-            host
+            the connect kernel or the room-chain kernel inside it); its
+            lane count is read on the host
   reentry   the re-entry passes, the check for unfinished lanes included
   sums      the metrics
 
-Episodes end by truncation, all lanes together at step 1080, so after one
-warm-up call it times a window of 5 calls (1,280 steps, one mass reset),
-then runs the next 5-call window under `torch.profiler`, whose table
-splits the device time into the rollout kernel, the connect kernel and
-the generator's torch ops.
+From `reset_batch` every step count is 0, so lanes truncate together at
+`max_steps`: after one warm-up call it times a window of calls that holds
+at least one mass reset (`ceil(max_steps / T)` calls, at least 3: 5 at
+KeyCorridorS6R3, 3 at MultiRoom-N4-S5), then runs the next window under
+`torch.profiler`, whose table splits the device time into the kernels
+and the generator's torch ops.
 
 It prints each piece's ms per call, averaged over 3 calls after 2 warm-up
 calls (with `--regen`, over its window), beside a whole call timed the
@@ -100,8 +105,8 @@ TRAIN_BATCH = 131_072
 TRAIN_PIECES = ("weights", "seeds", "collect", "replay", "returns", "grad", "pullback", "optimizer")
 REGEN_ENV_ID = "MiniGrid-KeyCorridorS6R3-v0"
 REGEN_BATCH = 32_768
-REGEN_WINDOW = 5  # calls: 1,280 steps hold one truncation at step 1080
 REGEN_PIECES = ("actions", "kernel", "refresh", "reentry", "sums")
+REGEN_KERNELS = ("rollout_kernel", "policy_kernel", "connect_kernel", "mr_chain_kernel")
 
 
 def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
@@ -201,51 +206,66 @@ def timed_marks(call):
     return out, ms
 
 
-def main_regen(dev, card, chunk: int) -> int:
-    env = make(REGEN_ENV_ID)
+def _regen_counts():
+    return {
+        "rollout_kernel": fr.rollout_kernel_launches,
+        "policy_kernel": pr.policy_kernel_launches,
+        "connect_kernel": gk.connect_kernel_launches,
+        "mr_chain_kernel": gk.mr_chain_kernel_launches,
+        "host_syncs": cr.host_syncs,
+        "reentry_passes": cr.reentry_passes,
+    }
+
+
+def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool) -> int:
+    env = make(env_id)
     carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), REGEN_BATCH), "regen")
-    step = fr.build_fused_rollout(env, NUM_STEPS, mode="regen", as_carry=True, regen_chunk=chunk)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    carry, _ = step(gen, carry)  # warm-up
+    if policy:
+        model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+        step = pr.build_policy_eval_rollout(env, model, num_steps, mode="regen", as_carry=True, regen_chunk=chunk)
+        seeds = iter(range(100, 10**6))
+        source = lambda: key(next(seeds), device=dev)  # noqa: E731
+    else:
+        step = fr.build_fused_rollout(env, num_steps, mode="regen", as_carry=True, regen_chunk=chunk)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        source = lambda: gen  # noqa: E731
+    window = max(3, -(-env.config.max_steps // num_steps))
+    carry, _ = step(source(), carry)  # warm-up
     torch.cuda.synchronize()
-    counts0 = (fr.rollout_kernel_launches, gk.connect_kernel_launches, cr.host_syncs, cr.reentry_passes)
+    counts0 = _regen_counts()
     totals = dict.fromkeys(REGEN_PIECES, 0.0)
     episodes = overlaps = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REGEN_WINDOW):
-        (carry, metrics), ms = timed_marks(lambda mark: step(gen, carry, mark=mark))
+    for _ in range(window):
+        (carry, metrics), ms = timed_marks(lambda mark: step(source(), carry, mark=mark))
         for p in REGEN_PIECES:
             totals[p] += ms[p]
         episodes += int(metrics.episodes)
         overlaps += int(metrics.reset_overlaps)
     end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / REGEN_WINDOW
-    counts = [(b - a) / REGEN_WINDOW for a, b in zip(counts0, (
-        fr.rollout_kernel_launches, gk.connect_kernel_launches, cr.host_syncs, cr.reentry_passes))]
-    pieces_ms = {p: totals[p] / REGEN_WINDOW for p in REGEN_PIECES}
+    step_ms = start.elapsed_time(end) / window
+    per_call = {n: (c - counts0[n]) / window for n, c in _regen_counts().items()}
+    pieces_ms = {p: totals[p] / window for p in REGEN_PIECES}
     whole = sum(pieces_ms.values())
     for p in REGEN_PIECES:
         print(f"{p:8s} {pieces_ms[p]:.4f} ms/call ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
     print(f"pieces sum {whole:.4f} ms/call; whole step call {step_ms:.4f} ms/call "
-          f"({REGEN_BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s), {REGEN_WINDOW}-call window, "
-          f"regen_chunk {chunk}: episodes {episodes}, reset_overlaps {overlaps}; per call: rollout kernel "
-          f"launches {counts[0]}, connect kernel launches {counts[1]}, host syncs {counts[2]}, "
-          f"re-entry passes {counts[3]} [{card}]", flush=True)
+          f"({REGEN_BATCH * num_steps / step_ms * 1e3:.6e} env-steps/s), {window}-call window, {env_id} "
+          f"T={num_steps} regen_chunk {chunk}{' policy' if policy else ''}: episodes {episodes}, reset_overlaps "
+          f"{overlaps}; per call {per_call} [{card}]", flush=True)
 
-    def window():
+    def run_window():
         nonlocal carry
-        for _ in range(REGEN_WINDOW):
-            carry, _ = step(gen, carry)
+        for _ in range(window):
+            carry, _ = step(source(), carry)
 
-    kernel_ms, device_ms = profile_one(window, ("rollout_kernel", "connect_kernel"))
+    kernel_ms, device_ms = profile_one(run_window, REGEN_KERNELS)
     print(json.dumps({
-        "card": card, "env_id": REGEN_ENV_ID, "regen_chunk": chunk, "batch_size": REGEN_BATCH,
-        "num_steps": NUM_STEPS, "window_calls": REGEN_WINDOW, "pieces_ms": pieces_ms, "step_ms": step_ms,
-        "launches_per_call": {"rollout_kernel": counts[0], "connect_kernel": counts[1]},
-        "host_syncs_per_call": counts[2], "reentry_passes_per_call": counts[3],
-        "episodes": episodes, "reset_overlaps": overlaps,
+        "card": card, "env_id": env_id, "policy": policy, "regen_chunk": chunk, "batch_size": REGEN_BATCH,
+        "num_steps": num_steps, "window_calls": window, "pieces_ms": pieces_ms, "step_ms": step_ms,
+        "per_call": per_call, "episodes": episodes, "reset_overlaps": overlaps,
         "profiler_window_device_ms": device_ms, "profiler_window_kernel_ms": kernel_ms,
     }), flush=True)
     return 0
@@ -282,11 +302,15 @@ def main() -> int:
 
     if "--train" in sys.argv[1:]:
         return main_train(dev, card)
-    if "--regen" in sys.argv[1:]:
-        args = sys.argv[1:]
-        chunk = int(args[args.index("--chunk") + 1]) if "--chunk" in args else 128
-        return main_regen(dev, card, chunk)
-    policy = "--policy" in sys.argv[1:]
+    args = sys.argv[1:]
+    policy = "--policy" in args
+    if "--regen" in args:
+
+        def opt(name, default):
+            return args[args.index(name) + 1] if name in args else default
+
+        return main_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
+                          int(opt("--chunk", 128)), policy)
     env = make(ENV_ID)
     carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
     if policy:
