@@ -122,6 +122,47 @@ result line):
      rollout kernel (hookless) and the policy kernel (BT=32) under the
      control rows alone, one 96-step pass at phase 10's shape, timed.
 
+ 12. The policy paths on random layouts, this slice's main path, at full
+     width (the seeded `ActorCritic`), B=32,768, from `reset_batch(key(0))`
+     and `packed_init(..., "regen")`, each one warm-up and timed calls with
+     every count set to 0 just before them and a CUDA event at each piece
+     the call marks: (a) KeyCorridorS6R3 policy evaluation
+     (`build_policy_eval_rollout`, T=256, chunk 32, 4 timed calls: the
+     window holds the every-lane truncation at step 1080) must launch only
+     the policy kernel (with the pickup-target hook, under the control
+     rows) and the connect kernel, and its `reset_overlaps` must equal the
+     lanes the re-entry passes took; (b) the fused train step
+     (`build_fused_train_step(..., regen_chunk=32)`) there, 4 timed steps,
+     only the policy kernel (hook, collect, control rows), the gradient
+     kernel and the connect kernel; (c) the fused train step on
+     MultiRoom-N4-S5, T=288, chunk 96, 3 timed steps, only the policy
+     kernel (collect, control rows, 32-lane blocks), the gradient kernel
+     and the room-chain kernel, with deferred resets and re-entry passes.
+     The loss must be finite, the params must move, `env_steps == B*T`.
+     Each prints env-steps/s, the pieces' ms, host syncs, re-entry passes
+     and the peak device memory.
+ 13. The slice's kernels against their plain versions, TF32 off, dyadic
+     weights, byte for byte (reward sums bit for bit): (a) each new
+     instantiation of the policy kernel (the hook at 8x8 and 16x16, in
+     eval and collect mode, with and without random commit rows; collect
+     under the commit rows at 25x25 without a hook) on random packed
+     states, B=8192, T=64, the spill on each lane's committed rows; (b)
+     the whole chunked-regen train rollout, merged trajectory included,
+     from phase 12's carries (KeyCorridorS6R3 through the mass reset,
+     MultiRoom-N4-S5 with re-entry) on all 32,768 lanes against
+     `build_fused_train_plain_rollout`; (c) MultiRoom-N2-S4 with
+     `max_steps` 3 and KeyCorridorS3R1 on planted pickup targets with
+     `max_steps` 5, chunk 8, policy evaluation and the train rollout, with
+     deferred resets; (d) KeyCorridorS3R1 and S6R3 on planted targets in
+     cached mode, both surfaces; then the new instantiations alone at the
+     main path's shapes, timed.
+ 14. The Mosaic probe (`minigrid_tpu_torch/tools/probe_mosaic.py`): each
+     of the 9 variants' kernel against `plain_probe`, bit for bit under
+     dyadic inputs and within 1e-2 of the largest |acc| under the probe's
+     normal draws, two runs bit for bit, the variants of one formula bit
+     for bit, the others within their bound of base_where, timed with
+     CUDA events.
+
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
 version's, its bound on this card (`bound_ms`: the larger of its bytes
@@ -202,6 +243,21 @@ MR_CUT_MAX_STEPS = 3
 MR_CUT_CHUNK = 8
 MR_CUT_B = 8192
 MR_CUT_T = 16
+# Phases 12-13: the policy paths on random layouts at full width.
+RT_B = 32_768
+RT_KC_T = 256
+RT_KC_CHUNK = 32
+# From reset_batch, the warm-up call and 4 timed calls (1,280 steps) hold
+# the every-lane truncation at step 1080.
+RT_KC_TIMED = 4
+RT_MR_T = 288
+RT_MR_CHUNK = 96
+RT_MR_TIMED = 3
+RT_CHECK_CONFIGS = [(8, 8, True), (16, 16, True), (25, 25, False)]  # (width, height, pickup-target hook)
+RT_TIMED_KERNEL = 3
+PROBE_MOSAIC_SOURCE = "minigrid_tpu_torch/ops/csrc/probe_mosaic.cu"
+PROBE_MOSAIC_REPLACES = "tools/probe_mosaic.py:61"
+PROBE_MOSAIC_REPS = 20
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -1008,9 +1064,11 @@ def _zero_counts():
     from minigrid_tpu_torch.ops import grad_kernel as grk
     from minigrid_tpu_torch.ops import policy_rollout as pr
 
+    from minigrid_tpu_torch.tools import probe_mosaic as pm
+
     fr.rollout_kernel_launches = gk.connect_kernel_launches = gk.mr_chain_kernel_launches = 0
-    _build.probe_launches = pr.policy_kernel_launches = grk.grad_kernel_launches = 0
-    cr.host_syncs = cr.reentry_passes = 0
+    _build.probe_launches = pr.policy_kernel_launches = grk.grad_kernel_launches = pm.probe_kernel_launches = 0
+    cr.host_syncs = cr.reentry_passes = cr.reentry_lanes = 0
 
 
 def _counts():
@@ -1020,6 +1078,7 @@ def _counts():
     from minigrid_tpu_torch.ops import gen_kernel as gk
     from minigrid_tpu_torch.ops import grad_kernel as grk
     from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.tools import probe_mosaic as pm
 
     return {
         "rollout_kernel": fr.rollout_kernel_launches,
@@ -1028,8 +1087,10 @@ def _counts():
         "connect_kernel": gk.connect_kernel_launches,
         "probe_kernel": _build.probe_launches,
         "grad_kernel": grk.grad_kernel_launches,
+        "mosaic_probe_kernel": pm.probe_kernel_launches,
         "host_syncs": cr.host_syncs,
         "reentry_passes": cr.reentry_passes,
+        "reentry_lanes": cr.reentry_lanes,
     }
 
 
@@ -1278,6 +1339,348 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
             (b2_err, b2_ms, b2_plain_ms, b2_bound))
 
 
+def _mark_window(tag, call, n_timed, dev, path_kernels):
+    """One warm-up `call(0, mark)`, then `n_timed` timed calls `call(i,
+    mark)` with every count set to 0 just before them and a CUDA event at
+    each of their marks. Returns (the timed calls' results, the counts,
+    seconds, ms per call of each marked piece, peak memory); raises unless
+    the calls launched every kernel of `path_kernels` and no other."""
+    import torch
+
+    call(0, _no_mark)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = [("start", torch.cuda.Event(enable_timing=True))]
+
+    def mark(piece):
+        events.append((piece, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    events[0][1].record()
+    out = [call(i, mark) for i in range(1, n_timed + 1)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    pieces = {}
+    for (_, a), (piece, b) in zip(events, events[1:]):
+        pieces[piece] = pieces.get(piece, 0.0) + a.elapsed_time(b) / n_timed
+    peak = torch.cuda.max_memory_allocated(dev)
+    kernels = {n: c for n, c in counts.items() if n.endswith("_kernel")}
+    if any(kernels[n] == 0 for n in path_kernels) or any(c for n, c in kernels.items() if n not in path_kernels):
+        raise RuntimeError(f"phase 12{tag}: launches {kernels}; the path runs {path_kernels} and no other kernel")
+    return out, counts, seconds, pieces, peak
+
+
+def _no_mark(_piece):
+    pass
+
+
+def phase_regen_policy_main_path(dev, card):
+    """The slice's main path at full width, B = 32,768: (a) KeyCorridorS6R3
+    policy evaluation and (b) the fused train step, both regen at T=256,
+    chunk 32; (c) the fused train step on MultiRoom-N4-S5 regen at T=288,
+    chunk 96. Returns the carries each timed window started from."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import chunked_regen as cr
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import train as tr
+
+    out = {}
+    kc = make(KC_ENV_ID)
+    kc_carry0 = fr.packed_init(kc, kc.reset_batch(key(0, device=dev), RT_B), "regen")
+    model = ActorCritic(kc.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    eval_step = pr.build_policy_eval_rollout(kc, model, RT_KC_T, mode="regen", as_carry=True,
+                                             regen_chunk=RT_KC_CHUNK)
+    state = {"carry": kc_carry0, "befores": []}
+
+    def eval_call(i, mark):
+        state["befores"].append(state["carry"])
+        state["carry"], m = eval_step(key(400 + i, device=dev), state["carry"], mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("a", eval_call, RT_KC_TIMED, dev,
+                                                      ("policy_kernel", "connect_kernel"))
+    _report_window("a", f"{KC_ENV_ID} policy evaluation", res, counts, seconds, pieces, peak, RT_KC_T, card)
+    if sum(int(m.episodes) for m in res) < RT_B:
+        raise RuntimeError("phase 12a: the window held no mass reset")
+    out["kc_eval"] = (state["befores"][1:], res, counts)
+
+    for tag, env_id, t, chunk, n_timed, kernels in (
+        ("b", KC_ENV_ID, RT_KC_T, RT_KC_CHUNK, RT_KC_TIMED, ("policy_kernel", "grad_kernel", "connect_kernel")),
+        ("c", MR_ENV_ID, RT_MR_T, RT_MR_CHUNK, RT_MR_TIMED, ("policy_kernel", "grad_kernel", "mr_chain_kernel")),
+    ):
+        env = make(env_id)
+        carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), RT_B), "regen")
+        ts0 = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+        step = tr.build_fused_train_step(env, t, mode="regen", regen_chunk=chunk)
+        p0 = tr.flatten_params(ts0.params.flax_params())
+        state = {"ts": ts0, "carry": carry0, "befores": [], "lanes": []}
+
+        def train_call(i, mark, step=step, state=state):
+            state["befores"].append((state["ts"], state["carry"]))
+            lanes = cr.reentry_lanes
+            state["ts"], state["carry"], m = step(state["ts"], state["carry"], key(500 + i, device=dev), mark=mark)
+            state["lanes"].append(cr.reentry_lanes - lanes)
+            return m
+
+        res, counts, seconds, pieces, peak = _mark_window(tag, train_call, n_timed, dev, kernels)
+        losses = [float(m["loss"]) for m in res]
+        moved = float((tr.flatten_params(state["ts"].params.flax_params()) - p0).abs().max())
+        overlaps = sum(state["lanes"][1:])
+        rate = RT_B * t * n_timed / seconds
+        print(f"phase 12{tag}: {env_id} fused train step, regen B={RT_B} T={t} chunk {chunk}: {n_timed} train steps "
+              f"{seconds:.4f} s, {rate:.6e} env-steps/s; loss per step {losses}; episodes "
+              f"{[float(m['episodes']) for m in res]}; reset_overlaps {overlaps}; params moved by up to "
+              f"{moved:.6e}; per step {_per_call(counts, n_timed)}; pieces ms per step "
+              f"{ {k: round(v, 4) for k, v in pieces.items()} }; peak memory {peak} B ({peak / 2**30:.3f} GiB) "
+              f"[{card}]", flush=True)
+        if not all(map(math.isfinite, losses)) or not moved > 0:
+            raise RuntimeError(f"phase 12{tag}: loss {losses}, params moved by {moved}")
+        if any(int(m["env_steps"]) != RT_B * t for m in res):
+            raise RuntimeError(f"phase 12{tag}: env_steps != B*T")
+        if env_id == MR_ENV_ID and (overlaps == 0 or counts["reentry_passes"] == 0):
+            raise RuntimeError(f"phase 12{tag}: no deferred reset or re-entry: {overlaps}, {counts}")
+        out[f"train_{tag}"] = (env, state["befores"], res, counts)
+    return kc, model, out
+
+
+def _per_call(counts, n):
+    return {k: v / n for k, v in counts.items() if v}
+
+
+def _report_window(tag, what, metrics, counts, seconds, pieces, peak, t, card):
+    totals = {n: sum(int(getattr(m, n)) for m in metrics) for n in ("episodes", "obs_checksum", "reset_overlaps")}
+    n = len(metrics)
+    print(f"phase 12{tag}: {what}, regen B={RT_B} T={t}: {n} step calls {seconds:.4f} s, "
+          f"{RT_B * t * n / seconds:.6e} env-steps/s; episodes {totals['episodes']}, reset_overlaps "
+          f"{totals['reset_overlaps']}, reward {sum(float(m.total_reward) for m in metrics):.6f}; per call "
+          f"{_per_call(counts, n)}; pieces ms per call { {k: round(v, 4) for k, v in pieces.items()} }; peak memory "
+          f"{peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    if any(int(m.total_steps) != RT_B * t for m in metrics) or totals["obs_checksum"] == 0:
+        raise RuntimeError(f"phase 12{tag}: total_steps != B*T or a zero checksum")
+    if totals["reset_overlaps"] != counts["reentry_lanes"]:
+        raise RuntimeError(f"phase 12{tag}: reset_overlaps {totals['reset_overlaps']} != re-entry lanes "
+                           f"{counts['reentry_lanes']}")
+
+
+def _hooked_case(cfg, b, seed, hook):
+    """Random packed states whose aux rows name a pickup target when `hook`."""
+    import numpy as np
+
+    from minigrid_tpu_torch.core import constants as C
+    from minigrid_tpu_torch.ops.packing import R_AUX
+    from minigrid_tpu_torch.testing import random_packed_case
+
+    case = random_packed_case(seed, cfg.width, cfg.height, b, cfg.max_steps)
+    if hook:
+        rng = np.random.default_rng(seed + 1)
+        for regs in (case["regs"], case["tmpl_regs"]):
+            regs[R_AUX] = rng.choice([C.KEY, C.BALL, C.BOX], size=b)
+            regs[R_AUX + 1] = rng.integers(0, 6, size=b)
+    return case
+
+
+def _policy_mismatches(got, want, ctl_in):
+    """{output: differing entries} of two policy-kernel results; f32 as
+    bits; under `ctl_in` the spill only on each lane's committed rows."""
+    import torch
+
+    bad = {}
+    for name, g, w in zip(("words", "regs", "rsum", "episodes", "checksum"), got[:5], want[:5]):
+        bad[name] = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+    if ctl_in is not None:
+        bad["ctl"] = int((got[-1] != want[-1]).sum())
+    if len(got) > 5 + (ctl_in is not None):
+        t, b = got[5][1].shape
+        mask = torch.ones((t, b), dtype=torch.bool, device=got[0].device)
+        if ctl_in is not None:
+            mask = torch.arange(t, device=mask.device)[:, None] < (want[-1][1] - ctl_in[1])[None, :]
+        for k, (g, w) in enumerate(zip(got[5], want[5])):
+            m = mask if g.ndim == 2 else mask[:, None, :]
+            bad[f"traj{k}"] = int(((g.view(torch.int32) != w.view(torch.int32)) & m).sum())
+    return {k: v for k, v in bad.items() if v}
+
+
+def _same_train_runs(got, want):
+    """Names of carry leaves, metrics and trajectory arrays that differ."""
+    import torch
+
+    (cg, tg, mg), (cw, tw, mw) = got, want
+    bad = _same_carry_and_metrics((cg, mg), (cw, mw))
+    bad += [f"traj{k}" for k, (a, b) in enumerate(zip(tg, tw)) if not torch.equal(a.view(torch.int32),
+                                                                                  b.view(torch.int32))]
+    return bad
+
+
+def phase_regen_policy_vs_plain(dev, card, kc, model, runs):
+    """The slice's kernels against their plain versions, TF32 off, under
+    dyadic weights, byte for byte (reward sums bit for bit)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.testing import dyadic_flax_params, plant_pickup_target
+    from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    params = dyadic_flax_params(9)
+    max_err = 0.0
+    # (a) Each new instantiation of B2 on random packed states and commit rows.
+    for w_, h_, hook in RT_CHECK_CONFIGS:
+        cfg = dc.replace(make(ENV_ID).config, width=w_, height=h_, max_steps=12)
+        case = _hooked_case(cfg, CHECK_B, 31, hook)
+        args = [torch.from_numpy(case[k]).to(dev) for k in ("words", "regs", "tmpl_words", "tmpl_regs")]
+        rng = np.random.default_rng(32)
+        seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, (CHECK_T, CHECK_B)).astype(np.int32)).to(dev)
+        ctl = torch.from_numpy(np.stack([rng.integers(0, 2, CHECK_B), rng.integers(0, CHECK_T + 1, CHECK_B),
+                                         rng.random(CHECK_B) < 0.1]).astype(np.int32)).to(dev)
+        for collect in (False, True):
+            weights = (pr.train_weights_from_params if collect else pr.eval_weights_from_params)(params, 7, device=dev)
+            for ctl_in in (None, ctl):
+                if not hook and not (collect and ctl_in is not None):
+                    continue  # the hookless instantiations without both flags are checked in phases 5, 7, 11
+                kw = dict(collect=collect, ctl=ctl_in, transition="pickup_target" if hook else "base")
+                got = pr.run_policy_kernel(*args, seeds, weights, cfg, **kw)
+                want = pr.plain_policy_rollout(*args, seeds, weights, cfg, **kw)
+                bad = _policy_mismatches(got, want, ctl_in)
+                max_err = max(max_err, float((got[2] - want[2]).abs().max()))
+                print(f"phase 13a: policy kernel {w_}x{h_} hook={hook} collect={collect} ctl={ctl_in is not None}, "
+                      f"BT={pr.policy_lane_block(cfg)}, B={CHECK_B} T={CHECK_T}, dyadic weights: episodes "
+                      f"{int(want[3].sum())}, reward {float(want[2].sum()):.4f}; mismatches {bad or 'none'}",
+                      flush=True)
+                if bad:
+                    raise RuntimeError(f"phase 13a failed at {w_}x{h_} hook={hook} collect={collect}: {bad}")
+
+    # (b) The whole chunked-regen train rollout, merged trajectory included,
+    # from phase 12's carries whose call deferred the most resets.
+    tw = pr.train_weights_from_params(params, 7, device=dev)
+    for tag, env_id, t, chunk in (("b", KC_ENV_ID, RT_KC_T, RT_KC_CHUNK), ("c", MR_ENV_ID, RT_MR_T, RT_MR_CHUNK)):
+        env, befores, _, _ = runs[f"train_{tag}"]
+        carry = befores[-1][1]
+        res, secs = {}, {}
+        for name, build in (("kernel", pr.build_fused_train_rollout), ("plain", pr.build_fused_train_plain_rollout)):
+            roll = build(env, t, mode="regen", regen_chunk=chunk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = roll(tw, key(600, device=dev), carry)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        bad = _same_train_runs(res["kernel"], res["plain"])
+        m = res["kernel"][2]
+        print(f"phase 13b: {env_id} train rollout, regen B={RT_B} T={t} chunk {chunk}, dyadic weights: kernels "
+              f"{secs['kernel']:.4f} s, plain {secs['plain']:.4f} s; episodes {int(m.episodes)}, reset_overlaps "
+              f"{int(m.reset_overlaps)}; differing: {bad or 'none'} [{card}]", flush=True)
+        if bad or int(m.episodes) == 0:
+            raise RuntimeError(f"phase 13b failed on {env_id}: {bad}, episodes {int(m.episodes)}")
+        if env_id == MR_ENV_ID and int(m.reset_overlaps) == 0:
+            raise RuntimeError("phase 13b: no deferred reset at MultiRoom")
+
+    # (c) Deferred resets everywhere: MultiRoom-N2-S4 with max_steps 3, and
+    # KeyCorridorS3R1 on planted pickup targets with max_steps 5 (eval and
+    # train rollouts), chunk 8; (d) KeyCorridor in cached mode.
+    ew = params
+    cases = [("c", MR_CUT_ID, MR_CUT_MAX_STEPS, "regen", False), ("c", KC_CHECK_IDS[0], 5, "regen", True),
+             ("d", KC_CHECK_IDS[0], None, "cached", True), ("d", KC_ENV_ID, None, "cached", True)]
+    for tag, env_id, max_steps, mode, planted in cases:
+        env = make(env_id)
+        if max_steps is not None:
+            env = dc.replace(env, config=dc.replace(env.config, max_steps=max_steps))
+        states = env.reset_batch(key(7, device=dev), MR_CUT_B)
+        if planted:
+            states = state_from_numpy(plant_pickup_target(state_to_numpy(states)), device=dev)
+        carry = fr.packed_init(env, states, mode)
+        for surface in ("eval", "train"):
+            if surface == "eval":
+                builds = (pr.build_policy_eval_rollout, pr.build_policy_eval_plain_rollout)
+                outs = [b(env, ew, MR_CUT_T, mode=mode, as_carry=True, regen_chunk=MR_CUT_CHUNK)(key(8, device=dev),
+                                                                                              carry)
+                        for b in builds]
+                bad = _same_carry_and_metrics(*outs)
+                m = outs[0][1]
+            else:
+                builds = (pr.build_fused_train_rollout, pr.build_fused_train_plain_rollout)
+                outs = [b(env, MR_CUT_T, mode=mode, regen_chunk=MR_CUT_CHUNK)(tw, key(8, device=dev), carry)
+                        for b in builds]
+                bad = _same_train_runs(*outs)
+                m = outs[0][2]
+            print(f"phase 13{tag}: {env_id} {mode} max_steps {env.config.max_steps} {surface}, chunk {MR_CUT_CHUNK} "
+                  f"B={MR_CUT_B} T={MR_CUT_T}: episodes {int(m.episodes)}, reward {float(m.total_reward):.4f}, "
+                  f"reset_overlaps {int(m.reset_overlaps)}; differing: {bad or 'none'}", flush=True)
+            if bad or int(m.episodes) == 0 or (mode == "regen" and int(m.reset_overlaps) == 0):
+                raise RuntimeError(f"phase 13{tag} failed on {env_id} {mode} {surface}: {bad}")
+            if planted and float(m.total_reward) == 0:
+                raise RuntimeError(f"phase 13{tag}: the hook's successes did not fire on {env_id}")
+
+    # The new instantiations alone at the main path's shapes, timed: B2
+    # with the hook under the control rows (KeyCorridorS6R3, 16x16, BT =
+    # 32, one 32-step pass; eval and collect) and collecting under the
+    # control rows without a hook (MultiRoom-N4-S5, 25x25, BT = 32, one
+    # 96-step pass), from phase 12's carries, against the twin.
+    timed = {}
+    for name, (env_id, carry, t, collect, hook) in {
+        "hook_ctl": (KC_ENV_ID, runs["kc_eval"][0][0], RT_KC_CHUNK, False, True),
+        "hook_collect_ctl": (KC_ENV_ID, runs["train_b"][1][0][1], RT_KC_CHUNK, True, True),
+        "collect_ctl": (MR_ENV_ID, runs["train_c"][1][0][1], RT_MR_CHUNK, True, False),
+    }.items():
+        cfg = make(env_id).config
+        hw, v = cfg.width * cfg.height, cfg.agent_view_size
+        weights = tw if collect else pr.eval_weights_from_params(params, v, device=dev)
+        seeds = pr._seeds_for(key(700, device=dev), t, RT_B)
+        ctl = torch.zeros((3, RT_B), dtype=torch.int32, device=dev)
+        args = (carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, seeds, weights, cfg)
+        kw = dict(collect=collect, ctl=ctl, transition="pickup_target" if hook else "base")
+        pr.run_policy_kernel(*args, **kw)  # warm
+        ms, got = time_events(lambda: pr.run_policy_kernel(*args, **kw), RT_TIMED_KERNEL)
+        plain_ms, want = time_events(lambda: pr.plain_policy_rollout(*args, **kw), 1)
+        bad = _policy_mismatches(got, want, ctl)
+        err = float((got[2] - want[2]).abs().max())
+        weight_bytes = (pr.HIDDEN * v * v * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2
+                        + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4)
+        flop = 3 * v * v * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
+        spill = 4 * pr._spill_rows(v * v) * RT_B * t if collect else 0
+        bnd = bound(state_bytes(hw, RT_B, t) + 2 * 12 * RT_B + weight_bytes + spill, flop * RT_B * t, BF16_FLOP_PER_S)
+        print(f"phase 13: policy kernel {name}, BT={pr.policy_lane_block(cfg)}, {env_id} B={RT_B} T={t}, dyadic "
+              f"weights: {ms:.6f} ms/call (mean of {RT_TIMED_KERNEL}), twin {plain_ms:.4f} ms, mismatches "
+              f"{bad or 'none'}; bound {bnd} [{card}]", flush=True)
+        if bad:
+            raise RuntimeError(f"phase 13: the policy kernel ({name}) differs from its twin: {bad}")
+        timed[name] = (max(err, max_err), ms, plain_ms, bnd)
+    return timed
+
+
+def phase_mosaic_probe(dev, card):
+    """The Mosaic probe: each variant's kernel against `plain_probe` (bit
+    for bit under dyadic inputs, within `NORMAL_REL_TOL` of the largest
+    |acc| under the probe's normal draws), two runs bit for bit, and the
+    cross-variant table, timed with CUDA events."""
+    from minigrid_tpu_torch.tools import probe_mosaic as pm
+
+    _zero_counts()
+    rows = pm.table(dev, reps=PROBE_MOSAIC_REPS)
+    launches = pm.probe_kernel_launches
+    # Bytes: obs, g, the four weights in, the accumulator out; operations
+    # per lane: layer 1 by its 3 V*V active rows, layer 2, and dh.h1^T.
+    nbytes = 4 * pm.STEPS * pm.V2 * pm.BT + 4 * pm.H * pm.BT + 2 * (pm.H * pm.F + pm.H * pm.H + 2 * pm.H) + 4 * pm.H * pm.H
+    ops = pm.STEPS * pm.BT * (3 * pm.V2 * pm.H + 2 * pm.H * pm.H + 2 * pm.H * pm.H)
+    bnd = bound(nbytes, ops, BF16_FLOP_PER_S)
+    base = rows["base_where"]
+    print(f"phase 14: Mosaic probe kernel, {len(rows)} variants, {launches} launches; base_where {base['ms']:.6f} "
+          f"ms/call, plain {base['plain_ms']:.6f} ms; bound {bnd} [{card}]", flush=True)
+    err = max(r["max_abs_err"] for r in rows.values())
+    return launches, err, base["ms"], base["plain_ms"], bnd
+
+
 def main() -> int:
     import torch
 
@@ -1328,6 +1731,15 @@ def main() -> int:
         b2c_err, b2c_ms, b2c_plain_ms, b2c_bound) = phase_mr_vs_plain(dev, card, env, rand, policy)
     del env, rand, policy
     torch.cuda.empty_cache()
+    kc, kc_model, rt_runs = phase_regen_policy_main_path(dev, card)
+    rt = phase_regen_policy_vs_plain(dev, card, kc, kc_model, rt_runs)
+    rt_launches = {
+        "hook": rt_runs["kc_eval"][2]["policy_kernel"],
+        "collect_ctl": rt_runs["train_b"][3]["policy_kernel"] + rt_runs["train_c"][3]["policy_kernel"],
+    }
+    del kc, kc_model, rt_runs
+    torch.cuda.empty_cache()
+    mosaic_launches, mosaic_err, mosaic_ms, mosaic_plain_ms, mosaic_bound = phase_mosaic_probe(dev, card)
 
     from minigrid_tpu_torch.ops import policy_rollout as pr
 
@@ -1504,6 +1916,45 @@ def main() -> int:
             "plain_ms": b2c_plain_ms,
             "bound_ms": b2c_bound[0],
             "bound_by": b2c_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "policy_kernel_hook",
+            "route": "cuda",
+            "source": POLICY_SOURCE,
+            "replaces": POLICY_REPLACES,
+            "launches": rt_launches["hook"],
+            "max_abs_err": rt["hook_ctl"][0],
+            "ms": rt["hook_ctl"][1],
+            "plain_ms": rt["hook_ctl"][2],
+            "bound_ms": rt["hook_ctl"][3][0],
+            "bound_by": rt["hook_ctl"][3][1],
+            "library_ms": None,
+        },
+        {
+            "name": "policy_kernel_collect_ctl",
+            "route": "cuda",
+            "source": POLICY_SOURCE,
+            "replaces": POLICY_REPLACES,
+            "launches": rt_launches["collect_ctl"],
+            "max_abs_err": max(rt["collect_ctl"][0], rt["hook_collect_ctl"][0]),
+            "ms": rt["collect_ctl"][1],
+            "plain_ms": rt["collect_ctl"][2],
+            "bound_ms": rt["collect_ctl"][3][0],
+            "bound_by": rt["collect_ctl"][3][1],
+            "library_ms": None,
+        },
+        {
+            "name": "mosaic_probe_kernel",
+            "route": "cuda",
+            "source": PROBE_MOSAIC_SOURCE,
+            "replaces": PROBE_MOSAIC_REPLACES,
+            "launches": mosaic_launches,
+            "max_abs_err": mosaic_err,
+            "ms": mosaic_ms,
+            "plain_ms": mosaic_plain_ms,
+            "bound_ms": mosaic_bound[0],
+            "bound_by": mosaic_bound[1],
             "library_ms": None,
         },
     ]}), flush=True)

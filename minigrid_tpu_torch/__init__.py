@@ -9,15 +9,16 @@ static-layout families Empty and DistShift and for KeyCorridor (its
 pickup-target hook in the kernel) and MultiRoom, which in regen mode run
 exact chunked regen (`ops/chunked_regen.py`) with fresh layouts from
 their packed generators, whose plan loops are kernels of their own
-(`ops/csrc/gen_kernel.cu`); for the static-layout families and MultiRoom,
+(`ops/csrc/gen_kernel.cu`); for all of these families,
 policy-in-the-loop evaluation (`ops/policy_rollout.py`,
-`models/policy.py`) in a second one (`ops/csrc/policy_kernel.cu`); and,
-for the static-layout families, the fused train step
-(`parallel/train.py::build_fused_train_step`): that kernel in collect mode
-spills the trajectory, a third one (`ops/csrc/grad_kernel.cu`) runs the
-actor-critic gradient pass, then clip + Adam. Entry points make their
-tensors on the card unless the caller names a device. See ROADMAP.md for
-what is still to come.
+`models/policy.py`) in a second one (`ops/csrc/policy_kernel.cu`), and
+the fused train step (`parallel/train.py::build_fused_train_step`): that
+kernel in collect mode spills the trajectory (on a random layout, merged
+across chunked regen's passes), a third one (`ops/csrc/grad_kernel.cu`)
+runs the actor-critic gradient pass, then clip + Adam. `tools/` holds the
+Mosaic bisection probe, a fourth. Entry points make their tensors on the
+card unless the caller names a device. See ROADMAP.md for what is still
+to come.
 
     import torch, minigrid_tpu_torch as mg
     from minigrid_tpu_torch.core.prng import key

@@ -118,7 +118,7 @@ def _open() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 10 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
-        lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 12 + [ptr]
+        lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 13 + [ptr]
         lib.mg_policy_launch.restype = ctypes.c_int
         lib.mg_grad_launch.argtypes = (
             [ptr] * 17 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_int, ptr]
@@ -128,6 +128,8 @@ def _open() -> ctypes.CDLL:
         lib.mg_connect_launch.restype = ctypes.c_int
         lib.mg_mr_chain_launch.argtypes = [ptr] * 6 + [ctypes.c_int] * 6 + [ptr]
         lib.mg_mr_chain_launch.restype = ctypes.c_int
+        lib.mg_mosaic_probe_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ptr]
+        lib.mg_mosaic_probe_launch.restype = ctypes.c_int
         lib.mg_probe_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
         lib.mg_probe_launch.restype = ctypes.c_int
         lib.mg_error_string.argtypes = [ctypes.c_int]

@@ -2,7 +2,8 @@
 // collect mode.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/policy_rollout.py::_policy_kernel
-// (no family hooks yet). It runs T steps per lane in one launch. Each step takes the actor on the lane's pre-step
+// with the ported family hooks (the pickup-target hook; the others are
+// still to port). It runs T steps per lane in one launch. Each step takes the actor on the lane's pre-step
 // view, as `policy_logits` computes it: value-major one-hot features of the
 // (V*V) view (hidden cells read as value 0) -> (256 x V*V*20) bf16 product
 // -> bf16 + b1 -> relu -> (256 x 256) bf16 product -> bf16 + b2 -> relu ->
@@ -18,9 +19,16 @@
 // then the action, the bits of logp and of the value (head row 7), the bits
 // of the reward, done, and zero rows up to spill_rows. Under the
 // chunked-regen commit protocol (`chunk_exact` there; the kCtl template
-// flag and a non-null `ctl_in` here, in eval mode) the (3, B) control rows
-// come in and go out, T is the chunk length, and a lane that is frozen or
-// has committed its T steps takes no further step.
+// flag and a non-null `ctl_in` here) the (3, B) control rows come in and
+// go out, T is the chunk length, and a lane that is frozen or has
+// committed its T steps takes no further step. Collect mode under kCtl
+// spills each committed step at its pass-local row t, which
+// ops/chunked_regen.py::_merge_spill moves to the lane's commit cursor
+// (invariant I6); rows a lane did not commit are left unwritten (a lane
+// may leave the obs rows of the step that froze it) and are never read.
+// The family hook (kHook, the ids of ops/packed_hooks.py::KERNEL_HOOK_IDS)
+// runs inside step_lane_ex, which reloads the aux rows it reads from the
+// template on every reset, in cached mode too.
 //
 // What bounds it on the card: arithmetic. At Empty-8x8 a lane-step needs
 // 147 W1 rows of 256 (37,632 adds, counted as the input needs them), a
@@ -61,6 +69,11 @@
 //    a time: a slab's obs rows while the view is read (at the load for
 //    step 0, after step t - 1 for step t), its scalar rows after the draw
 //    and the env step. Nothing is written after the last step.
+//  * Instantiated: every combination of BT in {64, 32}, kCollect, kCtl and
+//    kHook in {none, pickup-target} that a ported family reaches, which is
+//    all but <64, collect, ctl, no hook>: the only random layout without a
+//    hook is MultiRoom, at 25x25 in 32-lane blocks (mg_policy_launch
+//    refuses that one with cudaErrorInvalidValue).
 //  * Under kCtl a lane that can no longer commit stays in the T loop,
 //    since all 256 threads take part in the products and the barriers: it
 //    draws no action, takes no step, adds nothing to its sums, reads no
@@ -142,7 +155,7 @@ __device__ __forceinline__ int sample_action(const float (&logit)[kHeadRows], in
   return action;
 }
 
-template <int BT, bool kCollect, bool kCtl>
+template <int BT, bool kCollect, bool kCtl, int kHook>
 __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams p) {
   constexpr int kNTiles = BT / 8;  // n8 tiles of the products
   constexpr int kH2Stride = BT + 8;
@@ -205,9 +218,10 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
       ctl.steps_done = p.ctl_in[B + lane];
       ctl.frozen = p.ctl_in[2 * B + lane];
     }
+    const bool spills = kCollect && (!kCtl || (ctl.steps_done < p.T && ctl.frozen == 0));
     read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
       set_features(frow, kv, v2, w & 0xFFF);
-      if (kCollect) spill_lane[kv * B] = w & 0xFFF;
+      if (spills) spill_lane[kv * B] = w & 0xFFF;
     });
   }
   __syncthreads();
@@ -268,8 +282,8 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
       float reward;
       // Under kCtl a step that would reuse the consumed template freezes
       // the lane instead and leaves nothing behind.
-      if (step_lane_ex<kHookNone, kCtl>(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s,
-                                        ctl, reward, done)) {
+      if (step_lane_ex<kHook, kCtl>(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s, ctl,
+                                    reward, done)) {
         if (done) {
           reset_any = true;
           episodes += 1;
@@ -284,7 +298,10 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
           row[4 * B] = done ? 1 : 0;
           for (int r = v2 + 5; r < p.spill_rows; ++r) spill_lane[t * slab + r * B] = 0;
         }
-        int32_t* next_obs = kCollect && t + 1 < p.T ? spill_lane + (t + 1) * slab : nullptr;
+        // The next step's obs rows, unless this lane has committed its
+        // chunk (under kCtl) or this was the last step.
+        const bool more = t + 1 < p.T && (!kCtl || ctl.steps_done < p.T);
+        int32_t* next_obs = kCollect && more ? spill_lane + (t + 1) * slab : nullptr;
         int obs_sum = 0;
         read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
           const int m = w & 0xFFF;
@@ -312,14 +329,35 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const PolicyParams 
   }
 }
 
-template <int BT, bool kCollect, bool kCtl>
+template <int BT, bool kCollect, bool kCtl, int kHook>
 int launch(const PolicyParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(policy_kernel<BT, kCollect, kCtl>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p.B + BT - 1) / BT;
-  policy_kernel<BT, kCollect, kCtl><<<blocks, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (BT == 64 && kCollect && kCtl && kHook == kHookNone) {
+    return static_cast<int>(cudaErrorInvalidValue);  // not built: no ported family reaches it
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(policy_kernel<BT, kCollect, kCtl, kHook>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (p.B + BT - 1) / BT;
+    policy_kernel<BT, kCollect, kCtl, kHook><<<blocks, kThreads, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <int BT, bool kCollect, bool kCtl>
+int launch_hook(const PolicyParams& p, int hook, int smem, cudaStream_t stream) {
+  if (hook == kHookNone) return launch<BT, kCollect, kCtl, kHookNone>(p, smem, stream);
+  if (hook == kHookPickupTarget) return launch<BT, kCollect, kCtl, kHookPickupTarget>(p, smem, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int BT>
+int launch_mode(const PolicyParams& p, bool collect, bool ctl, int hook, int smem, cudaStream_t stream) {
+  if (collect) {
+    return ctl ? launch_hook<BT, true, true>(p, hook, smem, stream)
+               : launch_hook<BT, true, false>(p, hook, smem, stream);
+  }
+  return ctl ? launch_hook<BT, false, true>(p, hook, smem, stream)
+             : launch_hook<BT, false, false>(p, hook, smem, stream);
 }
 
 }  // namespace
@@ -328,12 +366,13 @@ extern "C" {
 
 // Launch the policy rollout on `stream` with `smem_bytes` of dynamic shared
 // memory per block (ops/policy_rollout.py::policy_smem_bytes, the layout
-// policy_kernel carves); returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a lane block other than 32 or 64). A non-null
-// `spill` selects collect mode: the kernel then writes the (T, spill_rows,
-// B) int32 trajectory slabs there. A non-null `ctl_in` runs the
-// chunked-regen commit protocol and writes `ctl_out`; collect mode does not
-// take it yet (cudaErrorInvalidValue).
+// policy_kernel carves) and family hook `hook` (kHookNone or
+// kHookPickupTarget); returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a lane block other than 32 or 64, an unknown
+// hook, or the one combination not built). A non-null `spill` selects
+// collect mode: the kernel then writes the (T, spill_rows, B) int32
+// trajectory slabs there. A non-null `ctl_in` runs the chunked-regen
+// commit protocol and writes `ctl_out`, in either mode.
 int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
                      const void* tmpl_regs, const void* seeds, const void* tables, const void* w1frag,
                      const void* b1, const void* w2frag, const void* b2, const void* wta,
@@ -341,7 +380,7 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
                      void* counts_out, void* spill, const void* ctl_in, void* ctl_out, int B, int T,
                      int width, int height, int view,
                      int max_steps, int see_through_walls, int num_regs, int num_actions,
-                     int spill_rows, int lane_block, int smem_bytes, void* stream) {
+                     int spill_rows, int hook, int lane_block, int smem_bytes, void* stream) {
   PolicyParams p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -375,15 +414,8 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool collect = spill != nullptr;
   const bool ctl = ctl_in != nullptr;
-  if (collect && ctl) return static_cast<int>(cudaErrorInvalidValue);
-  if (lane_block == 64) {
-    return collect ? launch<64, true, false>(p, smem_bytes, s)
-                   : (ctl ? launch<64, false, true>(p, smem_bytes, s) : launch<64, false, false>(p, smem_bytes, s));
-  }
-  if (lane_block == 32) {
-    return collect ? launch<32, true, false>(p, smem_bytes, s)
-                   : (ctl ? launch<32, false, true>(p, smem_bytes, s) : launch<32, false, false>(p, smem_bytes, s));
-  }
+  if (lane_block == 64) return launch_mode<64>(p, collect, ctl, hook, smem_bytes, s);
+  if (lane_block == 32) return launch_mode<32>(p, collect, ctl, hook, smem_bytes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,8 +10,13 @@ kernels run its counterpart in `csrc/step_device.cuh`, chosen by the id in
 
 Hooks are keyed by the transition name an `Env` carries. Ported: the
 pickup-target hook (KeyCorridor; UnlockPickup and ObstructedMaze share
-it, but their generators are not ported). The other nine hooks and the
-DynamicObstacles pre-hook are still to port (ROADMAP.md).
+it, but their generators are not ported), in the rollout kernel and the
+policy kernel. The JAX package has nine post-hooks
+(`minigrid_tpu/ops/packed_hooks.py::HOOKS`); the other eight (Fetch,
+GoToDoor, GoToObject, PutNear, Memory, Unlock, RedBlueDoors,
+DynamicObstacles), the DynamicObstacles pre-hook and the two action
+remaps (`ACTION_REMAPS`: Memory's pickup acts as toggle, DynamicObstacles'
+actions from 3 up act as 0) are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -25,12 +25,13 @@ grid, `testing.dyadic_flax_params`) the port, the kernel and the JAX
 package agree byte for byte; under other weights the summation order can
 flip a bf16 rounding, and with it, rarely, a sampled action.
 
-Scope: the base transition, in cached mode and in regen mode. Regen on
-a static-layout family (Empty, DistShift) keeps the template; on a
-random-layout family (MultiRoom) evaluation runs exact chunked regen
+Scope: the base transition and the ported family hooks
+(`ops/packed_hooks.py`: the pickup-target hook), in cached mode and in
+regen mode. Regen on a static-layout family (Empty, DistShift) keeps the
+template; on a random-layout family (KeyCorridor, MultiRoom) both
+evaluation and the collecting rollout run exact chunked regen
 (`ops/chunked_regen.py`), the kernel and its twin under the commit rows
-`ctl`. Family hooks, and the collecting rollout on a random layout (the
-spill merge, I6 there), are the next slice (ROADMAP.md).
+`ctl`, the collected trajectory placed by the spill merge (I6 there).
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from minigrid_tpu_torch.ops.fused_rollout import (
     step_core,
 )
 from minigrid_tpu_torch.ops.packed_gen import get_packed_generator
+from minigrid_tpu_torch.ops.packed_hooks import KERNEL_HOOK_IDS, packed_hook
 from minigrid_tpu_torch.ops.packing import NUM_REGS
 
 _F = sum(CHANNEL_WIDTHS)  # 20 features per cell
@@ -287,19 +289,18 @@ def _traj_views(spill: torch.Tensor, v2: int):
 
 def plain_policy_rollout(
     words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False,
-    ctl=None,
+    ctl=None, transition=BASE_STEP,
 ):
     """`T = seeds.shape[0]` policy-driven packed steps as a loop of torch
-    ops, on any device. Returns `(words', regs', rsum, episodes, checksum)`
-    with `(1, B)` per-lane accumulators (f32, int32, int32); with
-    `collect=True` also the trajectory (`_traj_views` of a `(T, rows, B)`
-    int32 spill, rows as the kernel writes them, padding rows zero). With
-    `ctl`, the `(3, B)` int32 commit rows of exact chunked regen (eval
-    mode only), the T steps are one chunk under the commit protocol, and
-    the updated rows come last."""
-    if collect and ctl is not None:
-        raise NotImplementedError("the collecting policy rollout under chunked regen needs the spill merge "
-                                  "(ROADMAP.md, the next slice)")
+    ops, on any device, under `transition`'s hook. Returns `(words', regs',
+    rsum, episodes, checksum)` with `(1, B)` per-lane accumulators (f32,
+    int32, int32); with `collect=True` also the trajectory (`_traj_views`
+    of a `(T, rows, B)` int32 spill, rows as the kernel writes them,
+    padding rows zero). With `ctl`, the `(3, B)` int32 commit rows of
+    exact chunked regen, the T steps are one chunk under the commit
+    protocol, and the updated rows come last; the spill then holds each
+    step at its pass-local row, and only a lane's committed rows are
+    defined (`chunked_regen._merge_spill` places them)."""
     v = config.agent_view_size
     v2 = v * v
     b = words.shape[1]
@@ -312,6 +313,7 @@ def plain_policy_rollout(
         max_steps=config.max_steps,
         see_through_walls=config.see_through_walls,
         with_obs=True,
+        hook=packed_hook(transition),
     )
     if ctl is not None:
         step = functools.partial(step, chunk_len=seeds.shape[0])
@@ -344,11 +346,10 @@ def plain_policy_rollout(
         rsum = rsum + reward
         epi = epi + done.to(torch.int32)
         csum = csum + obs_sum
+    out = (words, regs, rsum, epi, csum)
     if collect:
-        return words, regs, rsum, epi, csum, _traj_views(spill, v2)
-    if ctl is not None:
-        return words, regs, rsum, epi, csum, ctl
-    return words, regs, rsum, epi, csum
+        out += (_traj_views(spill, v2),)
+    return out + (ctl,) if ctl is not None else out
 
 
 # --------------------------------------------------------------------------
@@ -393,32 +394,15 @@ def policy_lane_block(config: EnvConfig) -> int:
     )
 
 
-def _check_policy_path(env: Env, mode: str, collect: bool = False) -> None:
-    """Raise unless the policy kernel runs `env` under `mode`: the packed
-    rollout's checks, and then no family hook, and no collecting rollout
-    under chunked regen, which the policy kernel does not have yet."""
-    _check_supported(env, mode)
-    if env.transition != BASE_STEP:
-        raise NotImplementedError(
-            f"{env.env_id}: the policy rollouts run no family hooks yet; they come with the next slice "
-            "(ROADMAP.md, queue A)"
-        )
-    if collect and mode == "regen" and not _regen_is_static(env):
-        raise NotImplementedError(
-            f"{env.env_id}: the collecting policy rollout on a random layout needs chunked regen's spill "
-            "merge, which comes with the next slice (ROADMAP.md, queue A)"
-        )
-
-
 def policy_rollout_supported(env: Env, mode: str = "cached", collect: bool = False) -> bool:
     """True iff the policy rollouts run `env` under `mode`: the base
-    transition; cached mode, regen on a static layout, or (evaluation
-    only) chunked regen on a family with a packed generator; and a grid
-    and view the kernel's shared-memory budget takes. The collecting
-    rollout (`collect=True`) also needs head row 7 free for the critic."""
-    if env.transition != BASE_STEP or mode not in ("cached", "regen"):
+    transition or a ported hook; cached mode, regen on a static layout, or
+    chunked regen on a family with a packed generator; and a grid and view
+    the kernel's shared-memory budget takes. The collecting rollout
+    (`collect=True`) also needs head row 7 free for the critic."""
+    if env.transition not in KERNEL_HOOK_IDS or mode not in ("cached", "regen"):
         return False
-    if mode == "regen" and not _regen_is_static(env) and (collect or get_packed_generator(env) is None):
+    if mode == "regen" and not _regen_is_static(env) and get_packed_generator(env) is None:
         return False
     if collect and env.config.num_actions >= HEAD_ROWS:
         return False
@@ -466,20 +450,23 @@ def _check_operands(operands, device) -> None:
 
 def run_policy_kernel(
     words, regs, tmpl_words, tmpl_regs, seeds, weights: EvalWeights, config: EnvConfig, collect: bool = False,
-    ctl=None,
+    ctl=None, transition=BASE_STEP,
 ):
     """The policy kernel's wrapper: same arguments and results as
     `plain_policy_rollout`, the trajectory with `collect=True` as views of
-    one `(T, rows, B)` int32 spill that the kernel writes.
+    one `(T, rows, B)` int32 spill that the kernel writes (under `ctl`,
+    only the rows each lane committed).
 
     CPU tensors run `plain_policy_rollout`; CUDA tensors launch the kernel
     on the current stream, and any other device, operand the kernel does
-    not take, failed build or failed launch raises."""
+    not take, hook that is not ported, failed build or failed launch
+    raises."""
     if words.device.type == "cpu":
-        return plain_policy_rollout(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, collect, ctl)
-    if collect and ctl is not None:
-        raise NotImplementedError("policy kernel: collect mode takes no chunked-regen control rows yet "
-                                  "(ROADMAP.md, the next slice)")
+        return plain_policy_rollout(
+            words, regs, tmpl_words, tmpl_regs, seeds, weights, config, collect, ctl, transition
+        )
+    packed_hook(transition)  # raises for a hook that is not ported
+    hook_id = KERNEL_HOOK_IDS[transition]
     hw = config.width * config.height
     b = words.shape[1]
     t = seeds.shape[0]
@@ -529,8 +516,8 @@ def run_policy_kernel(
             )),
             *(ctypes.c_void_p(x.data_ptr() if x is not None else None) for x in (spill, ctl, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size, config.max_steps,
-            int(config.see_through_walls), NUM_REGS, config.num_actions, rows, bt, policy_smem_bytes(config, bt),
-            ctypes.c_void_p(stream),
+            int(config.see_through_walls), NUM_REGS, config.num_actions, rows, hook_id, bt,
+            policy_smem_bytes(config, bt), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
@@ -540,7 +527,7 @@ def run_policy_kernel(
     policy_kernel_launches += 1
     out = (words_out, regs_out, rsum, counts[0:1], counts[1:2])
     if collect:
-        return out + (_traj_views(spill, v2),)
+        out += (_traj_views(spill, v2),)
     return out + (ctl_out,) if ctl is not None else out
 
 
@@ -578,15 +565,31 @@ def build_policy_eval_plain_rollout(
     return _build_policy_eval(env, params, num_steps, mode, as_carry, regen_chunk, plain_policy_rollout)
 
 
+def _check_policy_path(env: Env, mode: str, collect: bool = False) -> None:
+    """Raise unless the policy rollouts run `env` under `mode`: the packed
+    rollout's checks (`NotImplementedError` for a hook or a generator the
+    port lacks), then `policy_rollout_supported` (`ValueError`)."""
+    _check_supported(env, mode)
+    if not policy_rollout_supported(env, mode, collect):
+        raise ValueError(f"policy rollout (mode={mode!r}, collect={collect}) does not support {env.env_id!r}")
+
+
+def _chunked(env: Env, num_steps: int, regen_chunk: int, run, chunk_fn, seeds_for, collect: bool = False):
+    """Chunked regen over `chunk_fn` for a random-layout family; the
+    template refresh generates with the plain versions of the generation
+    kernels when `run` is the plain twin."""
+    generate = functools.partial(get_packed_generator(env), plain=run is plain_policy_rollout)
+    tc = _fit_chunk(num_steps, regen_chunk)
+    return build_chunked_regen(env, num_steps, tc, chunk_fn, seeds_for, generate, collect=collect)
+
+
 def _build_policy_eval(env: Env, params, num_steps: int, mode: str, as_carry: bool, regen_chunk: int, run):
     _check_policy_path(env, mode)
-    if not policy_rollout_supported(env, mode):
-        raise ValueError(f"policy rollout (mode={mode!r}) does not support {env.env_id!r}")
     view = env.config.agent_view_size
 
     def run_core(words, regs, tmpl_words, tmpl_regs, seeds, config, ctl=None):
         weights = eval_weights_from_params(params, view, device=words.device)
-        return run(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, ctl=ctl)
+        return run(words, regs, tmpl_words, tmpl_regs, seeds, weights, config, ctl=ctl, transition=env.transition)
 
     def seeds_for(key, b, dev):
         return _seeds_for(key.to(dev), num_steps, b)
@@ -596,9 +599,7 @@ def _build_policy_eval(env: Env, params, num_steps: int, mode: str, as_carry: bo
         def chunk_fn(words, regs, tmpl_words, tmpl_regs, seeds, ctl):
             return run_core(words, regs, tmpl_words, tmpl_regs, seeds, env.config, ctl=ctl)
 
-        generate = functools.partial(get_packed_generator(env), plain=run is plain_policy_rollout)
-        tc = _fit_chunk(num_steps, regen_chunk)
-        return _surface(env, mode, as_carry, build_chunked_regen(env, num_steps, tc, chunk_fn, seeds_for, generate))
+        return _surface(env, mode, as_carry, _chunked(env, num_steps, regen_chunk, run, chunk_fn, seeds_for))
     return build_carry_surface(env, num_steps, mode, as_carry, run_core, seeds_for)
 
 
@@ -606,34 +607,70 @@ def _no_mark(_piece: str) -> None:
     pass
 
 
-def build_fused_train_rollout(env: Env, num_steps: int, mode: str = "cached"):
+def build_fused_train_rollout(env: Env, num_steps: int, mode: str = "cached", regen_chunk: int = 32):
     """`rollout(weights, key, carry) -> (carry, traj, RolloutMetrics)`: the
     trajectory-collecting policy rollout that feeds
     `parallel.train.build_fused_train_step`.
 
     `traj` is `(obs_w (T, V², B) i32, actions (T, B) i32, logp (T, B) f32,
-    value (T, B) f32, reward (T, B) f32, done (T, B) i32)`, each a view of
-    the one spill the kernel (or, for CPU tensors, the twin) writes: the
-    raw obs words, as the JAX package's `raw_obs=True` gives them
+    value (T, B) f32, reward (T, B) f32, done (T, B) i32)`: the raw obs
+    words, as the JAX package's `raw_obs=True` gives them
     (`obs_words_to_images` turns them into images). `value` is head row 7
     of the forward that drew the action. `weights` are `EvalWeights` in the
     train layout (`train_weights_from_params`, the critic in head row 7),
     passed on every call, so one built rollout serves every optimizer
-    step. `mark` is called after the seeds, the kernel and the replay, as
-    in `train_step`. Cached mode, and regen on the static-layout families;
-    random-layout regen needs chunked regen's spill merge, the next
-    slice."""
+    step. The loop runs in the CUDA kernel for CUDA tensors and in the
+    plain twin for CPU tensors.
+
+    Cached mode and regen on a static layout take one pass, the
+    trajectory as views of its spill; `mark` is called after the seeds
+    ("seeds"), the pass ("collect") and the rng replay ("replay"). Regen on
+    a random layout (KeyCorridor, MultiRoom) installs a fresh layout at
+    every reset, as the reference does: exact chunked regen with passes of
+    `regen_chunk` steps (the largest divisor of `num_steps` up to it), the
+    seeds pre-shifted per lane, each pass's spill merged to the lanes'
+    commit cursors (`chunked_regen._merge_spill`); `mark` is called at
+    chunked regen's pieces ("actions" for the seeds, "kernel", "refresh",
+    "reentry", "sums")."""
+    return _build_train_rollout(env, num_steps, mode, regen_chunk, run_policy_kernel)
+
+
+def build_fused_train_plain_rollout(env: Env, num_steps: int, mode: str = "cached", regen_chunk: int = 32):
+    """The plain twin of `build_fused_train_rollout` (same surface and
+    results) on any device: `plain_policy_rollout`, and a template refresh
+    that generates with the plain versions of the generation kernels."""
+    return _build_train_rollout(env, num_steps, mode, regen_chunk, plain_policy_rollout)
+
+
+def _build_train_rollout(env: Env, num_steps: int, mode: str, regen_chunk: int, run):
     _check_policy_path(env, mode, collect=True)
-    if not policy_rollout_supported(env, mode, collect=True):
-        raise ValueError(f"fused train rollout (mode={mode!r}) does not support {env.env_id!r}")
+
+    def seeds_for(key, b, dev):
+        return _seeds_for(key.to(dev), num_steps, b)
+
+    if mode == "regen" and not _regen_is_static(env):
+
+        def chunk_fn(words, regs, tmpl_words, tmpl_regs, seeds, ctl, weights):
+            return run(words, regs, tmpl_words, tmpl_regs, seeds, weights, env.config, collect=True, ctl=ctl,
+                       transition=env.transition)
+
+        step_carry = _chunked(env, num_steps, regen_chunk, run, chunk_fn, seeds_for, collect=True)
+
+        @torch.no_grad()
+        def regen_rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark):
+            carry, metrics, traj = step_carry(key, carry, mark, ctx=weights)
+            return carry, traj, metrics
+
+        return regen_rollout
 
     @torch.no_grad()
     def rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark):
         b, dev = carry.words.shape[1], carry.words.device
-        seeds = _seeds_for(key.to(dev), num_steps, b)
+        seeds = seeds_for(key, b, dev)
         mark("seeds")
-        words_f, regs_f, rsum, epi, csum, traj = run_policy_kernel(
-            carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, seeds, weights, env.config, collect=True
+        words_f, regs_f, rsum, epi, csum, traj = run(
+            carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, seeds, weights, env.config, collect=True,
+            transition=env.transition,
         )
         mark("collect")
         rng = carry.rng

@@ -266,7 +266,7 @@ def _trajectory_grads_kernel(tw: _TrainWeights, traj, view, num_actions, mark=_n
     return grads, _metrics(sums, denom, reward, done)
 
 
-def build_fused_train_step(env: Env, num_steps: int, mode: str = "cached"):
+def build_fused_train_step(env: Env, num_steps: int, mode: str = "cached", regen_chunk: int = 32):
     """`train_step(train_state, carry, key) -> (train_state, carry,
     metrics)` over a steady `PackedCarry` (`packed_init(env, states,
     mode)`): the collecting policy kernel, the returns, the gradient
@@ -276,13 +276,18 @@ def build_fused_train_step(env: Env, num_steps: int, mode: str = "cached"):
     The returned state holds a new module and optimizer state; the one
     passed in is left as it was. `metrics` holds `loss`, `pg_loss`,
     `v_loss`, `entropy`, `reward_per_step`, `episodes` and `env_steps`, as
-    0-d tensors. Cached mode, and regen on the static-layout families.
+    0-d tensors. Cached mode, and regen: on a random layout (KeyCorridor,
+    MultiRoom) every reset during training installs a fresh layout,
+    through exact chunked regen with passes of `regen_chunk` steps
+    (`build_fused_train_rollout`).
 
     `mark`, if given, is called with each piece's name as the host reaches
-    its end ("weights", "seeds", "collect", "replay", "returns", "grad",
-    "pullback", "optimizer"); `tools/profile_step_torch.py --train` records
-    a CUDA event there."""
-    roll = build_fused_train_rollout(env, num_steps, mode=mode)
+    its end ("weights", then the rollout's pieces — "seeds", "collect",
+    "replay", or on a random layout chunked regen's "actions", "kernel",
+    "refresh", "reentry", "sums" — then "returns", "grad", "pullback",
+    "optimizer"); `tools/profile_step_torch.py --train` records a CUDA
+    event there."""
+    roll = build_fused_train_rollout(env, num_steps, mode=mode, regen_chunk=regen_chunk)
     optimizer = make_optimizer()
     view = env.config.agent_view_size
 

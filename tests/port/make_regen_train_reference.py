@@ -1,0 +1,166 @@
+"""Write the JAX package's outputs that
+`tests/port/test_torch_train_regen.py` holds the port against
+(`data/regen_train_reference.npz`), and recompute them live for that
+file's `slow` tests: policy evaluation with the pickup-target hook and
+training on random layouts, whose JAX references compile the KeyCorridor
+and MultiRoom generators inside chunked regen (tens of seconds each on a
+CPU).
+
+Every case starts from the port's `packed_init` carry, stored as
+`<case>/in/<field>`, under `testing.dyadic_flax_params` (every f32 sum of
+the actor exact in any order), at KeyCorridorS3R1 on states whose agents
+face their pickup target (`testing.plant_pickup_target`, so the hook's
+successes fire) or at MultiRoom-N2-S4:
+
+  * `kc_eval_cached`, `kc_eval_regen`: two calls of
+    `build_policy_eval_rollout(backend="xla", as_carry=True)` in cached
+    mode, and in regen mode with `max_steps` cut to 5 and chunk 8 (lanes
+    end two episodes in a chunk, so resets are deferred);
+  * `kc_collect_regen`, `mr_collect_regen`: two calls of the collecting
+    rollout `build_fused_train_rollout(backend="xla", raw_obs=True,
+    regen_chunk=8)` with `max_steps` cut to 5: carry, metrics and the six
+    trajectory arrays;
+  * `kc_train_regen`: two chained `build_fused_train_step(backend="xla",
+    grad_backend="kernel")` steps in regen mode with `max_steps` cut to 5
+    (the gradient kernel in interpret mode, whose pass the port's train
+    step runs; the XLA pass accumulates the torso's cotangents in bf16
+    across time chunks, and Adam's torso moments then differ by up to 17 %
+    of a leaf's largest entry): the carry, the metrics, the flat params
+    and Adam's state after each.
+
+    JAX_PLATFORMS=cpu python tests/port/make_regen_train_reference.py
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # the repo root: both packages
+
+import make_multiroom_reference as mref  # noqa: E402
+
+KC = "MiniGrid-KeyCorridorS3R1-v0"
+N2 = mref.N2
+PATH = mref.DATA / "regen_train_reference.npz"
+PARAMS_SEED = 3
+TRAIN_PARAMS_SEED = 2
+TRAIN_KEYS = (6, 7)
+TRAIN_METRICS = ("loss", "pg_loss", "v_loss", "entropy", "reward_per_step", "episodes", "env_steps")
+# name -> (env id, surface, mode, B, T, max_steps, chunk, carry seed, key
+# seed, planted pickup targets)
+CASES = {
+    "kc_eval_cached": (KC, "eval", "cached", 128, 16, None, 8, 5, 11, True),
+    "kc_eval_regen": (KC, "eval", "regen", 128, 16, 5, 8, 5, 11, True),
+    "kc_collect_regen": (KC, "collect", "regen", 128, 16, 5, 8, 5, 21, True),
+    "mr_collect_regen": (N2, "collect", "regen", 64, 16, 5, 8, 7, 21, False),
+    "kc_train_regen": (KC, "train", "regen", 128, 16, 5, 32, 5, None, True),
+}
+
+
+def port_carry(name: str):
+    """The port's `packed_init` carry case `name` starts from (CPU)."""
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.testing import plant_pickup_target
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    env_id, _, mode, b, _, max_steps, _, seed, _, planted = CASES[name]
+    states = None
+    if planted:
+        states = plant_pickup_target(state_to_numpy(make(env_id).reset_batch(key(seed, device="cpu"), b)))
+    return mref.port_carry(env_id, b, seed, max_steps, mode, states)
+
+
+def port_env(name: str):
+    from minigrid_tpu_torch import make
+
+    return mref.with_max_steps(make(CASES[name][0]), CASES[name][5])
+
+
+def leaf_sizes(params) -> list:
+    """The sizes of a flax params tree's leaves in `ravel_pytree`'s order
+    (sorted keys), to cut a flat vector into leaves."""
+    sizes = []
+
+    def walk(tree):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k])
+            else:
+                sizes.append(int(np.size(tree[k])))
+
+    walk(params)
+    return sizes
+
+
+def jax_case(name: str) -> dict:
+    """Case `name`'s arrays, as the file holds them under `<name>/`."""
+    import jax
+    import jax.numpy as jnp
+
+    import minigrid_tpu
+    from minigrid_tpu.ops import policy_rollout as jpr
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    env_id, surface, mode, b, t, max_steps, chunk, _, key_seed, _ = CASES[name]
+    env = mref.with_max_steps(minigrid_tpu.make(env_id), max_steps)
+    carry0 = mref.carry_arrays(port_carry(name))
+    out = {f"{name}/in/{k}": v for k, v in carry0.items()}
+    carry = mref.jax_carry(carry0)
+    if surface == "train":
+        from jax.flatten_util import ravel_pytree
+
+        from minigrid_tpu.parallel import train as JT
+        from minigrid_tpu.parallel.sharding import make_env_mesh
+
+        mesh = make_env_mesh(jax.devices()[:1])
+        step = JT.build_fused_train_step(env, mesh, t, mode=mode, backend="xla", grad_backend="kernel")
+        params = jax.tree.map(jnp.asarray, dyadic_flax_params(TRAIN_PARAMS_SEED))
+        ts = JT.TrainState(params, jax.jit(JT.make_optimizer().init)(params))
+        for i, seed in enumerate(TRAIN_KEYS):
+            ts, carry, metrics = step(ts, carry, jax.random.PRNGKey(seed))
+            adam = ts.opt_state[1][0]
+            out.update({f"{name}/step{i}/carry/{k}": np.asarray(v) for k, v in carry._asdict().items()})
+            out.update({f"{name}/step{i}/metrics/{k}": np.asarray(metrics[k]) for k in TRAIN_METRICS})
+            out[f"{name}/step{i}/params"] = np.asarray(ravel_pytree(ts.params)[0])
+            out[f"{name}/step{i}/mu"] = np.asarray(ravel_pytree(adam.mu)[0])
+            out[f"{name}/step{i}/nu"] = np.asarray(ravel_pytree(adam.nu)[0])
+            out[f"{name}/step{i}/count"] = np.asarray(adam.count)
+        return out
+    params = dyadic_flax_params(PARAMS_SEED)
+    if surface == "eval":
+        step = jax.jit(jpr.build_policy_eval_rollout(env, params, t, mode=mode, backend="xla", regen_chunk=chunk,
+                                                     as_carry=True))
+        for i in range(2):
+            carry, metrics = step(jax.random.PRNGKey(key_seed), carry)
+            out.update(mref.call_arrays(f"{name}/call{i}", carry, metrics))
+        return out
+    roll = jax.jit(jpr.build_fused_train_rollout(env, t, mode=mode, backend="xla", regen_chunk=chunk, raw_obs=True))
+    params = jax.tree.map(jnp.asarray, params)
+    for i in range(2):
+        carry, traj, metrics = roll(params, jax.random.PRNGKey(key_seed), carry)
+        out.update(mref.call_arrays(f"{name}/call{i}", carry, metrics, traj))
+    return out
+
+
+def case_arrays(name: str, path: Path = PATH) -> dict:
+    """Case `name`'s arrays from the file, without the `<name>/` prefix."""
+    return {k[len(name) + 1:]: v for k, v in mref.load(path).items() if k.startswith(name + "/")}
+
+
+def main() -> int:
+    arrays = {}
+    for name in CASES:
+        arrays.update(jax_case(name))
+    PATH.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(PATH, **arrays)
+    print(f"wrote {PATH} ({PATH.stat().st_size} bytes)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

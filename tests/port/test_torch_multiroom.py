@@ -1,16 +1,17 @@
 """MultiRoom in the port against the JAX package, and on a card the slice's
 kernels against their plain versions.
 
-Against the JAX package, on the same numpy-made keys, byte for byte:
+Against the JAX package, on the same numpy-made keys, byte for byte, its
+outputs held in files that `make_multiroom_reference.py` writes from it
+(its MultiRoom generator takes 25-70 s to compile on a CPU, N6's
+minutes; each `slow` test recomputes its file live and compares):
   * the plan (`_plan_batched`: the room-chain loop's plain version and
     the draws around it, every `Plan` field) and the packed layout
-    (`generate_packed`) of N2-S4 and N4-S5 live, from one `jax.jit` per
-    id that returns the JAX package's `vmap(_plan)` and `generate_packed`
-    (and at N2-S4 `vmap(generate)`, against the port's `generate`);
-  * N6's plan and layout against `data/multiroom_n6_b64.npz`, written
-    from the JAX package by `make_multiroom_reference.py` (N6's generator
-    takes minutes to compile on a CPU); the `slow` test recomputes the
-    file live and compares;
+    (`generate_packed`) of N2-S4 and N4-S5, against the JAX package's
+    `vmap(_plan)` and `generate_packed` (and at N2-S4 `vmap(generate)`,
+    against the port's `generate`), in
+    `data/multiroom_plan_layout_b64.npz`;
+  * N6's plan and layout against `data/multiroom_n6_b64.npz`;
   * the packed paint helpers, rectangles past the grid included;
   * chunked regen at N2-S4, B = 128, two calls of T = 48: the random
     policy against `build_packed_xla_rollout(mode="regen",
@@ -19,11 +20,13 @@ Against the JAX package, on the same numpy-made keys, byte for byte:
     freeze and re-enter: `reset_overlaps > 0`); the actor in the loop
     under dyadic weights (`testing.dyadic_flax_params`) against
     `build_policy_eval_rollout(backend="xla", regen_chunk=8)` at B = 64,
-    T = 16, `max_steps` 5.
+    T = 16, `max_steps` 5; in `data/multiroom_n2s4_regen.npz`, with the
+    port's carry each case starts from (the port's own carry must equal
+    it).
 Carries, `episodes`, `obs_checksum` and `reset_overlaps` are byte-exact;
 `total_reward` gets rtol 1e-6 for the batch-sum order (ROADMAP.md §C).
 
-JAX is imported only by the tests that compare with it, so the `gpu`
+JAX is imported only by the tests that recompute a file, so the `gpu`
 tests (the room-chain kernel, B1 and B2 under the commit rows at 25x25,
 and the whole chunked-regen steps) also run on a machine with a card and
 without JAX:
@@ -56,8 +59,8 @@ B = 64
 CPU = torch.device("cpu")
 
 
-def _keys(b=B, seed=4):
-    return np.random.default_rng(seed).integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.uint32)
+def _keys(b=B, seed=ref.PLAN_SEED):
+    return ref.plan_keys(b, seed)
 
 
 def _torch_keys(k, device=CPU):
@@ -94,13 +97,16 @@ def _assert_same_fields(got, want):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
-# One test per id: each JAX reference is one compile, which a second test
-# could repeat on another worker.
+def _plan_file(env_id):
+    tag = {v: k for k, v in ref.PLAN_IDS.items()}[env_id]
+    return {name[len(tag) + 1:]: v for name, v in ref.load(ref.PLAN_PATH).items() if name.startswith(tag + "/")}
+
+
 @pytest.mark.parametrize("env_id", [N2, N4])
 def test_plan_and_layout_match_jax(env_id):
-    pytest.importorskip("jax")
+    """Against the JAX package's outputs in `ref.PLAN_PATH`."""
     with_states = env_id == N2
-    want = ref.jax_plan_and_layout(env_id, _keys(), with_states=with_states)
+    want = _plan_file(env_id)
     got = _port_plan_and_layout(env_id, _keys())
     _assert_same_fields(got, want)
     assert (want["count"] == make(env_id).config.max_num_rooms).all()
@@ -121,6 +127,12 @@ def test_n6_plan_and_layout_match_the_jax_reference_file():
     np.testing.assert_array_equal(want["keys"], ref.keys())
     _assert_same_fields(_port_plan_and_layout(N6, ref.keys()), want)
     assert (want["count"] == 6).all()
+
+
+@pytest.mark.slow
+def test_plan_and_layout_reference_file_matches_jax():
+    pytest.importorskip("jax")
+    ref.assert_same_arrays(ref.load(ref.PLAN_PATH), ref.jax_plan_layouts())
 
 
 @pytest.mark.slow
@@ -184,7 +196,7 @@ def test_paint_helpers_match_jax():
 
 REGEN_B = 128
 REGEN_T = 48
-REGEN_CHUNK = 8
+REGEN_CHUNK = ref.REGEN_CHUNK
 REGEN_CASES = {"registered": None, "max5": 5}
 POLICY_B = 64
 POLICY_T = 16
@@ -192,27 +204,11 @@ POLICY_MAX_STEPS = 5
 
 
 def _actions(b=REGEN_B, t=REGEN_T, seed=0):
-    return np.random.default_rng(seed).integers(0, 7, (t, b)).astype(np.int32)
+    return ref.actions(b, t, seed)
 
 
 def _port_carry(env, b, device=CPU, seed=5):
     return tfr.packed_init(env, env.reset_batch(key(seed, device=device), b), "regen")
-
-
-def _jax_carry(carry):
-    import jax.numpy as jnp
-    from minigrid_tpu.ops import fused_rollout as jfr
-
-    return jfr.PackedCarry(**{k: jnp.asarray(v) for k, v in carry_to_numpy(carry).items()})
-
-
-def _jax_env(max_steps):
-    import minigrid_tpu
-
-    env = minigrid_tpu.make(N2)
-    if max_steps is not None:
-        env = dataclasses.replace(env, config=dataclasses.replace(env.config, max_steps=max_steps))
-    return env
 
 
 def _two_calls(step, carry, source):
@@ -224,8 +220,15 @@ def _two_calls(step, carry, source):
     return out
 
 
-def _jax_two_calls(step, carry, source):
-    return [({k: np.asarray(v) for k, v in c._asdict().items()}, m) for c, m in _two_calls(step, carry, source)]
+def _file_case(name, carry):
+    """The JAX package's two calls of `ref.REGEN_CASES[name]` from
+    `ref.REGEN_PATH` as [(carry arrays, metrics arrays)] * 2, after checking
+    that the file's input carry is the port's `carry`."""
+    arrays = {k[len(name) + 1:]: v for k, v in ref.load(ref.REGEN_PATH).items() if k.startswith(name + "/")}
+    for field, got in carry_to_numpy(carry).items():
+        np.testing.assert_array_equal(got, arrays[f"in/{field}"], err_msg=f"input carry {field}")
+    return [({f: arrays[f"call{i}/carry/{f}"] for f in ref.CARRY_FIELDS},
+             {f: arrays[f"call{i}/metrics/{f}"] for f in ref.METRIC_FIELDS}) for i in range(2)]
 
 
 def _assert_same_calls(got, want):
@@ -234,23 +237,17 @@ def _assert_same_calls(got, want):
             np.testing.assert_array_equal(c[name], jc[name], err_msg=f"call {i} {name}")
         for name in ("episodes", "total_steps", "obs_checksum", "reset_overlaps"):
             assert getattr(m, name).dtype == torch.int32, name
-            assert int(getattr(m, name)) == int(getattr(jm, name)), (i, name)
-        np.testing.assert_allclose(float(m.total_reward), float(jm.total_reward), rtol=1e-6)
+            assert int(getattr(m, name)) == int(jm[name]), (i, name)
+        np.testing.assert_allclose(float(m.total_reward), float(jm["total_reward"]), rtol=1e-6)
 
 
 @pytest.mark.parametrize("case", sorted(REGEN_CASES))
 def test_random_policy_chunked_regen_matches_jax_packed_xla_rollout(case):
-    jax = pytest.importorskip("jax")
-    from minigrid_tpu.ops import fused_rollout as jfr
-
+    """Against the JAX package's `build_packed_xla_rollout` in `ref.REGEN_PATH`."""
     max_steps = REGEN_CASES[case]
     env = _env(N2, max_steps)
     carry = _port_carry(env, REGEN_B)
-    jstep = jax.jit(jfr.build_packed_xla_rollout(
-        _jax_env(max_steps), REGEN_T, mode="regen", regen_chunk=REGEN_CHUNK, as_carry=True,
-        actions_override=_actions(),
-    ))
-    want = _jax_two_calls(jstep, _jax_carry(carry), jax.random.PRNGKey(0))
+    want = _file_case(f"random_{case}", carry)
     passes = tcr.reentry_passes
     step = tfr.build_fused_rollout(env, REGEN_T, mode="regen", regen_chunk=REGEN_CHUNK, as_carry=True,
                                    actions_override=_actions())
@@ -264,21 +261,24 @@ def test_random_policy_chunked_regen_matches_jax_packed_xla_rollout(case):
 
 
 def test_policy_eval_chunked_regen_matches_jax_xla():
-    jax = pytest.importorskip("jax")
-    from minigrid_tpu.ops import policy_rollout as jpr
-
+    """Against the JAX package's `build_policy_eval_rollout(backend="xla")`
+    in `ref.REGEN_PATH`."""
     env = _env(N2, POLICY_MAX_STEPS)
     carry = _port_carry(env, POLICY_B, seed=7)
-    params = dyadic_flax_params(3)
-    jstep = jax.jit(jpr.build_policy_eval_rollout(
-        _jax_env(POLICY_MAX_STEPS), params, POLICY_T, mode="regen", backend="xla", regen_chunk=REGEN_CHUNK,
-        as_carry=True,
-    ))
-    want = _jax_two_calls(jstep, _jax_carry(carry), jax.random.PRNGKey(11))
+    want = _file_case("policy_max5", carry)
+    params = dyadic_flax_params(ref.POLICY_PARAMS_SEED)
     step = tpr.build_policy_eval_rollout(env, params, POLICY_T, mode="regen", as_carry=True, regen_chunk=REGEN_CHUNK)
     got = [(carry_to_numpy(c), m) for c, m in _two_calls(step, carry, prng.key(11, device=CPU))]
     _assert_same_calls(got, want)
     assert sum(int(m.reset_overlaps) for _, m in got) > 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(ref.REGEN_CASES))
+def test_regen_reference_file_matches_jax(name):
+    pytest.importorskip("jax")
+    want = ref.jax_regen_case(name)
+    ref.assert_same_arrays({k: v for k, v in ref.load(ref.REGEN_PATH).items() if k.startswith(name + "/")}, want)
 
 
 # ---------------------------------------------------------------------------
@@ -286,23 +286,32 @@ def test_policy_eval_chunked_regen_matches_jax_xla():
 # ---------------------------------------------------------------------------
 
 
-def test_policy_rollouts_take_multiroom_regen_in_eval_mode_only():
+def test_policy_rollouts_take_random_layouts_in_both_modes():
+    """MultiRoom regen with `collect=True`, and KeyCorridor (the
+    pickup-target hook) in regen mode, build and run: the collecting
+    rollout, policy evaluation and the collecting twin under the commit
+    rows."""
     env = make(N4)
     assert tpr.policy_lane_block(env.config) == 32
-    assert tpr.policy_rollout_supported(env, "regen") and tpr.policy_rollout_supported(env, "cached")
-    assert not tpr.policy_rollout_supported(env, "regen", collect=True)
-    assert tpr.policy_rollout_supported(env, "cached", collect=True)
-    with pytest.raises(NotImplementedError, match="spill merge.*ROADMAP.md"):
-        tpr.build_fused_train_rollout(env, 8, mode="regen")
-    with pytest.raises(NotImplementedError, match="hooks.*ROADMAP.md"):
-        tpr.build_policy_eval_rollout(make("MiniGrid-KeyCorridorS3R1-v0"), dyadic_flax_params(0), 8, mode="regen")
+    for mode in ("regen", "cached"):
+        for collect in (False, True):
+            assert tpr.policy_rollout_supported(env, mode, collect=collect)
+    w = tpr.train_weights_from_params(dyadic_flax_params(0), 7, device=CPU)
+    n2 = _env(N2, 3)
+    carry, traj, metrics = tpr.build_fused_train_rollout(n2, 8, mode="regen", regen_chunk=4)(
+        w, prng.key(1, device=CPU), _port_carry(n2, 4)
+    )
+    assert tuple(traj[0].shape) == (8, 49, 4) and int(metrics.total_steps) == 32 and int(metrics.episodes) > 0
+    kc = make("MiniGrid-KeyCorridorS3R1-v0")
+    step = tpr.build_policy_eval_rollout(kc, dyadic_flax_params(0), 8, mode="regen", as_carry=True)
+    _, m = step(prng.key(2, device=CPU), _port_carry(kc, 4))
+    assert int(m.total_steps) == 32
     cfg = env.config
     case = random_packed_case(1, cfg.width, cfg.height, 4, cfg.max_steps)
     args = [torch.from_numpy(case[k]) for k in ("words", "regs", "tmpl_words", "tmpl_regs")]
-    w = tpr.eval_weights_from_params(dyadic_flax_params(0), 7, device=CPU)
-    with pytest.raises(NotImplementedError, match="spill merge"):
-        tpr.plain_policy_rollout(*args, torch.zeros((2, 4), dtype=torch.int32), w, cfg, collect=True,
-                                 ctl=torch.zeros((3, 4), dtype=torch.int32))
+    out = tpr.plain_policy_rollout(*args, torch.zeros((2, 4), dtype=torch.int32), w, cfg, collect=True,
+                                   ctl=torch.zeros((3, 4), dtype=torch.int32))
+    assert len(out) == 7 and tuple(out[6].shape) == (3, 4) and (out[6][1] > 0).all()
 
 
 # ---------------------------------------------------------------------------

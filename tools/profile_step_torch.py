@@ -6,6 +6,8 @@ PyTorch port spends its time on a CUDA card.
     python tools/profile_step_torch.py --train    # the fused train step
     python tools/profile_step_torch.py --regen [--env ID] [--steps T] [--chunk N] [--policy]
                                                   # chunked regen
+    python tools/profile_step_torch.py --train --regen [--env ID] [--steps T] [--chunk N]
+                                                  # the train step on a random layout
 
 At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
 `chip_smoke.py`), runs the pieces of a regen `step(source, carry)` call
@@ -61,6 +63,14 @@ its chunks:
   reentry   the re-entry passes, the check for unfinished lanes included
   sums      the metrics
 
+With `--train --regen`, at B = 32,768 on a random-layout family (default
+KeyCorridorS6R3, T 256, chunk 32: `chip_smoke.py` phase 12b's shape;
+phase 12c's is `--env MiniGrid-MultiRoom-N4-S5-v0 --steps 288 --chunk
+96`), the pieces of one `train_step`: "weights", then chunked regen's
+pieces as above (here "actions" are the sampling seeds and "kernel" the
+collecting policy kernel, each pass's spill merged to the commit cursors),
+then "returns", "grad", "pullback" and "optimizer", over the same window.
+
 From `reset_batch` every step count is 0, so lanes truncate together at
 `max_steps`: after one warm-up call it times a window of calls that holds
 at least one mass reset (`ceil(max_steps / T)` calls, at least 3: 5 at
@@ -92,6 +102,7 @@ from minigrid_tpu_torch.models.policy import ActorCritic
 from minigrid_tpu_torch.ops import chunked_regen as cr
 from minigrid_tpu_torch.ops import fused_rollout as fr
 from minigrid_tpu_torch.ops import gen_kernel as gk
+from minigrid_tpu_torch.ops import grad_kernel as grk
 from minigrid_tpu_torch.ops import policy_rollout as pr
 from minigrid_tpu_torch.parallel import train as tr
 
@@ -103,6 +114,8 @@ CALLS = 3
 PIECES = ("actions", "kernel", "replay", "sums")
 TRAIN_BATCH = 131_072
 TRAIN_PIECES = ("weights", "seeds", "collect", "replay", "returns", "grad", "pullback", "optimizer")
+TRAIN_REGEN_PIECES = ("weights", "actions", "kernel", "refresh", "reentry", "sums", "returns", "grad", "pullback",
+                      "optimizer")
 REGEN_ENV_ID = "MiniGrid-KeyCorridorS6R3-v0"
 REGEN_BATCH = 32_768
 REGEN_PIECES = ("actions", "kernel", "refresh", "reentry", "sums")
@@ -214,7 +227,52 @@ def _regen_counts():
         "mr_chain_kernel": gk.mr_chain_kernel_launches,
         "host_syncs": cr.host_syncs,
         "reentry_passes": cr.reentry_passes,
+        "reentry_lanes": cr.reentry_lanes,
+        "grad_kernel": grk.grad_kernel_launches,
     }
+
+
+def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int) -> int:
+    env = make(env_id)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), REGEN_BATCH), "regen")
+    ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+    step = tr.build_fused_train_step(env, num_steps, mode="regen", regen_chunk=chunk)
+    seeds = iter(range(100, 10**6))
+    window = max(3, -(-env.config.max_steps // num_steps))
+    ts, carry, _ = step(ts, carry, key(next(seeds), device=dev))  # warm-up
+    torch.cuda.synchronize()
+    counts0 = _regen_counts()
+    totals = dict.fromkeys(TRAIN_REGEN_PIECES, 0.0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(window):
+        (ts, carry, _), ms = timed_marks(lambda mark: step(ts, carry, key(next(seeds), device=dev), mark=mark))
+        for p in TRAIN_REGEN_PIECES:
+            totals[p] += ms.get(p, 0.0)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / window
+    per_call = {n: (c - counts0[n]) / window for n, c in _regen_counts().items()}
+    pieces_ms = {p: totals[p] / window for p in TRAIN_REGEN_PIECES}
+    whole = sum(pieces_ms.values())
+    for p in TRAIN_REGEN_PIECES:
+        print(f"{p:9s} {pieces_ms[p]:.4f} ms/step ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
+    print(f"pieces sum {whole:.4f} ms/step; whole train step {step_ms:.4f} ms/step "
+          f"({REGEN_BATCH * num_steps / step_ms * 1e3:.6e} env-steps/s), {window}-step window, {env_id} "
+          f"T={num_steps} regen_chunk {chunk}; per step {per_call} [{card}]", flush=True)
+
+    def run_window():
+        nonlocal ts, carry
+        for _ in range(window):
+            ts, carry, _ = step(ts, carry, key(next(seeds), device=dev))
+
+    kernel_ms, device_ms = profile_one(run_window, REGEN_KERNELS + ("grad_g1_kernel", "grad_g2_kernel"))
+    print(json.dumps({
+        "card": card, "env_id": env_id, "train": True, "regen_chunk": chunk, "batch_size": REGEN_BATCH,
+        "num_steps": num_steps, "window_steps": window, "pieces_ms": pieces_ms, "step_ms": step_ms,
+        "per_step": per_call, "profiler_window_device_ms": device_ms, "profiler_window_kernel_ms": kernel_ms,
+    }), flush=True)
+    return 0
 
 
 def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool) -> int:
@@ -300,15 +358,18 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    if "--train" in sys.argv[1:]:
-        return main_train(dev, card)
     args = sys.argv[1:]
+
+    def opt(name, default):
+        return args[args.index(name) + 1] if name in args else default
+
+    if "--train" in args and "--regen" in args:
+        return main_train_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
+                                int(opt("--chunk", 32)))
+    if "--train" in args:
+        return main_train(dev, card)
     policy = "--policy" in args
     if "--regen" in args:
-
-        def opt(name, default):
-            return args[args.index(name) + 1] if name in args else default
-
         return main_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
                           int(opt("--chunk", 128)), policy)
     env = make(ENV_ID)
