@@ -162,6 +162,40 @@ result line):
      normal draws, two runs bit for bit, the variants of one formula bit
      for bit, the others within their bound of base_where, timed with
      CUDA events.
+ 15. DoorKey-8x8 on random layouts, which have no packed generator:
+     chunked regen refreshes the templates through the batched `generate`,
+     packed. From `reset_batch(key(0))`, one warm-up and 3 timed calls with
+     every count set to 0 just before them (the second holds the
+     every-lane truncation at step 640): (a) the random policy, regen
+     B=262,144, T=256, chunk 32, only the rollout kernel, the refresh's
+     share of a call printed; (b) the fused train step at B=32,768, T=256,
+     chunk 32, only the policy kernel (`<64, collect, ctl, no hook>`) and
+     the gradient kernel; the loss finite, the params moved, `env_steps ==
+     B*T`. Then against the plain paths, TF32 off, dyadic weights, byte for
+     byte at B=8,192: (c) the random policy, policy evaluation and the
+     collecting rollout (merged trajectory) from the carries whose call
+     holds the reset; (d) the same with `max_steps` cut to 5, chunk 8,
+     with deferred resets; (e) Empty-Random-6x6 regen; then the new
+     instantiation alone, one 32-step pass at B=32,768, and the rollout
+     kernel alone, one 32-step chunk pass at B=262,144 from (a)'s last
+     carry, each timed and byte for byte.
+ 16. The five family hooks (Fetch, GoToDoor, GoToObject, PutNear,
+     RedBlueDoors): (a) each family's regen main path at B=32,768, T=64,
+     chunk 32: after a warm-up, one random-policy call and one
+     policy-evaluation call with every count set to 0 just before each
+     (only the rollout kernel, then only the policy kernel), then from that
+     warm carry one 32-step pass of B1, B2 eval and B2 collect under fresh
+     commit rows against their plain versions, B1 and B2 eval timed; (b)
+     on `testing.hooked_packed_case` states (the hook's events planted in
+     front of each agent), B=8,192, T=64: B1 with and without commit rows
+     under actions whose first fires the hook, B2 in eval and collect mode
+     with and without them (RedBlueDoors at 6x6 too, in 64-lane blocks),
+     byte for byte, and each hook must change the plain outcome against
+     the base step; (c) timed windows: Fetch-5x5-N2 cached random policy
+     at B=262,144, T=256, then its kernel alone, one call's pass from the
+     window's last carry (no commit rows) against its plain version, byte
+     for byte (its own row in the kernels line), and RedBlueDoors-8x8
+     regen policy evaluation at B=32,768, T=256 (the shape of (a)'s pass).
 
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
@@ -193,6 +227,13 @@ KERNEL_REPLACES = "minigrid_tpu/ops/fused_rollout.py:519"
 PROBE_REPLACES = "minigrid_tpu/utils/platform.py:48"
 PROBE_REPS = 200
 POLICY_SOURCE = "minigrid_tpu_torch/ops/csrc/policy_kernel.cu"
+POLICY_HOOK_SOURCES = {
+    "fetch": "minigrid_tpu_torch/ops/csrc/policy_hooks_fetch_goto.cu",
+    "gotodoor": "minigrid_tpu_torch/ops/csrc/policy_hooks_fetch_goto.cu",
+    "gotoobject": "minigrid_tpu_torch/ops/csrc/policy_hooks_fetch_goto.cu",
+    "putnear": "minigrid_tpu_torch/ops/csrc/policy_hooks_putnear_rbd.cu",
+    "redbluedoors": "minigrid_tpu_torch/ops/csrc/policy_hooks_putnear_rbd.cu",
+}
 POLICY_REPLACES = "minigrid_tpu/ops/policy_rollout.py:282"
 POLICY_T = 256
 SLICE_B = 65_536
@@ -258,6 +299,40 @@ RT_TIMED_KERNEL = 3
 PROBE_MOSAIC_SOURCE = "minigrid_tpu_torch/ops/csrc/probe_mosaic.cu"
 PROBE_MOSAIC_REPLACES = "tools/probe_mosaic.py:61"
 PROBE_MOSAIC_REPS = 20
+# Phase 15: DoorKey-8x8 on random layouts (chunked regen through the
+# batched generate). From reset_batch every lane truncates at step 640, so
+# of a warm-up and 3 timed 256-step calls the second timed one holds that
+# every-lane reset.
+DK_ENV_ID = "MiniGrid-DoorKey-8x8-v0"
+DK_B = 262_144
+DK_T = 256
+DK_CHUNK = 32
+DK_TIMED = 3
+DK_TRAIN_B = 32_768
+DK_TRAIN_T = 256
+DK_CHECK_B = 8192
+DK_CUT_MAX_STEPS = 5
+DK_CUT_T = 16
+DK_CUT_CHUNK = 8
+ER_ENV_ID = "MiniGrid-Empty-Random-6x6-v0"
+# Phase 16: the five family hooks. Transition -> (an id of its family, the
+# action that fires the hook on `testing.hooked_packed_case` states).
+HOOK_FAMILIES = {
+    "fetch": ("MiniGrid-Fetch-8x8-N3-v0", 3),
+    "gotodoor": ("MiniGrid-GoToDoor-8x8-v0", 6),
+    "gotoobject": ("MiniGrid-GoToObject-8x8-N2-v0", 6),
+    "putnear": ("MiniGrid-PutNear-8x8-N3-v0", 4),
+    "redbluedoors": ("MiniGrid-RedBlueDoors-8x8-v0", 5),
+}
+HK_B = 32_768
+HK_T = 64
+HK_CHUNK = 32
+HK_TIMED = 3
+FETCH_TIMED_ID = "MiniGrid-Fetch-5x5-N2-v0"
+FETCH_TIMED_B = 262_144
+FETCH_TIMED_T = 256
+RBD_TIMED_ID = "MiniGrid-RedBlueDoors-8x8-v0"
+RBD_TIMED_T = 256
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -332,6 +407,59 @@ def int_issue_rate(dev) -> float:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     return sms * 4 * 32 * mhz * 1e6
+
+
+def rollout_instr(cfg, hook_ctl: bool) -> int:
+    """The rollout kernel's fewest integer instructions per lane-step on
+    `cfg`: the view and the transition, the flood where walls occlude, and
+    the hook and commit rows if `hook_ctl`."""
+    v = cfg.agent_view_size
+    instr = ROLLOUT_INSTR_PER_VIEW_CELL * v * v + ROLLOUT_INSTR_PER_TRANSITION
+    if hook_ctl:
+        instr += ROLLOUT_INSTR_HOOK_CTL
+    if not cfg.see_through_walls:
+        instr += v * (ROLLOUT_INSTR_FLOOD_PER_CELL * v + ROLLOUT_INSTR_FLOOD_PER_SHIFT * 2 * (v - 1)
+                      + ROLLOUT_INSTR_FLOOD_PER_ROW)
+    return instr
+
+
+def b1_bound(cfg, b, t, dev, ctl=True, hook=True):
+    """The rollout kernel's bound for `b` lanes and `t` steps of `cfg`,
+    with the commit rows if `ctl` and a hook if `hook`."""
+    nbytes = state_bytes(cfg.width * cfg.height, b, t) + (2 * 12 * b if ctl else 0)
+    return bound(nbytes, rollout_instr(cfg, ctl or hook) * b * t, int_issue_rate(dev))
+
+
+def policy_weight_bytes(v: int) -> int:
+    """Bytes of the policy kernel's weights at view size `v`: W1 (20
+    one-hot channels per view cell) and W2 in bf16, their biases in bf16,
+    the f32 heads."""
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    return (pr.HIDDEN * v * v * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2
+            + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4)
+
+
+def policy_flop(v: int) -> int:
+    """The policy's operations per lane-step at view size `v`: one W1 row of
+    256 adds per channel of each view cell (every value of a valid state is
+    in range), the 256x256 product and the 8-row head."""
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    return 3 * v * v * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
+
+
+def b2_bound(cfg, b, t, collect, ctl=True):
+    """The policy kernel's bound for `b` lanes and `t` steps of `cfg`: the
+    weights, the state, the seeds, the commit rows if `ctl` and the spill
+    if `collect`, and the network's operations."""
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    v = cfg.agent_view_size
+    spill = 4 * pr._spill_rows(v * v) * b * t if collect else 0
+    nbytes = (state_bytes(cfg.width * cfg.height, b, t) + (2 * 12 * b if ctl else 0) + policy_weight_bytes(v)
+              + spill)
+    return bound(nbytes, policy_flop(v) * b * t, BF16_FLOP_PER_S)
 
 
 def compare(got, want):
@@ -1038,20 +1166,14 @@ def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
     b1_plain_ms, want = time_events(lambda: fr.plain_rollout(*args, transition=env.transition, ctl=ctl), 1)
     counts, b1_err = compare(got[:5], want[:5])
     counts["ctl"] = int((got[5] != want[5]).sum())
-    v2 = cfg.agent_view_size ** 2
-    v = cfg.agent_view_size
-    instr = (ROLLOUT_INSTR_PER_VIEW_CELL * v2 + ROLLOUT_INSTR_PER_TRANSITION + ROLLOUT_INSTR_HOOK_CTL
-             + v * (ROLLOUT_INSTR_FLOOD_PER_CELL * v + ROLLOUT_INSTR_FLOOD_PER_SHIFT * 2 * (v - 1)
-                    + ROLLOUT_INSTR_FLOOD_PER_ROW))
-    hw = cfg.width * cfg.height
-    b1_bound = bound(state_bytes(hw, KC_B, KC_CHUNKS[0]) + 2 * 12 * KC_B, instr * KC_B * KC_CHUNKS[0],
-                     int_issue_rate(dev))
+    b1_bnd = b1_bound(cfg, KC_B, KC_CHUNKS[0], dev)
     print(f"phase 9: rollout kernel with the hook and the control rows, {KC_ENV_ID} B={KC_B} "
           f"T={KC_CHUNKS[0]}: {b1_ms:.6f} ms/call (mean of {KC_TIMED}), plain {b1_plain_ms:.4f} ms, "
-          f"mismatches {counts}; bound {b1_bound} ({instr} instructions per lane-step) [{card}]", flush=True)
+          f"mismatches {counts}; bound {b1_bnd} ({rollout_instr(cfg, True)} instructions per lane-step) "
+          f"[{card}]", flush=True)
     if any(counts.values()):
         raise RuntimeError("phase 9: the rollout kernel with the hook differs from its plain version")
-    return (max_err, timing[0], timing[1], b4_bound), (b1_err, b1_ms, b1_plain_ms, b1_bound)
+    return (max_err, timing[0], timing[1], b4_bound), (b1_err, b1_ms, b1_plain_ms, b1_bnd)
 
 
 def _zero_counts():
@@ -1295,7 +1417,7 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
     # path's shape from phase 10's carries: B1 hookless, B2 at BT = 32 under
     # dyadic weights; each against its plain version, byte for byte.
     cfg = env.config
-    hw, v = cfg.width * cfg.height, cfg.agent_view_size
+    v = cfg.agent_view_size
     ctl = torch.zeros((3, MR_B), dtype=torch.int32, device=dev)
     w = rand[0][0]
     actions = torch.randint(0, 7, (MR_CHUNK, MR_B), dtype=torch.int32, device=dev,
@@ -1306,13 +1428,10 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
     b1_plain_ms, want = time_events(lambda: fr.plain_rollout(*args, ctl=ctl), 1)
     counts, b1_err = compare(got[:5], want[:5])
     counts["ctl"] = int((got[5] != want[5]).sum())
-    instr = (ROLLOUT_INSTR_PER_VIEW_CELL * v * v + ROLLOUT_INSTR_PER_TRANSITION + ROLLOUT_INSTR_HOOK_CTL
-             + v * (ROLLOUT_INSTR_FLOOD_PER_CELL * v + ROLLOUT_INSTR_FLOOD_PER_SHIFT * 2 * (v - 1)
-                    + ROLLOUT_INSTR_FLOOD_PER_ROW))
-    b1_bound = bound(state_bytes(hw, MR_B, MR_CHUNK) + 2 * 12 * MR_B, instr * MR_B * MR_CHUNK, int_issue_rate(dev))
+    b1_bnd = b1_bound(cfg, MR_B, MR_CHUNK, dev)
     print(f"phase 11: rollout kernel with the control rows, {MR_ENV_ID} B={MR_B} T={MR_CHUNK}: {b1_ms:.6f} "
-          f"ms/call (mean of {MR_TIMED}), plain {b1_plain_ms:.4f} ms, mismatches {counts}; bound {b1_bound} "
-          f"({instr} instructions per lane-step) [{card}]", flush=True)
+          f"ms/call (mean of {MR_TIMED}), plain {b1_plain_ms:.4f} ms, mismatches {counts}; bound {b1_bnd} "
+          f"({rollout_instr(cfg, True)} instructions per lane-step) [{card}]", flush=True)
     if any(counts.values()):
         raise RuntimeError("phase 11: the rollout kernel with the control rows differs from its plain version")
 
@@ -1325,21 +1444,18 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
     b2_plain_ms, want = time_events(lambda: pr.plain_policy_rollout(*args, ctl=ctl), 1)
     counts, b2_err = compare(got[:5], want[:5])
     counts["ctl"] = int((got[5] != want[5]).sum())
-    weight_bytes = pr.HIDDEN * v * v * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2 + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4
-    flop = 3 * v * v * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
-    b2_bound = bound(state_bytes(hw, MR_B, MR_CHUNK) + 2 * 12 * MR_B + weight_bytes, flop * MR_B * MR_CHUNK,
-                     BF16_FLOP_PER_S)
+    b2_bnd = b2_bound(cfg, MR_B, MR_CHUNK, collect=False)
     print(f"phase 11: policy kernel with the control rows, BT={pr.policy_lane_block(cfg)}, {MR_ENV_ID} B={MR_B} "
           f"T={MR_CHUNK}, dyadic weights: {b2_ms:.6f} ms/call (mean of {MR_TIMED}), twin {b2_plain_ms:.4f} ms, "
-          f"mismatches {counts}; bound {b2_bound} [{card}]", flush=True)
+          f"mismatches {counts}; bound {b2_bnd} [{card}]", flush=True)
     if any(counts.values()):
         raise RuntimeError("phase 11: the policy kernel with the control rows differs from its twin")
     _, ms5, plain5, bound5 = chain[MR_ENV_ID]
-    return ((max(c[0] for c in chain.values()), ms5, plain5, bound5), (b1_err, b1_ms, b1_plain_ms, b1_bound),
-            (b2_err, b2_ms, b2_plain_ms, b2_bound))
+    return ((max(c[0] for c in chain.values()), ms5, plain5, bound5), (b1_err, b1_ms, b1_plain_ms, b1_bnd),
+            (b2_err, b2_ms, b2_plain_ms, b2_bnd))
 
 
-def _mark_window(tag, call, n_timed, dev, path_kernels):
+def _mark_window(tag, call, n_timed, dev, path_kernels, phase="12"):
     """One warm-up `call(0, mark)`, then `n_timed` timed calls `call(i,
     mark)` with every count set to 0 just before them and a CUDA event at
     each of their marks. Returns (the timed calls' results, the counts,
@@ -1369,7 +1485,7 @@ def _mark_window(tag, call, n_timed, dev, path_kernels):
     peak = torch.cuda.max_memory_allocated(dev)
     kernels = {n: c for n, c in counts.items() if n.endswith("_kernel")}
     if any(kernels[n] == 0 for n in path_kernels) or any(c for n, c in kernels.items() if n not in path_kernels):
-        raise RuntimeError(f"phase 12{tag}: launches {kernels}; the path runs {path_kernels} and no other kernel")
+        raise RuntimeError(f"phase {phase}{tag}: launches {kernels}; the path runs {path_kernels} and no other kernel")
     return out, counts, seconds, pieces, peak
 
 
@@ -1455,19 +1571,20 @@ def _per_call(counts, n):
     return {k: v / n for k, v in counts.items() if v}
 
 
-def _report_window(tag, what, metrics, counts, seconds, pieces, peak, t, card):
+def _report_window(tag, what, metrics, counts, seconds, pieces, peak, t, card, b=RT_B, phase="12", mode="regen"):
     totals = {n: sum(int(getattr(m, n)) for m in metrics) for n in ("episodes", "obs_checksum", "reset_overlaps")}
     n = len(metrics)
-    print(f"phase 12{tag}: {what}, regen B={RT_B} T={t}: {n} step calls {seconds:.4f} s, "
-          f"{RT_B * t * n / seconds:.6e} env-steps/s; episodes {totals['episodes']}, reset_overlaps "
+    print(f"phase {phase}{tag}: {what}, {mode} B={b} T={t}: {n} step calls {seconds:.4f} s, "
+          f"{b * t * n / seconds:.6e} env-steps/s; episodes {totals['episodes']}, reset_overlaps "
           f"{totals['reset_overlaps']}, reward {sum(float(m.total_reward) for m in metrics):.6f}; per call "
           f"{_per_call(counts, n)}; pieces ms per call { {k: round(v, 4) for k, v in pieces.items()} }; peak memory "
           f"{peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
-    if any(int(m.total_steps) != RT_B * t for m in metrics) or totals["obs_checksum"] == 0:
-        raise RuntimeError(f"phase 12{tag}: total_steps != B*T or a zero checksum")
+    if any(int(m.total_steps) != b * t for m in metrics) or totals["obs_checksum"] == 0:
+        raise RuntimeError(f"phase {phase}{tag}: total_steps != B*T or a zero checksum")
     if totals["reset_overlaps"] != counts["reentry_lanes"]:
-        raise RuntimeError(f"phase 12{tag}: reset_overlaps {totals['reset_overlaps']} != re-entry lanes "
+        raise RuntimeError(f"phase {phase}{tag}: reset_overlaps {totals['reset_overlaps']} != re-entry lanes "
                            f"{counts['reentry_lanes']}")
+    return totals
 
 
 def _hooked_case(cfg, b, seed, hook):
@@ -1634,7 +1751,7 @@ def phase_regen_policy_vs_plain(dev, card, kc, model, runs):
         "collect_ctl": (MR_ENV_ID, runs["train_c"][1][0][1], RT_MR_CHUNK, True, False),
     }.items():
         cfg = make(env_id).config
-        hw, v = cfg.width * cfg.height, cfg.agent_view_size
+        v = cfg.agent_view_size
         weights = tw if collect else pr.eval_weights_from_params(params, v, device=dev)
         seeds = pr._seeds_for(key(700, device=dev), t, RT_B)
         ctl = torch.zeros((3, RT_B), dtype=torch.int32, device=dev)
@@ -1645,11 +1762,7 @@ def phase_regen_policy_vs_plain(dev, card, kc, model, runs):
         plain_ms, want = time_events(lambda: pr.plain_policy_rollout(*args, **kw), 1)
         bad = _policy_mismatches(got, want, ctl)
         err = float((got[2] - want[2]).abs().max())
-        weight_bytes = (pr.HIDDEN * v * v * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2
-                        + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4)
-        flop = 3 * v * v * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
-        spill = 4 * pr._spill_rows(v * v) * RT_B * t if collect else 0
-        bnd = bound(state_bytes(hw, RT_B, t) + 2 * 12 * RT_B + weight_bytes + spill, flop * RT_B * t, BF16_FLOP_PER_S)
+        bnd = b2_bound(cfg, RT_B, t, collect)
         print(f"phase 13: policy kernel {name}, BT={pr.policy_lane_block(cfg)}, {env_id} B={RT_B} T={t}, dyadic "
               f"weights: {ms:.6f} ms/call (mean of {RT_TIMED_KERNEL}), twin {plain_ms:.4f} ms, mismatches "
               f"{bad or 'none'}; bound {bnd} [{card}]", flush=True)
@@ -1679,6 +1792,348 @@ def phase_mosaic_probe(dev, card):
           f"ms/call, plain {base['plain_ms']:.6f} ms; bound {bnd} [{card}]", flush=True)
     err = max(r["max_abs_err"] for r in rows.values())
     return launches, err, base["ms"], base["plain_ms"], bnd
+
+
+def _slice_carry(carry, n):
+    """The first `n` lanes of a `PackedCarry`."""
+    from minigrid_tpu_torch.ops.fused_rollout import PackedCarry
+
+    return PackedCarry(carry.words[:, :n].contiguous(), carry.regs[:, :n].contiguous(),
+                       carry.tmpl_words[:, :n].contiguous(), carry.tmpl_regs[:, :n].contiguous(),
+                       carry.rng[:n].contiguous())
+
+
+def _time_pass(name, cfg, carry, t, dev, card, transition, surface, weights=None, reps=RT_TIMED_KERNEL, seed=0,
+               ctl=True):
+    """One chunk pass of `t` steps from `carry`, under fresh commit rows if
+    `ctl` (regen's chunk passes) or none (cached mode's calls): the kernel
+    (warm, then timed, mean of `reps`) and its plain version (timed once),
+    compared byte for byte. Returns (max_abs_err, ms, plain_ms, bound)."""
+    import torch
+
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    b = carry.words.shape[1]
+    ctl_rows = torch.zeros((3, b), dtype=torch.int32, device=dev) if ctl else None
+    args = (carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if surface == "random":
+        stream = torch.randint(0, 7, (t, b), dtype=torch.int32, device=dev, generator=g)
+        kernel = lambda: fr.run_rollout_kernel(*args, stream, cfg, transition=transition, ctl=ctl_rows)  # noqa: E731
+        plain = lambda: fr.plain_rollout(*args, stream, cfg, transition=transition, ctl=ctl_rows)  # noqa: E731
+        bnd = b1_bound(cfg, b, t, dev, ctl=ctl)
+    else:
+        collect = surface == "collect"
+        stream = torch.randint(-(2**31), 2**31, (t, b), dtype=torch.int32, device=dev, generator=g)
+        kw = dict(collect=collect, ctl=ctl_rows, transition=transition)
+        kernel = lambda: pr.run_policy_kernel(*args, stream, weights, cfg, **kw)  # noqa: E731
+        plain = lambda: pr.plain_policy_rollout(*args, stream, weights, cfg, **kw)  # noqa: E731
+        bnd = b2_bound(cfg, b, t, collect, ctl=ctl)
+    kernel()  # warm
+    ms, got = time_events(kernel, reps)
+    plain_ms, want = time_events(plain, 1)
+    bad = _policy_mismatches(got, want, ctl_rows)
+    err = float((got[2] - want[2]).abs().max())
+    print(f"phase {name}: {surface} pass under {transition!r}, commit rows {ctl}, {cfg.width}x{cfg.height} B={b} "
+          f"T={t}: kernel "
+          f"{ms:.6f} ms/call (mean of {reps}), plain {plain_ms:.4f} ms; episodes {int(want[3].sum())}; mismatches "
+          f"{bad or 'none'}; bound {bnd} [{card}]", flush=True)
+    if bad:
+        raise RuntimeError(f"phase {name}: the {surface} kernel under {transition!r} differs from its plain version")
+    return err, ms, plain_ms, bnd
+
+
+def phase_doorkey_main_path(dev, card):
+    """DoorKey-8x8 on random layouts, chunked regen through the generic
+    route (the batched `generate`, packed): (a) the random policy at B =
+    262,144, T = 256, chunk 32; (b) the fused train step at B = 32,768, T =
+    256, chunk 32 (B2 `<64, collect, ctl, no hook>`, B3). Each from
+    `reset_batch(key(0))`, one warm-up and 3 timed calls with every count
+    set to 0 just before them: the second timed call holds the every-lane
+    truncation at step 640."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.parallel import train as tr
+
+    env = make(DK_ENV_ID)
+    out = {"env": env}
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), DK_B), "regen")
+    step = fr.build_fused_rollout(env, DK_T, mode="regen", as_carry=True, regen_chunk=DK_CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = {"carry": carry0, "befores": []}
+
+    def rand_call(i, mark):
+        state["befores"].append(state["carry"])
+        state["carry"], m = step(gen, state["carry"], mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("a", rand_call, DK_TIMED, dev, ("rollout_kernel",), phase="15")
+    totals = _report_window("a", f"{DK_ENV_ID} random policy, chunk {DK_CHUNK}", res, counts, seconds, pieces, peak,
+                            DK_T, card, b=DK_B, phase="15")
+    share = pieces.get("refresh", 0.0) / sum(pieces.values())
+    print(f"phase 15a: the template refresh (the batched generate, packed) takes {share:.4f} of a call; "
+          f"{counts['rollout_kernel']} rollout kernel launches [{card}]", flush=True)
+    if totals["episodes"] < DK_B:
+        raise RuntimeError("phase 15a: the window held no every-lane reset")
+    out["rand"] = (state["befores"], res, counts, state["carry"])
+    del carry0, state
+    torch.cuda.empty_cache()
+
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), DK_TRAIN_B), "regen")
+    ts0 = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+    train = tr.build_fused_train_step(env, DK_TRAIN_T, mode="regen", regen_chunk=DK_CHUNK)
+    p0 = tr.flatten_params(ts0.params.flax_params())
+    state = {"ts": ts0, "carry": carry0, "befores": []}
+
+    def train_call(i, mark):
+        state["befores"].append((state["ts"], state["carry"]))
+        state["ts"], state["carry"], m = train(state["ts"], state["carry"], key(800 + i, device=dev), mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("b", train_call, DK_TIMED, dev, ("policy_kernel", "grad_kernel"),
+                                                      phase="15")
+    losses = [float(m["loss"]) for m in res]
+    moved = float((tr.flatten_params(state["ts"].params.flax_params()) - p0).abs().max())
+    rate = DK_TRAIN_B * DK_TRAIN_T * DK_TIMED / seconds
+    print(f"phase 15b: {DK_ENV_ID} fused train step, regen B={DK_TRAIN_B} T={DK_TRAIN_T} chunk {DK_CHUNK}: "
+          f"{DK_TIMED} train steps {seconds:.4f} s, {rate:.6e} env-steps/s; loss per step {losses}; episodes "
+          f"{[float(m['episodes']) for m in res]}; params moved by up to {moved:.6e}; per step "
+          f"{_per_call(counts, DK_TIMED)}; pieces ms per step { {k: round(v, 4) for k, v in pieces.items()} }; "
+          f"peak memory {peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    if not all(map(math.isfinite, losses)) or not moved > 0:
+        raise RuntimeError(f"phase 15b: loss {losses}, params moved by {moved}")
+    if any(int(m["env_steps"]) != DK_TRAIN_B * DK_TRAIN_T for m in res):
+        raise RuntimeError("phase 15b: env_steps != B*T")
+    if sum(float(m["episodes"]) for m in res) < DK_TRAIN_B:
+        raise RuntimeError("phase 15b: the window held no every-lane reset")
+    out["train"] = (state["befores"], res, counts)
+    return out
+
+
+def phase_doorkey_vs_plain(dev, card, runs):
+    """The DoorKey path against its plain versions, TF32 off, dyadic
+    weights, byte for byte (reward sums bit for bit), at B = 8,192: (c)
+    from the carries whose call holds the every-lane reset, the random
+    policy's chunked-regen step, policy evaluation and the collecting
+    rollout with its merged trajectory; (d) the same three with
+    `max_steps` cut to 5 and chunk 8 (deferred resets); (e)
+    Empty-Random-6x6 regen, one call of each surface; then B2 `<64,
+    collect, ctl, no hook>` alone, one 32-step pass at B = 32,768, and B1
+    alone, one 32-step chunk pass at B = 262,144 from the random policy's
+    last carry, each timed. Returns their (max_abs_err, ms, plain_ms,
+    bound)."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    env = runs["env"]
+    params = dyadic_flax_params(9)
+    tw = pr.train_weights_from_params(params, 7, device=dev)
+
+    def three_surfaces(tag, e, rand_carry, policy_carry, t, chunk, need_overlaps):
+        outs = {}
+        for surface, builds in (
+            ("random", (fr.build_fused_rollout, fr.build_packed_plain_rollout)),
+            ("eval", (pr.build_policy_eval_rollout, pr.build_policy_eval_plain_rollout)),
+            ("collect", (pr.build_fused_train_rollout, pr.build_fused_train_plain_rollout)),
+        ):
+            res = []
+            for build in builds:
+                if surface == "random":
+                    step = build(e, t, mode="regen", as_carry=True, regen_chunk=chunk)
+                    res.append(step(torch.Generator(device=dev).manual_seed(3), rand_carry))
+                elif surface == "eval":
+                    step = build(e, params, t, mode="regen", as_carry=True, regen_chunk=chunk)
+                    res.append(step(key(4, device=dev), policy_carry))
+                else:
+                    res.append(build(e, t, mode="regen", regen_chunk=chunk)(tw, key(5, device=dev), policy_carry))
+            bad = _same_train_runs(*res) if surface == "collect" else _same_carry_and_metrics(*res)
+            m = res[0][-1]
+            print(f"phase 15{tag}: {e.env_id} max_steps {e.config.max_steps} {surface}, regen chunk {chunk} "
+                  f"B={rand_carry.words.shape[1]} T={t}: episodes {int(m.episodes)}, reward "
+                  f"{float(m.total_reward):.4f}, reset_overlaps {int(m.reset_overlaps)}; differing: {bad or 'none'}",
+                  flush=True)
+            if bad or int(m.episodes) == 0 or (need_overlaps and int(m.reset_overlaps) == 0):
+                raise RuntimeError(f"phase 15{tag} failed on {e.env_id} {surface}: {bad}")
+            outs[surface] = res
+        return outs
+
+    three_surfaces("c", env, _slice_carry(runs["rand"][0][2], DK_CHECK_B),
+                   _slice_carry(runs["train"][0][2][1], DK_CHECK_B), DK_T, DK_CHUNK, False)
+    cut = dataclasses.replace(env, config=dataclasses.replace(env.config, max_steps=DK_CUT_MAX_STEPS))
+    carry = fr.packed_init(cut, cut.reset_batch(key(6, device=dev), DK_CHECK_B), "regen")
+    three_surfaces("d", cut, carry, carry, DK_CUT_T, DK_CUT_CHUNK, True)
+    er = make(ER_ENV_ID)
+    carry = fr.packed_init(er, er.reset_batch(key(7, device=dev), DK_CHECK_B), "regen")
+    three_surfaces("e", er, carry, carry, CHECK_T, DK_CHUNK, False)
+
+    # The new instantiation alone at the train step's shape, and B1 at the
+    # random policy's.
+    collect = _time_pass("15", env.config, runs["train"][0][1][1], DK_CHUNK, dev, card, "base", "collect", tw)
+    rand = _time_pass("15", env.config, runs["rand"][3], DK_CHUNK, dev, card, "base", "random")
+    return collect, rand
+
+
+def _hook_fired(want, base):
+    """True if the hooked plain run's reward sums or episode counts differ
+    from the base step's."""
+    import torch
+
+    return not (torch.equal(want[2], base[2]) and torch.equal(want[3], base[3]))
+
+
+def phase_hooks(dev, card):
+    """The five family hooks. (a) Each family's main path at B = 32,768,
+    regen, T = 64, chunk 32, from `reset_batch(key(0))`: a `_mark_window`
+    of one warm-up and one timed call of the random policy, then one of
+    policy evaluation (the seeded `ActorCritic`); then
+    from that warm carry one 32-step pass of B1, B2 eval and B2 collect
+    under fresh commit rows against their plain versions (B1 and B2 eval
+    timed). (b) On `testing.hooked_packed_case` states, B = 8,192, T =
+    64: B1 with and without commit rows under actions whose first is the
+    one that fires the hook, and B2 in eval and collect mode with and
+    without them (RedBlueDoors at 6x6 too, in 64-lane blocks), against
+    their plain versions; each hook must change the plain outcome against
+    the base step. (c) Timed: Fetch-5x5-N2 cached random policy at B =
+    262,144, T = 256, and RedBlueDoors-8x8 regen policy evaluation at B =
+    32,768, T = 256, chunk 32, each one warm-up and 3 timed calls; then
+    the Fetch window's kernel alone, one call's pass from its last carry
+    (no commit rows), against its plain version. Returns `{row: {"rollout"
+    or "policy": [launches, max_abs_err, ms, plain_ms, bound]}}`, one row
+    per hook and `fetch_cached` for Fetch's timed window."""
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.testing import dyadic_flax_params, hooked_packed_case
+
+    params = dyadic_flax_params(11)
+    rows = {}
+    for transition, (env_id, fire) in HOOK_FAMILIES.items():
+        env = make(env_id)
+        cfg = env.config
+        model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), HK_B), "regen")}
+        launches = {}
+        for surface in ("random", "eval"):
+            if surface == "random":
+                step = fr.build_fused_rollout(env, HK_T, mode="regen", as_carry=True, regen_chunk=HK_CHUNK)
+                source = torch.Generator(device=dev).manual_seed(2)
+            else:
+                step = pr.build_policy_eval_rollout(env, model, HK_T, mode="regen", as_carry=True,
+                                                    regen_chunk=HK_CHUNK)
+                source = key(3, device=dev)
+
+            def call(i, mark, step=step, source=source):
+                state["carry"], m = step(source, state["carry"], mark=mark)
+                return m
+
+            kernel = {"random": "rollout_kernel", "eval": "policy_kernel"}[surface]
+            res, counts, seconds, pieces, peak = _mark_window("a", call, 1, dev, (kernel,), phase="16")
+            _report_window("a", f"{env_id} {surface}, chunk {HK_CHUNK}", res, counts, seconds, pieces, peak, HK_T,
+                           card, b=HK_B, phase="16")
+            launches[surface] = counts[kernel]
+        carry = state.pop("carry")
+        ew = pr.eval_weights_from_params(params, cfg.agent_view_size, device=dev)
+        tw = pr.train_weights_from_params(params, cfg.agent_view_size, device=dev)
+        b1 = _time_pass("16a", cfg, carry, HK_CHUNK, dev, card, transition, "random")
+        b2 = _time_pass("16a", cfg, carry, HK_CHUNK, dev, card, transition, "eval", ew)
+        b2c = _time_pass("16a", cfg, carry, HK_CHUNK, dev, card, transition, "collect", tw, reps=1)
+        rows[transition] = {"rollout": [launches["random"], b1[0], b1[1], b1[2], b1[3]],
+                            "policy": [launches["eval"], max(b2[0], b2c[0]), b2[1], b2[2], b2[3]]}
+        del carry, step, state
+        torch.cuda.empty_cache()
+
+        # (b) Planted events on random packed states.
+        grids = [env_id] + (["MiniGrid-RedBlueDoors-6x6-v0"] if transition == "redbluedoors" else [])
+        for grid_id in grids:
+            gcfg = dataclasses.replace(make(grid_id).config, max_steps=12)
+            case = hooked_packed_case(41, transition, gcfg.width, gcfg.height, CHECK_B, gcfg.max_steps)
+            args = [torch.from_numpy(case[k]).to(dev) for k in ("words", "regs", "tmpl_words", "tmpl_regs")]
+            rng = np.random.default_rng(42)
+            actions = rng.integers(0, 7, (CHECK_T, CHECK_B)).astype(np.int32)
+            actions[0] = fire
+            actions = torch.from_numpy(actions).to(dev)
+            seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, (CHECK_T, CHECK_B)).astype(np.int32)).to(dev)
+            ctl = torch.from_numpy(np.stack([rng.integers(0, 2, CHECK_B), rng.integers(0, CHECK_T + 1, CHECK_B),
+                                             rng.random(CHECK_B) < 0.1]).astype(np.int32)).to(dev)
+            ctl[:, : CHECK_B // 2] = 0
+            runs = []
+            if grid_id == env_id:
+                runs += [("random", None, ctl_in) for ctl_in in (None, ctl)]
+            runs += [(s, w, ctl_in) for s, w in (("eval", ew), ("collect", tw)) for ctl_in in (None, ctl)]
+            for surface, weights, ctl_in in runs:
+                if surface == "random":
+                    def run(fn, tr_):
+                        return fn(*args, actions, gcfg, transition=tr_, ctl=ctl_in)
+                    fns = (fr.run_rollout_kernel, fr.plain_rollout)
+                else:
+                    kw = dict(collect=surface == "collect", ctl=ctl_in)
+
+                    def run(fn, tr_, kw=kw, weights=weights):
+                        return fn(*args, seeds, weights, gcfg, transition=tr_, **kw)
+                    fns = (pr.run_policy_kernel, pr.plain_policy_rollout)
+                got, want, base = run(fns[0], transition), run(fns[1], transition), run(fns[1], "base")
+                bad = _policy_mismatches(got, want, ctl_in)
+                err = float((got[2] - want[2]).abs().max())
+                key_ = "rollout" if surface == "random" else "policy"
+                rows[transition][key_][1] = max(rows[transition][key_][1], err)
+                fired = _hook_fired(want, base)
+                print(f"phase 16b: {transition} {surface} {gcfg.width}x{gcfg.height} ctl={ctl_in is not None} "
+                      f"B={CHECK_B} T={CHECK_T}: episodes {int(want[3].sum())} (base step {int(base[3].sum())}), "
+                      f"reward {float(want[2].sum()):.4f} (base step {float(base[2].sum()):.4f}); mismatches "
+                      f"{bad or 'none'}", flush=True)
+                if bad or not fired:
+                    raise RuntimeError(f"phase 16b failed: {transition} {surface} ctl={ctl_in is not None}: {bad}, "
+                                       f"hook fired {fired}")
+
+    # (c) The timed windows.
+    fetch = make(FETCH_TIMED_ID)
+    state = {"carry": fr.packed_init(fetch, fetch.reset_batch(key(0, device=dev), FETCH_TIMED_B), "cached")}
+    step = fr.build_fused_rollout(fetch, FETCH_TIMED_T, mode="cached", as_carry=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def fetch_call(i, mark):
+        state["carry"], m = step(gen, state["carry"])
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("c", fetch_call, HK_TIMED, dev, ("rollout_kernel",), phase="16")
+    _report_window("c", f"{FETCH_TIMED_ID} random policy", res, counts, seconds, pieces, peak, FETCH_TIMED_T, card,
+                   b=FETCH_TIMED_B, phase="16", mode="cached")
+    # The window's kernel alone at its own shape: one call's pass from its
+    # last carry, without commit rows, against the plain version.
+    err, ms, plain_ms, bnd = _time_pass("16c", fetch.config, state["carry"], FETCH_TIMED_T, dev, card, "fetch",
+                                        "random", ctl=False)
+    rows["fetch_cached"] = {"rollout": [counts["rollout_kernel"], err, ms, plain_ms, bnd]}
+    del state, step
+    torch.cuda.empty_cache()
+
+    rbd = make(RBD_TIMED_ID)
+    model = ActorCritic(rbd.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    state = {"carry": fr.packed_init(rbd, rbd.reset_batch(key(0, device=dev), HK_B), "regen")}
+    step = pr.build_policy_eval_rollout(rbd, model, RBD_TIMED_T, mode="regen", as_carry=True, regen_chunk=HK_CHUNK)
+
+    def rbd_call(i, mark):
+        state["carry"], m = step(key(900 + i, device=dev), state["carry"], mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("c", rbd_call, HK_TIMED, dev, ("policy_kernel",), phase="16")
+    _report_window("c", f"{RBD_TIMED_ID} policy evaluation, chunk {HK_CHUNK}", res, counts, seconds, pieces, peak,
+                   RBD_TIMED_T, card, b=HK_B, phase="16")
+    rows["redbluedoors"]["policy"][0] += counts["policy_kernel"]
+    return rows
 
 
 def main() -> int:
@@ -1740,21 +2195,42 @@ def main() -> int:
     del kc, kc_model, rt_runs
     torch.cuda.empty_cache()
     mosaic_launches, mosaic_err, mosaic_ms, mosaic_plain_ms, mosaic_bound = phase_mosaic_probe(dev, card)
+    torch.cuda.empty_cache()
+    dk_runs = phase_doorkey_main_path(dev, card)
+    (dk_err, dk_ms, dk_plain_ms, dk_bound), dk_rand = phase_doorkey_vs_plain(dev, card, dk_runs)
+    dk_launches = dk_runs["train"][2]["policy_kernel"]
+    dk_rand_launches = dk_runs["rand"][2]["rollout_kernel"]
+    del dk_runs
+    torch.cuda.empty_cache()
+    hook_rows = phase_hooks(dev, card)
+    hook_kernels = []
+    for transition, row in hook_rows.items():
+        for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():
+            source, replaces = ((KERNEL_SOURCE, KERNEL_REPLACES) if kernel == "rollout"
+                                else (POLICY_HOOK_SOURCES[transition], POLICY_REPLACES))
+            hook_kernels.append({
+                "name": f"{kernel}_kernel_{transition}",
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": launches_,
+                "max_abs_err": err_,
+                "ms": ms_,
+                "plain_ms": plain_ms_,
+                "bound_ms": bnd_[0],
+                "bound_by": bnd_[1],
+                "library_ms": None,
+            })
 
     from minigrid_tpu_torch.ops import policy_rollout as pr
 
-    hw = 64  # Empty-8x8
-    v2 = 49
-    rollout_instr = ROLLOUT_INSTR_PER_VIEW_CELL * v2 + ROLLOUT_INSTR_PER_TRANSITION
-    rollout_bound = bound(state_bytes(hw, MAIN_B, MAIN_T), rollout_instr * MAIN_B * MAIN_T, int_issue_rate(dev))
-    weight_bytes = pr.HIDDEN * v2 * 20 * 2 + pr.HIDDEN * pr.HIDDEN * 2 + 2 * pr.HIDDEN * 2 + pr.HEAD_ROWS * (pr.HIDDEN + 1) * 4
-    # Per lane-step: one W1 row of 256 adds per channel of each view cell
-    # (every value of a valid state is in range), the 256x256 product and
-    # the 8-row head.
-    policy_flop = 3 * v2 * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
-    policy_bound = bound(
-        state_bytes(hw, MAIN_B, POLICY_T) + weight_bytes, policy_flop * MAIN_B * POLICY_T, BF16_FLOP_PER_S
-    )
+    from minigrid_tpu_torch import make
+
+    main_cfg = make(ENV_ID).config  # Empty-8x8: no occlusion, no hook, no commit rows
+    v2 = main_cfg.agent_view_size ** 2
+    rollout_bound = b1_bound(main_cfg, MAIN_B, MAIN_T, dev, ctl=False, hook=False)
+    weight_bytes = policy_weight_bytes(main_cfg.agent_view_size)
+    policy_bound = b2_bound(main_cfg, MAIN_B, POLICY_T, collect=False, ctl=False)
     # The train path at its own shape: the collecting kernel adds its
     # spill's writes; the gradient kernel reads each sample's obs words,
     # action, advantage and return once, and does per sample the forward
@@ -1764,10 +2240,7 @@ def main() -> int:
     from minigrid_tpu_torch.ops import grad_kernel as gk
 
     spill_bytes = 4 * pr._spill_rows(v2) * TRAIN_B * TRAIN_T
-    collect_bound = bound(
-        state_bytes(hw, TRAIN_B, TRAIN_T) + weight_bytes + spill_bytes, policy_flop * TRAIN_B * TRAIN_T,
-        BF16_FLOP_PER_S,
-    )
+    collect_bound = b2_bound(main_cfg, TRAIN_B, TRAIN_T, collect=True, ctl=False)
     h, k_active, k_dense = pr.HIDDEN, 3 * v2, v2 * 20
     grad_flop = (k_active * h + 2 * h * h + 2 * pr.HEAD_ROWS * h) + (
         2 * pr.HEAD_ROWS * h + 2 * pr.HEAD_ROWS * h + 2 * h * h + 2 * h * h + k_active * h
@@ -1783,9 +2256,9 @@ def main() -> int:
           f"{grad_flop_dense} FLOP per sample, {grad_dense_ms:.4f} ms)", flush=True)
     probe_n = 8 * 128
     probe_bound = bound(2 * 4 * probe_n, probe_n, int_issue_rate(dev))
-    print(f"bounds [{card}]: rollout_kernel {rollout_bound} ({rollout_instr} instructions per lane-step), "
-          f"policy_kernel {policy_bound} "
-          f"({policy_flop} FLOP per lane-step), probe_kernel {probe_bound}", flush=True)
+    print(f"bounds [{card}]: rollout_kernel {rollout_bound} ({rollout_instr(main_cfg, False)} instructions per "
+          f"lane-step), policy_kernel {policy_bound} ({policy_flop(main_cfg.agent_view_size)} FLOP per lane-step), "
+          f"probe_kernel {probe_bound}", flush=True)
 
     print(json.dumps({"kernels": [
         {
@@ -1944,6 +2417,33 @@ def main() -> int:
             "bound_by": rt["collect_ctl"][3][1],
             "library_ms": None,
         },
+        {
+            "name": "policy_kernel_collect_ctl_bt64",
+            "route": "cuda",
+            "source": POLICY_SOURCE,
+            "replaces": POLICY_REPLACES,
+            "launches": dk_launches,
+            "max_abs_err": dk_err,
+            "ms": dk_ms,
+            "plain_ms": dk_plain_ms,
+            "bound_ms": dk_bound[0],
+            "bound_by": dk_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "rollout_kernel_ctl_doorkey",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES,
+            "launches": dk_rand_launches,
+            "max_abs_err": dk_rand[0],
+            "ms": dk_rand[1],
+            "plain_ms": dk_rand[2],
+            "bound_ms": dk_rand[3][0],
+            "bound_by": dk_rand[3][1],
+            "library_ms": None,
+        },
+        *hook_kernels,
         {
             "name": "mosaic_probe_kernel",
             "route": "cuda",

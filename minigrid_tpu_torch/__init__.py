@@ -4,12 +4,14 @@ The JAX package `minigrid_tpu` is the reference; this package mirrors its
 module paths so each piece has an obvious counterpart, and imports only
 `torch` and `numpy`. Ported so far, on the steady carry surface: the
 packed rollout (`ops/fused_rollout.py`), its step loop in one
-hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for the
-static-layout families Empty and DistShift and for KeyCorridor (its
-pickup-target hook in the kernel) and MultiRoom, which in regen mode run
-exact chunked regen (`ops/chunked_regen.py`) with fresh layouts from
+hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for 33 ids of
+ten families: Empty, DistShift, DoorKey, Fetch, GoToDoor, GoToObject,
+PutNear, RedBlueDoors, KeyCorridor and MultiRoom (six family hooks in the
+kernel, `ops/packed_hooks.py`). In regen mode the random-layout families
+run exact chunked regen (`ops/chunked_regen.py`) with fresh layouts from
 their packed generators, whose plan loops are kernels of their own
-(`ops/csrc/gen_kernel.cu`); for all of these families,
+(`ops/csrc/gen_kernel.cu`), or from their batched `generate`, packed;
+for all of these families,
 policy-in-the-loop evaluation (`ops/policy_rollout.py`,
 `models/policy.py`) in a second one (`ops/csrc/policy_kernel.cu`), and
 the fused train step (`parallel/train.py::build_fused_train_step`): that

@@ -15,11 +15,15 @@ WALL_CELL = (C.WALL, C.GREY, 0, 0, 0)
 
 
 def _cell(cell, grid: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(cell, dtype=torch.uint8, device=grid.device)
+    """A cell as uint8 that broadcasts against `grid`: a `(5,)` constant,
+    or a `(B, 5)` tensor of one cell per lane."""
+    cell = torch.as_tensor(cell, dtype=torch.uint8, device=grid.device)
+    return cell[:, None, None, :] if cell.ndim == 2 else cell
 
 
 def set_cell(grid: torch.Tensor, x, y, cell) -> torch.Tensor:
-    """Write one cell per lane; `x`, `y` are ints or `(B,)` tensors."""
+    """Write one cell per lane; `x`, `y` are ints or `(B,)` tensors, `cell`
+    a `(5,)` constant or a `(B, 5)` tensor."""
     b, h, w = grid.shape[:3]
     dev = grid.device
     xs = torch.as_tensor(x, device=dev).reshape(-1, 1, 1)

@@ -14,9 +14,10 @@ both output words of `threefry2x32(k0, k1, 0, c)`, and word `i` of a bits
 draw (row-major flat index) is `x0 ^ x1` of `threefry2x32(k0, k1,
 hi32(i), lo32(i))`.
 
-`bits`, `randint` and `categorical` are the draws the generators make
-(`jax.random.bits(key, (), uint32)`, `jax.random.randint(key, (), lo,
-hi)` and `jax.random.categorical(key, logits)`), vectorised over a batch
+`bits`, `randint`, `categorical` and `permutation` are the draws the
+generators make (`jax.random.bits(key, (), uint32)`,
+`jax.random.randint(key, (), lo, hi)`, `jax.random.categorical(key,
+logits)` and `jax.random.permutation(key, n)`), vectorised over a batch
 of keys.
 
 `key` makes its tensor on the card unless the caller names a device, as
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -190,3 +192,29 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
         score = torch.where(torch.isfinite(logits[start : start + rows]), m * n + (n - 1 - idx), -1)
         out[start : start + rows] = score.argmax(dim=1)
     return out
+
+
+def sort_key_val(sort_keys: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """`lax.sort_key_val(sort_keys, values)[1]` along the last dimension:
+    `values` reordered by ascending `sort_keys` (int64 uint32 values), ties
+    kept in their order (a stable sort, as XLA's)."""
+    order = torch.sort(sort_keys, dim=-1, stable=True).indices
+    return torch.gather(values, -1, order)
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)` per key of a `(B, 2)` key tensor:
+    `(B, n)` int64.
+
+    jax 0.9's `_shuffle`: `ceil(3·ln n / ln(2^32 - 1))` rounds (one for
+    any n a generator uses), each `key, sub = split(key)`, then 32-bit
+    `bits(sub, (n,))` as sort keys of a stable sort of the values."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    x = idx.expand(keys.shape[0], n)
+    for _ in range(rounds):
+        pair = split(keys, 2)
+        keys, sub = pair[:, 0], pair[:, 1]
+        x0, x1 = threefry2x32(sub[:, 0:1], sub[:, 1:2], 0, idx)  # bits(sub, (n,)): counters (0, i)
+        x = sort_key_val(x0 ^ x1, x)
+    return x

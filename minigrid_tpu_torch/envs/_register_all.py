@@ -1,14 +1,21 @@
 """Registrations of the ported env ids, in the JAX package's order
-(`minigrid_tpu/envs/_register_all.py`): the static-layout families Empty
-and DistShift, MultiRoom and KeyCorridor."""
+(`minigrid_tpu/envs/_register_all.py`): Empty (fixed and random start),
+DistShift, DoorKey, Fetch, GoToDoor, GoToObject, PutNear, RedBlueDoors,
+MultiRoom and KeyCorridor, each with the JAX package's configuration."""
 
 from __future__ import annotations
 
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.envs import distshift as _distshift
+from minigrid_tpu_torch.envs import doorkey as _doorkey
 from minigrid_tpu_torch.envs import empty as _empty
+from minigrid_tpu_torch.envs import fetch as _fetch
+from minigrid_tpu_torch.envs import gotodoor as _gotodoor
+from minigrid_tpu_torch.envs import gotoobject as _gotoobject
 from minigrid_tpu_torch.envs import keycorridor as _keycorridor
 from minigrid_tpu_torch.envs import multiroom as _multiroom
+from minigrid_tpu_torch.envs import putnear as _putnear
+from minigrid_tpu_torch.envs import redbluedoors as _rbd
 from minigrid_tpu_torch.envs.registry import register
 
 for _size in (5, 6, 8, 16):
@@ -22,6 +29,20 @@ for _size in (5, 6, 8, 16):
             see_through_walls=True,
             agent_start_pos=(1, 1),
             agent_start_dir=0,
+        ),
+        _empty.generate,
+    )
+
+for _size in (5, 6):
+    register(
+        f"MiniGrid-Empty-Random-{_size}x{_size}-v0",
+        EnvConfig(
+            family="empty",
+            width=_size,
+            height=_size,
+            max_steps=4 * _size * _size,
+            see_through_walls=True,
+            agent_start_pos=None,
         ),
         _empty.generate,
     )
@@ -40,6 +61,61 @@ for _v, _row in ((1, 2), (2, 5)):
             strip2_row=_row,
         ),
         _distshift.generate,
+    )
+
+for _size in (5, 6, 8, 16):
+    register(
+        f"MiniGrid-DoorKey-{_size}x{_size}-v0",
+        EnvConfig(family="doorkey", width=_size, height=_size, max_steps=10 * _size * _size),
+        _doorkey.generate,
+    )
+
+for _size, _n in ((5, 2), (6, 2), (8, 3)):
+    register(
+        f"MiniGrid-Fetch-{_size}x{_size}-N{_n}-v0",
+        EnvConfig(
+            family="fetch", width=_size, height=_size, max_steps=5 * _size * _size, see_through_walls=True, num_objs=_n
+        ),
+        _fetch.generate,
+        _fetch.TRANSITION,
+    )
+
+for _size in (5, 6, 8):
+    register(
+        f"MiniGrid-GoToDoor-{_size}x{_size}-v0",
+        EnvConfig(family="gotodoor", width=_size, height=_size, max_steps=4 * _size * _size, see_through_walls=True),
+        _gotodoor.generate,
+        _gotodoor.TRANSITION,
+    )
+
+for _size, _n in ((6, 2), (8, 2)):
+    register(
+        f"MiniGrid-GoToObject-{_size}x{_size}-N{_n}-v0",
+        EnvConfig(
+            family="gotoobject", width=_size, height=_size, max_steps=5 * _size * _size, see_through_walls=True,
+            num_objs=_n,
+        ),
+        _gotoobject.generate,
+        _gotoobject.TRANSITION,
+    )
+
+for _size, _n in ((6, 2), (8, 3)):
+    register(
+        f"MiniGrid-PutNear-{_size}x{_size}-N{_n}-v0",
+        EnvConfig(
+            family="putnear", width=_size, height=_size, max_steps=5 * _size, see_through_walls=True, num_objs=_n
+        ),
+        _putnear.generate,
+        _putnear.TRANSITION,
+    )
+
+# A 2·size × size area.
+for _size in (6, 8):
+    register(
+        f"MiniGrid-RedBlueDoors-{_size}x{_size}-v0",
+        EnvConfig(family="redbluedoors", width=2 * _size, height=_size, max_steps=20 * _size * _size),
+        _rbd.generate,
+        _rbd.TRANSITION,
     )
 
 # A 25x25 grid; max_steps = 20 * max_num_rooms.

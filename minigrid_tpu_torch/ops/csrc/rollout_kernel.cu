@@ -2,9 +2,10 @@
 // probe kernel at the end of the file.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/fused_rollout.py::_rollout_kernel
-// (the base step, the pickup-target hook and the chunked-regen control
-// rows; the other family hooks and the matmul row reader are still to
-// port). It runs T environment steps per lane in one launch and computes
+// (the base step, six of the nine family post-hooks and the chunked-regen
+// control rows; the Unlock, Memory and DynamicObstacles hooks, the
+// DynamicObstacles pre-hook, the action remaps and the matmul row reader
+// are still to port). It runs T environment steps per lane in one launch and computes
 // what that kernel computes: the 7-action transition, the family hook, the
 // forward-cell write-back, the re-centring on a forward move, template
 // auto-reset, the V*V egocentric view read with out-of-bounds wall fill and
@@ -76,7 +77,7 @@ __global__ void rollout_kernel(const Params p) {
   int32_t* g = smem + tid;  // this lane's grid: row r at g[r * bt]
 
   Lane s;
-  load_lane(g, bt, p.words_in, p.regs_in, B, lane, sh.hw, s);
+  load_lane<kHook>(g, bt, p.words_in, p.regs_in, B, lane, sh.hw, s);
   Ctl ctl{};
   if (kCtl) {
     ctl.consumed = p.ctl_in[lane];
@@ -121,7 +122,7 @@ __global__ void rollout_kernel(const Params p) {
 }
 
 template <int kHook, bool kCtl>
-int launch(const Params& p, int lane_block, size_t smem, cudaStream_t stream) {
+int launch_one(const Params& p, int lane_block, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(rollout_kernel<kHook, kCtl>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -129,6 +130,12 @@ int launch(const Params& p, int lane_block, size_t smem, cudaStream_t stream) {
   const int blocks = (p.B + lane_block - 1) / lane_block;
   rollout_kernel<kHook, kCtl><<<blocks, lane_block, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kHook>
+int launch(const Params& p, bool ctl, int lane_block, size_t smem, cudaStream_t stream) {
+  return ctl ? launch_one<kHook, true>(p, lane_block, smem, stream)
+             : launch_one<kHook, false>(p, lane_block, smem, stream);
 }
 
 // The launch check (replaces the TPU capability probe
@@ -152,10 +159,10 @@ int mg_probe_launch(const void* in, void* out, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the rollout on `stream` with family hook `hook` (kHookNone or
-// kHookPickupTarget); a non-null `ctl_in` runs the chunked-regen commit
-// protocol and writes `ctl_out`. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for an unknown hook).
+// Launch the rollout on `stream` with family hook `hook` (an id of
+// step_device.cuh, kHookNone to kHookRedBlueDoors); a non-null `ctl_in`
+// runs the chunked-regen commit protocol and writes `ctl_out`. Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for an unknown hook).
 int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
                       const void* tmpl_regs, const void* actions, const void* tables,
                       const void* ctl_in, void* words_out, void* regs_out, void* rsum_out,
@@ -188,15 +195,16 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
                       sizeof(int32_t);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ctl = ctl_in != nullptr;
-  if (hook == kHookNone) {
-    return ctl ? launch<kHookNone, true>(p, lane_block, smem, st)
-               : launch<kHookNone, false>(p, lane_block, smem, st);
+  switch (hook) {
+    case kHookNone: return launch<kHookNone>(p, ctl, lane_block, smem, st);
+    case kHookPickupTarget: return launch<kHookPickupTarget>(p, ctl, lane_block, smem, st);
+    case kHookFetch: return launch<kHookFetch>(p, ctl, lane_block, smem, st);
+    case kHookGoToDoor: return launch<kHookGoToDoor>(p, ctl, lane_block, smem, st);
+    case kHookGoToObject: return launch<kHookGoToObject>(p, ctl, lane_block, smem, st);
+    case kHookPutNear: return launch<kHookPutNear>(p, ctl, lane_block, smem, st);
+    case kHookRedBlueDoors: return launch<kHookRedBlueDoors>(p, ctl, lane_block, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (hook == kHookPickupTarget) {
-    return ctl ? launch<kHookPickupTarget, true>(p, lane_block, smem, st)
-               : launch<kHookPickupTarget, false>(p, lane_block, smem, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* mg_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -2,8 +2,9 @@
 // and policy_kernel.cu): the 7-action transition, the forward-cell
 // write-back, the re-centring on a forward move, template auto-reset, and
 // the V*V egocentric view read with out-of-bounds wall fill, the
-// carried-object overlay and the occlusion flood, with the family hooks
-// and the chunked-regen commit rows the rollout kernel takes. The JAX
+// carried-object overlay and the occlusion flood, with the family
+// post-hooks (six of the JAX package's nine) and the chunked-regen commit
+// rows. The JAX
 // package's counterparts are `_step_core` and `_obs_core` in
 // minigrid_tpu/ops/fused_rollout.py.
 //
@@ -47,12 +48,14 @@ struct StepShape {
   int width, height, hw, view, max_steps, see_through_walls;
 };
 
-// A lane's scalar registers, its grid's row offset, and the two aux rows
-// the hooks read (those of the current episode).
+// A lane's scalar registers, its grid's row offset, and the aux rows the
+// hooks read (those of the current episode): aux0 and aux1 always, aux2 and
+// aux3 only under the hooks that read them (kReadsAux23), so that the
+// other instantiations keep their register count.
 struct Lane {
   int x, y, d, ct, cc, cct, ccc, sc;
   int shift;  // logical row s is physical row (s + shift) % hw
-  int aux0, aux1;
+  int aux0, aux1, aux2, aux3;
 };
 
 __device__ __forceinline__ int wrap_row(int p, int hw) { return p >= hw ? p - hw : p; }
@@ -66,8 +69,23 @@ __device__ __forceinline__ bool transparent(int w) {
   return !(t == kWall || (t == kDoor && s != kStateOpen));
 }
 
+// Family hooks after the base transition (ops/packed_hooks.py; the JAX
+// package's ops/packed_hooks.py). The id is a template parameter of the
+// kernels, so the base step compiles without any hook code.
+constexpr int kHookNone = 0;
+constexpr int kHookPickupTarget = 1;  // _hook_pickup_target
+constexpr int kHookFetch = 2;         // _hook_fetch
+constexpr int kHookGoToDoor = 3;      // _hook_gotodoor
+constexpr int kHookGoToObject = 4;    // _hook_gotoobject
+constexpr int kHookPutNear = 5;       // _hook_putnear
+constexpr int kHookRedBlueDoors = 6;  // _hook_redbluedoors
+
+template <int kHook>
+constexpr bool kReadsAux23 = kHook == kHookPutNear || kHook == kHookRedBlueDoors;
+
 // Load lane `lane`'s grid column (g) and scalars from the (HW, B) words and
 // (num_regs, B) registers.
+template <int kHook>
 __device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* words,
                                           const int32_t* regs, size_t B, int lane, int hw,
                                           Lane& s) {
@@ -83,13 +101,37 @@ __device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* wor
   s.shift = 0;
   s.aux0 = regs[kNumScalars * B + lane];
   s.aux1 = regs[(kNumScalars + 1) * B + lane];
+  if constexpr (kReadsAux23<kHook>) {
+    s.aux2 = regs[(kNumScalars + 2) * B + lane];
+    s.aux3 = regs[(kNumScalars + 3) * B + lane];
+  }
 }
 
-// Family hooks after the base transition (ops/packed_hooks.py; the JAX
-// package's ops/packed_hooks.py). The id is a template parameter of the
-// kernels, so the base step compiles without any hook code.
-constexpr int kHookNone = 0;
-constexpr int kHookPickupTarget = 1;  // _hook_pickup_target
+// int32 arithmetic that wraps as the reference's does (aux rows may hold
+// any value): a - b, and |a| (the most negative value stays itself).
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int wabs(int a) {
+  return a < 0 ? static_cast<int>(0u - static_cast<uint32_t>(a)) : a;
+}
+
+// The physical row of the absolute cell (ax, ay): logical row
+// ((ay * W + ax) - base) mod HW (a floor modulo of the wrapped int32, as
+// the reference's `_read_abs`), base the agent's pre-step cell, then the
+// lane's row offset.
+__device__ __forceinline__ int abs_row(const Lane& s, const StepShape& sh, int ax, int ay) {
+  const int flat = wsub(static_cast<int>(static_cast<uint32_t>(ay) * static_cast<uint32_t>(sh.width) +
+                                         static_cast<uint32_t>(ax)),
+                        s.y * sh.width + s.x);
+  int m = flat % sh.hw;
+  if (m < 0) m += sh.hw;
+  return wrap_row(m + s.shift, sh.hw);
+}
+
+__device__ __forceinline__ bool door_open(int w) {
+  return (w & 15) == kDoor && ((w >> 8) & 15) == kStateOpen;
+}
 
 // A lane's exact-chunked-regen commit rows (ops/chunked_regen.py,
 // invariants I2-I3): this launch's template used, steps committed toward
@@ -167,12 +209,60 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
   const int cct1 = do_pickup ? fct : (do_drop ? 0 : s.cct);
   const int ccc1 = do_pickup ? fcc : (do_drop ? 0 : s.ccc);
 
-  if (kHook == kHookPickupTarget) {
+  if constexpr (kHook == kHookPickupTarget) {
     // A pickup that leaves the agent carrying the aux target succeeds.
     if (a == 3 && ct1 == s.aux0 && cc1 == s.aux1) {
       r = success;
       terminated = true;
     }
+  }
+  if constexpr (kHook == kHookFetch) {
+    // Any pickup ends the episode, rewarded iff it is the aux target.
+    if (ct1 > 0) {
+      r = ct1 == s.aux0 && cc1 == s.aux1 ? success : 0.0f;
+      terminated = true;
+    }
+  }
+  if constexpr (kHook == kHookGoToDoor || kHook == kHookGoToObject) {
+    // `done` near the target (aux0, aux1) at the post-step position
+    // rewards; `done` and `toggle` end the episode. GoToDoor's near is
+    // cross-adjacent, GoToObject's within one cell.
+    const int dx = wabs(wsub(moves ? s.x + dirx : s.x, s.aux0));
+    const int dy = wabs(wsub(moves ? s.y + diry : s.y, s.aux1));
+    const bool near = kHook == kHookGoToDoor ? (dx == 0 && dy == 1) || (dy == 0 && dx == 1)
+                                             : dx <= 1 && dy <= 1;
+    if (a == 6 && near) r = success;
+    terminated = terminated || a == 6 || a == 5;
+  }
+  if constexpr (kHook == kHookPutNear) {
+    // A pickup action while holding anything but the aux object (aux0,
+    // aux1) ends the episode; so does a drop after carrying, rewarded iff
+    // it landed in the pre-step forward cell within one cell of the
+    // target (aux2, aux3).
+    const bool wrong = ct1 > 0 && (ct1 != s.aux0 || cc1 != s.aux1);
+    const bool dropped = s.ct > 0 && a == 4;
+    const bool near = wabs(wsub(s.x + dirx, s.aux2)) <= 1 && wabs(wsub(s.y + diry, s.aux3)) <= 1;
+    if (dropped && ct1 == 0 && near) r = success;
+    terminated = terminated || (a == 3 && wrong) || dropped;
+  }
+  if constexpr (kHook == kHookRedBlueDoors) {
+    // The red door (aux0, aux1) and the blue door (aux2, aux3) before and
+    // after this step's forward-cell write, which has not happened yet:
+    // after it a cell reads the new forward word if it is the forward
+    // cell, else its stored word.
+    const int red_row = abs_row(s, sh, s.aux0, s.aux1);
+    const int blue_row = abs_row(s, sh, s.aux2, s.aux3);
+    const int red_w = g[red_row * bt];
+    const int blue_w = g[blue_row * bt];
+    const bool red_before = door_open(red_w);
+    const bool blue_before = door_open(blue_w);
+    const bool red_after = door_open(red_row == fp ? static_cast<int>(new_fwd) : red_w);
+    const bool blue_after = door_open(blue_row == fp ? static_cast<int>(new_fwd) : blue_w);
+    const bool win = blue_after && red_before;
+    const bool fail = (blue_after && !red_before) || (!blue_after && red_after && blue_before);
+    if (win) r = success;
+    if (fail) r = 0.0f;
+    terminated = terminated || win || fail;
   }
   const bool d = terminated || sc1 >= sh.max_steps;
   if (kCtl) {
@@ -199,6 +289,10 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     s.sc = 0;
     s.aux0 = tmpl_regs[kNumScalars * B + lane];  // the new episode's aux rows
     s.aux1 = tmpl_regs[(kNumScalars + 1) * B + lane];
+    if constexpr (kReadsAux23<kHook>) {
+      s.aux2 = tmpl_regs[(kNumScalars + 2) * B + lane];
+      s.aux3 = tmpl_regs[(kNumScalars + 3) * B + lane];
+    }
   } else {
     s.x = moves ? s.x + dirx : s.x;
     s.y = moves ? s.y + diry : s.y;

@@ -16,17 +16,19 @@ int32 register file. Two backends run the same step semantics:
     role `build_packed_xla_rollout` plays in the JAX package.
 
 Semantics are the JAX package's `_step_core`/`_obs_core`: the 7-action
-base transition, the family's post-hook (`ops/packed_hooks.py`; the
-pickup-target hook so far), forward-cell write-back, the re-centring roll
+base transition, the family's post-hook (`ops/packed_hooks.py`; six of
+the JAX package's nine), forward-cell write-back, the re-centring roll
 on a forward move, template auto-reset, the V² egocentric view with
 out-of-bounds wall fill and the carried-object overlay, the occlusion
 flood, and the per-step obs checksum. Modes: "cached" (every reset
 replays the lane's pinned layout) and "regen". In regen mode the
 static-layout families (Empty, DistShift) keep the template as the fresh
 layout and only advance each lane's rng reset chain after the call
-(`_replay_rng_chain`); a random-layout family with a packed generator
-(KeyCorridor, MultiRoom) runs exact chunked regen (`ops/chunked_regen.py`), whose
-commit rows `step_core` and the kernel take as `chunk_ctl`.
+(`_replay_rng_chain`); a random-layout family runs exact chunked regen
+(`ops/chunked_regen.py`), whose commit rows `step_core` and the kernel
+take as `chunk_ctl`, with fresh templates from the family's packed
+generator (KeyCorridor, MultiRoom) or its batched `generate`, packed
+(`packed_gen.packed_generator`).
 
 Integer results are byte-exact against the JAX package. `total_reward`
 is a batch sum of per-lane sums, taken in another order than the JAX
@@ -38,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,7 +50,7 @@ from minigrid_tpu_torch.core.rollout import RolloutMetrics, random_policy
 from minigrid_tpu_torch.core.state import AUX_LEN, EnvConfig, EnvState
 from minigrid_tpu_torch.envs.base import BASE_STEP, Env
 from minigrid_tpu_torch.ops.chunked_regen import build_chunked_regen
-from minigrid_tpu_torch.ops.packed_gen import get_packed_generator
+from minigrid_tpu_torch.ops.packed_gen import get_packed_generator, packed_generator  # noqa: F401  (re-exported)
 from minigrid_tpu_torch.ops.packed_hooks import KERNEL_HOOK_IDS, HookVals, packed_hook
 from minigrid_tpu_torch.ops.packing import (
     EMPTY_WORD,
@@ -201,9 +203,17 @@ def step_core(
     words1 = torch.where(iota_hw == off_f, new_fwd, words)
 
     if hook is not None:
+        # Absolute cells resolve in the pre-step agent frame, which both
+        # `words` and `words1` are rolled to.
+        base = y * width + x
+
+        def read_abs(grid, ax, ay):
+            return torch.gather(grid, 0, (((ay * width + ax) - base) % hw).long())
+
         reward, terminated = hook(
-            HookVals(a=a, ct1=ct1, cc1=cc1, reward=reward, terminated=terminated, success=success,
-                     aux=regs[R_AUX : R_AUX + AUX_LEN])
+            HookVals(a=a, x=x, y=y, ct=ct, cc=cc, x1=x1, y1=y1, ct1=ct1, cc1=cc1, fwd_x=x + dirx, fwd_y=y + diry,
+                     reward=reward, terminated=terminated, success=success, aux=regs[R_AUX : R_AUX + AUX_LEN],
+                     read_pre=functools.partial(read_abs, words), read_post=functools.partial(read_abs, words1))
         )
 
     # Re-centre the grid on the agent after a forward move.
@@ -486,22 +496,48 @@ def _regen_is_static(env: Env) -> bool:
     )
 
 
-def _check_supported(env: Env, mode: str) -> None:
-    """Raise unless the packed rollout runs `env` under `mode`: the base
-    step or a ported hook; cached mode, or regen on a static layout or on a
-    family whose packed generator is ported (chunked regen)."""
+def _unsupported(env: Env, mode: str) -> Optional[Exception]:
+    """Why the packed step does not run `env` under `mode`, or None when it
+    does: the base step or a ported hook; cached mode, or regen (the static
+    template, or chunked regen on the family's generator)."""
     try:
         packed_hook(env.transition)
     except NotImplementedError as e:
-        raise NotImplementedError(f"{env.env_id}: {e}") from None
+        return NotImplementedError(f"{env.env_id}: {e}")
     if mode not in ("regen", "cached"):
-        raise ValueError(f"unknown auto-reset mode {mode!r}")
-    if mode == "regen" and not _regen_is_static(env) and get_packed_generator(env) is None:
-        raise NotImplementedError(
-            f"{env.env_id}: regen mode on a random-layout family runs chunked regen, which needs "
-            f"the family's packed generator; {env.config.family!r} has none in the port yet "
-            "(see ROADMAP.md); use mode='cached'"
+        return ValueError(f"unknown auto-reset mode {mode!r}")
+    if mode == "regen" and not _regen_is_static(env) and packed_generator(env) is None:
+        return NotImplementedError(
+            f"{env.env_id}: regen mode generates a fresh layout at every reset, and this env "
+            "has no generator (see ROADMAP.md); use mode='cached'"
         )
+    return None
+
+
+def _check_supported(env: Env, mode: str) -> None:
+    """Raise unless the packed step runs `env` under `mode`."""
+    error = _unsupported(env, mode)
+    if error is not None:
+        raise error
+
+
+def packed_step_supported(env: Env, mode: str) -> bool:
+    """True iff the packed step runs `env` under `mode`."""
+    return _unsupported(env, mode) is None
+
+
+def fused_rollout_supported(env: Env, mode: str = "regen") -> bool:
+    """True iff the packed rollouts (`build_fused_rollout`,
+    `build_packed_plain_rollout`) run `env` under `mode`: the JAX package's
+    `fused_rollout_supported` without its batch size, since the kernel
+    takes any batch width."""
+    if not packed_step_supported(env, mode):
+        return False
+    try:
+        kernel_lane_block(env.config)
+    except ValueError:
+        return False
+    return True
 
 
 def _agent_base(regs: torch.Tensor, width: int) -> torch.Tensor:
@@ -523,21 +559,18 @@ def _unpack_rolled(cfg: EnvConfig, words_f: torch.Tensor, regs_f: torch.Tensor) 
 
 def _prepare_packed(env: Env, states: EnvState, mode: str = "regen"):
     """Packed, agent-centred live state and reset template. The template
-    is each lane's layout regenerated from its rng leaf (by the family's
-    packed generator where it has one); in cached mode its rng rows are
-    pinned back to the live key."""
+    is each lane's layout regenerated from its rng leaf (`packed_generator`:
+    the family's packed generator, else its batched `generate`, packed); in
+    cached mode its rng rows are pinned back to the live key."""
     cfg = env.config
     words0, regs0 = _pack_rolled(cfg, states)
-    gp = get_packed_generator(env)
-    if gp is not None:
-        tmpl_words, tmpl_regs = gp(states.rng, cfg)
-    elif env.generate is None:
+    gp = packed_generator(env)
+    if gp is None:
         raise NotImplementedError(
             f"{env.env_id}: the port cannot generate this family yet; build the "
             "carry from the JAX package's (utils/convert.py)"
         )
-    else:
-        tmpl_words, tmpl_regs = _pack_rolled(cfg, env.generate(states.rng, cfg))
+    tmpl_words, tmpl_regs = gp(states.rng, cfg)
     if mode == "cached":
         tmpl_regs[R_RNG : R_RNG + 2] = key_rows(states.rng)
     return words0, regs0, tmpl_words, tmpl_regs
@@ -670,7 +703,7 @@ def _build_rollout(env, num_steps, mode, as_carry, actions_override, regen_chunk
         def chunk_fn(words, regs, tmpl_words, tmpl_regs, actions, ctl):
             return run_core(words, regs, tmpl_words, tmpl_regs, actions, env.config, ctl=ctl)
 
-        generate = functools.partial(get_packed_generator(env), plain=run is plain_rollout)
+        generate = functools.partial(packed_generator(env), plain=run is plain_rollout)
         step_carry = build_chunked_regen(env, num_steps, tc, chunk_fn, stream_fn, generate, refresh_block)
     else:
         step_carry = _make_plain_carry_step(env, num_steps, mode, run_core, stream_fn)

@@ -4,9 +4,11 @@ int32 word layout (counterpart of `minigrid_tpu/ops/packed_gen.py`).
 A family's `generate_packed(keys (B, 2), cfg) -> (rolled words, regs)`
 draws its plan with the JAX package's exact `jax.random` call tree
 (`core/prng.py`) and paints with the masked selects below, each one
-elementwise op over `(HW, B)` words. `get_packed_generator` finds it;
+elementwise op over `(HW, B)` words. `get_packed_generator` finds it. A
+family without one takes the JAX package's own route, its batched
+`generate` then packed and agent-centred (`packed_generator`).
 `packed_init`'s template build and the chunked-regen template refresh
-(`ops/chunked_regen.py`) then use it.
+(`ops/chunked_regen.py`) use whichever `packed_generator` returns.
 
 Cell words follow `ops/packing.py::pack_states`:
 `type | color<<4 | state<<8 | extra0<<12 | extra1<<16`.
@@ -14,6 +16,7 @@ Cell words follow `ops/packing.py::pack_states`:
 
 from __future__ import annotations
 
+import functools
 import importlib
 from typing import Optional, Tuple
 
@@ -22,7 +25,7 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import sampling
 from minigrid_tpu_torch.core.state import AUX_LEN, MISSION_LEN
-from minigrid_tpu_torch.ops.packing import EMPTY_WORD, R_X, R_Y, _roll_to_base, key_rows
+from minigrid_tpu_torch.ops.packing import EMPTY_WORD, R_X, R_Y, _roll_to_base, key_rows, pack_states
 
 
 def cell_word(typ: int, color=0, state: int = 0):
@@ -171,3 +174,22 @@ def get_packed_generator(env) -> Optional[object]:
     except ImportError:
         return None
     return getattr(mod, "generate_packed", None)
+
+
+def _pack_generated(generate, keys: torch.Tensor, cfg, plain: bool = False):
+    """`_pack_rolled(cfg, generate(keys, cfg))`: the JAX package's route
+    for a family without a packed generator
+    (`minigrid_tpu/ops/chunked_regen.py:105-111`). It runs on the keys'
+    device; `plain` is accepted and ignored, since no kernel runs inside."""
+    words, regs = pack_states(generate(keys, cfg))
+    return finish_packed(words, regs, cfg.width)
+
+
+def packed_generator(env) -> Optional[object]:
+    """`generate_packed(keys, cfg, plain=False) -> (rolled words, regs)`
+    for `env`: the family's packed generator, else its batched `generate`
+    packed (`_pack_generated`); None for an env without a generator."""
+    gp = get_packed_generator(env)
+    if gp is not None or env.generate is None:
+        return gp
+    return functools.partial(_pack_generated, env.generate)

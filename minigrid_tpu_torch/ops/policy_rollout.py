@@ -26,12 +26,13 @@ package agree byte for byte; under other weights the summation order can
 flip a bf16 rounding, and with it, rarely, a sampled action.
 
 Scope: the base transition and the ported family hooks
-(`ops/packed_hooks.py`: the pickup-target hook), in cached mode and in
-regen mode. Regen on a static-layout family (Empty, DistShift) keeps the
-template; on a random-layout family (KeyCorridor, MultiRoom) both
-evaluation and the collecting rollout run exact chunked regen
-(`ops/chunked_regen.py`), the kernel and its twin under the commit rows
-`ctl`, the collected trajectory placed by the spill merge (I6 there).
+(`ops/packed_hooks.py`: pickup-target, Fetch, GoToDoor, GoToObject,
+PutNear, RedBlueDoors), in cached mode and in regen mode. Regen on a
+static-layout family (fixed-start Empty, DistShift) keeps the template;
+on a random-layout family both evaluation and the collecting rollout run
+exact chunked regen (`ops/chunked_regen.py`), the kernel and its twin
+under the commit rows `ctl`, the collected trajectory placed by the spill
+merge (I6 there).
 """
 
 from __future__ import annotations
@@ -61,10 +62,11 @@ from minigrid_tpu_torch.ops.fused_rollout import (
     _surface,
     build_carry_surface,
     obs_core,
+    packed_step_supported,
     rollout_metrics,
     step_core,
 )
-from minigrid_tpu_torch.ops.packed_gen import get_packed_generator
+from minigrid_tpu_torch.ops.packed_gen import packed_generator
 from minigrid_tpu_torch.ops.packed_hooks import KERNEL_HOOK_IDS, packed_hook
 from minigrid_tpu_torch.ops.packing import NUM_REGS
 
@@ -400,9 +402,7 @@ def policy_rollout_supported(env: Env, mode: str = "cached", collect: bool = Fal
     chunked regen on a family with a packed generator; and a grid and view
     the kernel's shared-memory budget takes. The collecting rollout
     (`collect=True`) also needs head row 7 free for the critic."""
-    if env.transition not in KERNEL_HOOK_IDS or mode not in ("cached", "regen"):
-        return False
-    if mode == "regen" and not _regen_is_static(env) and get_packed_generator(env) is None:
+    if not packed_step_supported(env, mode):
         return False
     if collect and env.config.num_actions >= HEAD_ROWS:
         return False
@@ -578,7 +578,7 @@ def _chunked(env: Env, num_steps: int, regen_chunk: int, run, chunk_fn, seeds_fo
     """Chunked regen over `chunk_fn` for a random-layout family; the
     template refresh generates with the plain versions of the generation
     kernels when `run` is the plain twin."""
-    generate = functools.partial(get_packed_generator(env), plain=run is plain_policy_rollout)
+    generate = functools.partial(packed_generator(env), plain=run is plain_policy_rollout)
     tc = _fit_chunk(num_steps, regen_chunk)
     return build_chunked_regen(env, num_steps, tc, chunk_fn, seeds_for, generate, collect=collect)
 

@@ -16,6 +16,12 @@ kernel, its twin and the JAX package then agree bit for bit.
 
 `plant_pickup_target` doctors states of a pickup-target family (as the
 JAX package's tests do) so that the hook's success fires.
+
+`hooked_packed_case` is `random_packed_case` with aux rows that a family
+hook reads as its family lays them out, and the events that make the hook
+fire planted near each agent: the target object or door in its forward
+cell, the object it must drop in its hands, the target cell within a step
+or two.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Dict
 import numpy as np
 
 from minigrid_tpu_torch.core import constants as C
-from minigrid_tpu_torch.ops.packing import NUM_REGS, R_AUX, R_SC
+from minigrid_tpu_torch.ops.packing import NUM_REGS, R_AUX, R_CC, R_CT, R_DIR, R_SC, R_X, R_Y
 
 _TYPES = np.array([C.EMPTY, C.WALL, C.FLOOR, C.DOOR, C.KEY, C.BALL, C.BOX, C.GOAL, C.LAVA])
 _TYPE_P = np.array([0.40, 0.10, 0.05, 0.15, 0.07, 0.07, 0.07, 0.04, 0.05])
@@ -124,3 +130,70 @@ def dyadic_flax_params(seed: int, view: int = 7, num_actions: int = 7, hidden: i
         "actor": {"kernel": _sparse_dyadic(rng, hidden, num_actions, 8, [1, 2], 1 / 16), "bias": bias(num_actions, 1 / 16)},
         "critic": {"kernel": _sparse_dyadic(rng, hidden, 1, 8, [1, 2], 1 / 16), "bias": bias(1, 1 / 16)},
     }}
+
+
+def _plant(words: np.ndarray, regs: np.ndarray, width: int, x, y, word, lanes) -> None:
+    """Write `word` at the absolute cell `(x, y)` of the agent-centred
+    `words` of `lanes` (a bool mask), in place."""
+    hw = words.shape[0]
+    base = regs[R_Y] * width + regs[R_X]
+    rows = (np.asarray(y) * width + np.asarray(x) - base) % hw
+    idx = np.nonzero(lanes)[0]
+    words[rows[idx], idx] = np.broadcast_to(word, lanes.shape)[idx]
+
+
+def _hook_events(rng: np.random.Generator, transition: str, words, regs, width: int, height: int) -> None:
+    """Set the aux rows `transition`'s hook reads and plant its events, in
+    place, for one packed state batch."""
+    b = words.shape[1]
+    x, y, d = regs[R_X], regs[R_Y], regs[R_DIR]
+    dx = np.array([1, 0, -1, 0])[d]
+    dy = np.array([0, 1, 0, -1])[d]
+    fx, fy = x + dx, y + dy
+    half = rng.random(b) < 0.5
+    aux = regs[R_AUX:]
+    if transition in ("pickup_target", "fetch"):
+        aux[0] = rng.choice([C.KEY, C.BALL, C.BOX], size=b)
+        aux[1] = rng.integers(0, 6, size=b)
+        # Half the lanes face their target with free hands.
+        _plant(words, regs, width, fx, fy, aux[0] | (aux[1] << 4), half)
+        regs[R_CT][half] = regs[R_CC][half] = 0
+    elif transition in ("gotodoor", "gotoobject"):
+        aux[0] = x + rng.integers(-2, 3, size=b)
+        aux[1] = y + rng.integers(-2, 3, size=b)
+    elif transition == "putnear":
+        # Half the lanes carry the object to move; the target lies within
+        # two cells of the forward cell.
+        aux[0] = np.where(half, regs[R_CT], rng.choice([C.KEY, C.BALL, C.BOX], size=b))
+        aux[1] = np.where(half, regs[R_CC], rng.integers(0, 6, size=b))
+        aux[2] = fx + rng.integers(-2, 3, size=b)
+        aux[3] = fy + rng.integers(-2, 3, size=b)
+        _plant(words, regs, width, fx, fy, np.full(b, C.EMPTY), half)
+    elif transition == "redbluedoors":
+        # One door in the forward cell, the other on a random cell off the
+        # agent's, each open, closed or locked.
+        ox = rng.integers(0, width, size=b)
+        oy = rng.integers(0, height, size=b)
+        clash = ((ox == x) & (oy == y)) | ((ox == fx) & (oy == fy))
+        ox = np.where(clash, np.where(x > 1, 0, width - 1), ox)
+        red_front = half
+        aux[0], aux[1] = np.where(red_front, fx, ox), np.where(red_front, fy, oy)
+        aux[2], aux[3] = np.where(red_front, ox, fx), np.where(red_front, oy, fy)
+        for (ax, ay), color in (((aux[0], aux[1]), C.RED), ((aux[2], aux[3]), C.BLUE)):
+            state = rng.integers(0, 3, size=b)
+            _plant(words, regs, width, ax, ay, C.DOOR | (color << 4) | (state << 8), np.ones(b, bool))
+    else:
+        raise ValueError(f"no planted events for transition {transition!r}")
+
+
+def hooked_packed_case(
+    seed: int, transition: str, width: int, height: int, batch: int, max_steps: int
+) -> Dict[str, np.ndarray]:
+    """`random_packed_case` whose live states and templates carry the aux
+    rows `transition`'s hook reads, with its events planted (see the
+    module docstring)."""
+    case = random_packed_case(seed, width, height, batch, max_steps)
+    rng = np.random.default_rng(seed + 1)
+    for w, r in (("words", "regs"), ("tmpl_words", "tmpl_regs")):
+        _hook_events(rng, transition, case[w], case[r], width, height)
+    return case

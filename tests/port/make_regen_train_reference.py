@@ -26,7 +26,10 @@ successes fire) or at MultiRoom-N2-S4:
     step runs; the XLA pass accumulates the torso's cotangents in bf16
     across time chunks, and Adam's torso moments then differ by up to 17 %
     of a leaf's largest entry): the carry, the metrics, the flat params
-    and Adam's state after each.
+    and Adam's state after each;
+  * `dk_train_regen`: the same two train steps at DoorKey-5x5 (no packed
+    generator: chunked regen refreshes with the batched `generate`), B =
+    128, chunk 8, `max_steps` cut to 5.
 
     JAX_PLATFORMS=cpu python tests/port/make_regen_train_reference.py
 """
@@ -44,6 +47,7 @@ if __name__ == "__main__":
 import make_multiroom_reference as mref  # noqa: E402
 
 KC = "MiniGrid-KeyCorridorS3R1-v0"
+DK = "MiniGrid-DoorKey-5x5-v0"
 N2 = mref.N2
 PATH = mref.DATA / "regen_train_reference.npz"
 PARAMS_SEED = 3
@@ -58,6 +62,7 @@ CASES = {
     "kc_collect_regen": (KC, "collect", "regen", 128, 16, 5, 8, 5, 21, True),
     "mr_collect_regen": (N2, "collect", "regen", 64, 16, 5, 8, 7, 21, False),
     "kc_train_regen": (KC, "train", "regen", 128, 16, 5, 32, 5, None, True),
+    "dk_train_regen": (DK, "train", "regen", 128, 16, 5, 8, 5, None, False),
 }
 
 
@@ -81,20 +86,26 @@ def port_env(name: str):
     return mref.with_max_steps(make(CASES[name][0]), CASES[name][5])
 
 
+def _leaves(params, prefix=""):
+    """`(path, leaf)` of a flax params tree in `ravel_pytree`'s order
+    (sorted keys)."""
+    for k in sorted(params):
+        if isinstance(params[k], dict):
+            yield from _leaves(params[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, params[k]
+
+
 def leaf_sizes(params) -> list:
     """The sizes of a flax params tree's leaves in `ravel_pytree`'s order
     (sorted keys), to cut a flat vector into leaves."""
-    sizes = []
+    return [int(np.size(leaf)) for _, leaf in _leaves(params)]
 
-    def walk(tree):
-        for k in sorted(tree):
-            if isinstance(tree[k], dict):
-                walk(tree[k])
-            else:
-                sizes.append(int(np.size(tree[k])))
 
-    walk(params)
-    return sizes
+def leaf_names(params) -> list:
+    """The paths of a flax params tree's leaves (`torso_0/kernel`, ...) in
+    `leaf_sizes`' order."""
+    return [path for path, _ in _leaves(params)]
 
 
 def jax_case(name: str) -> dict:

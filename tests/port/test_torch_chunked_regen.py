@@ -145,11 +145,35 @@ def test_chunked_regen_leaves_the_carry_passed_in_as_it_was():
 
 
 def test_random_layout_regen_needs_a_packed_generator():
-    empty = make("MiniGrid-Empty-8x8-v0")
-    random_start = dataclasses.replace(empty, config=dataclasses.replace(empty.config, agent_start_pos=None))
-    with pytest.raises(NotImplementedError, match="packed generator"):
-        tfr.build_fused_rollout(random_start, 8, mode="regen")
-    unported_hook = dataclasses.replace(make(ENV_ID), transition="fetch")
+    """A random layout without a packed generator (Empty-8x8 with a random
+    start) runs chunked regen on the family's batched `generate`, packed,
+    as the JAX package's `_pack_rolled(vmap(generate))` route does: the
+    plain path against `build_packed_xla_rollout`, two calls at chunk 4,
+    byte for byte. A hook the port lacks still raises."""
+    jax = pytest.importorskip("jax")
+    import minigrid_tpu
+    from minigrid_tpu.ops import fused_rollout as jfr
+
+    def random_start(env):
+        return dataclasses.replace(env, config=dataclasses.replace(env.config, agent_start_pos=None, max_steps=6))
+
+    env, jenv = random_start(make("MiniGrid-Empty-8x8-v0")), random_start(minigrid_tpu.make("MiniGrid-Empty-8x8-v0"))
+    carry = tfr.packed_init(env, env.reset_batch(key(4, device="cpu"), 64), "regen")
+    acts = _actions(64, 16)
+    jc = jfr.PackedCarry(**carry_to_numpy(carry))
+    jstep = jax.jit(jfr.build_packed_xla_rollout(jenv, 16, mode="regen", regen_chunk=4, as_carry=True,
+                                                  actions_override=acts))
+    step = tfr.build_packed_plain_rollout(env, 16, mode="regen", regen_chunk=4, as_carry=True, actions_override=acts)
+    for i in range(2):
+        jc, jm = jstep(jax.random.PRNGKey(0), jc)
+        carry, m = step(None, carry)
+        for name, got in carry_to_numpy(carry).items():
+            np.testing.assert_array_equal(got, np.asarray(getattr(jc, name)), err_msg=f"call {i} {name}")
+        for name in ("episodes", "obs_checksum", "reset_overlaps"):
+            assert int(getattr(m, name)) == int(getattr(jm, name)), (i, name)
+        np.testing.assert_allclose(float(m.total_reward), float(jm.total_reward), rtol=1e-6)
+        assert int(m.episodes) > 0
+    unported_hook = dataclasses.replace(make(ENV_ID), transition="memory")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfr.build_fused_rollout(unported_hook, 8, mode="cached")
 

@@ -120,15 +120,26 @@ def test_lane_block_rejects_view_sizes(view):
 
 
 def test_supported_envs_and_modes():
+    """A random start without a packed generator runs regen mode through
+    the family's batched `generate`, as the JAX package's policy rollouts
+    do; a transition whose hook is not ported is refused."""
     empty = make("MiniGrid-Empty-8x8-v0")
     assert tpr.policy_rollout_supported(empty, "regen")
     assert tpr.policy_rollout_supported(make("MiniGrid-DistShift1-v0"), "cached")
     random_start = dataclasses.replace(empty, config=dataclasses.replace(empty.config, agent_start_pos=None))
     assert tpr.policy_rollout_supported(random_start, "cached")
-    assert not tpr.policy_rollout_supported(random_start, "regen")
-    assert not tpr.policy_rollout_supported(dataclasses.replace(empty, transition="lavagap"), "cached")
+    pytest.importorskip("jax")
+    import minigrid_tpu
+    from minigrid_tpu.ops import policy_rollout as jpr
+
+    jempty = minigrid_tpu.make("MiniGrid-Empty-8x8-v0")
+    jrandom = dataclasses.replace(jempty, config=dataclasses.replace(jempty.config, agent_start_pos=None))
+    assert tpr.policy_rollout_supported(random_start, "regen") == jpr.policy_rollout_supported(jrandom, "regen")
+    assert tpr.policy_rollout_supported(random_start, "regen")
+    assert not tpr.policy_rollout_supported(dataclasses.replace(empty, transition="memory"), "cached")
+    tpr.build_policy_eval_plain_rollout(random_start, dyadic_flax_params(0), 8, mode="regen")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpr.build_policy_eval_rollout(random_start, dyadic_flax_params(0), 8, mode="regen")
+        tpr.build_policy_eval_rollout(dataclasses.replace(empty, transition="memory"), dyadic_flax_params(0), 8)
 
 
 @pytest.mark.parametrize("k", [256, 980])

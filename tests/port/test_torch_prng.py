@@ -1,6 +1,8 @@
 """The port's Threefry and key recipes, bit for bit against jax.random and
 the JAX package's `core.prng` on numpy-made keys: split, bits, randint
-(static and per-lane bounds) and categorical over 0/-inf masks."""
+(static and per-lane bounds), categorical over 0/-inf masks, and
+permutation (with its stable sort held to `lax.sort_key_val` on tied sort
+keys)."""
 
 import functools
 
@@ -123,3 +125,33 @@ def test_jax_gumbel_rises_strictly_with_the_uniform_bits():
     g = np.asarray(jax.jit(gumbel_of_m)(jnp.arange(2**23, dtype=jnp.uint32)))
     assert np.isfinite(g).all()
     assert (np.diff(g) > 0).all()
+
+
+PERMUTATION_SIZES = (1, 2, 6, 18, 40)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_permutations():
+    """`jax.random.permutation` at every size of `PERMUTATION_SIZES`, in one
+    compile: `{n: (B, n)}` on `_keys(100)[:2000]`."""
+    perms = jax.jit(lambda ks: tuple(jax.vmap(lambda k, n=n: jax.random.permutation(k, n))(ks)
+                                     for n in PERMUTATION_SIZES))(jnp.asarray(_keys(100)[:2000]))
+    return {n: np.asarray(p) for n, p in zip(PERMUTATION_SIZES, perms)}
+
+
+@pytest.mark.parametrize("n", PERMUTATION_SIZES)
+def test_permutation_matches_jax_random_permutation(n):
+    got = prng.permutation(_t(_keys(100)[:2000]), n).numpy()
+    np.testing.assert_array_equal(got, _jax_permutations()[n])
+
+
+def test_permutation_sort_keeps_ties_in_order_as_lax_sort_key_val():
+    """32-bit sort keys tie about once in 2^33 draws of a pair, so the tie
+    is forced: three keys of each of a few values, in random order."""
+    rng = np.random.default_rng(5)
+    sort_keys = rng.choice(np.array([0, 7, 2**31, 2**32 - 1], np.uint32), size=(64, 18))
+    values = np.tile(np.arange(18, dtype=np.int32), (64, 1))
+    want = np.asarray(jax.jit(jax.vmap(lambda k, v: jax.lax.sort_key_val(k, v)[1]))(sort_keys, values))
+    got = prng.sort_key_val(_t(sort_keys), _t(values)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (np.diff(np.sort(sort_keys, axis=1), axis=1) == 0).any()

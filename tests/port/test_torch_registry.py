@@ -1,7 +1,9 @@
 """Every env id the JAX package registers, against the port's registry and
 the rollout kernel's limits: the configuration carries across unchanged,
 the kernel takes its grid and view, the offset tables agree, and `make`
-either returns that configuration or names ROADMAP.md."""
+either returns that configuration or names ROADMAP.md; on every ported id
+and both auto-reset modes, `fused_rollout_supported` is the JAX
+package's."""
 
 import dataclasses
 
@@ -14,12 +16,24 @@ from minigrid_tpu.ops import packing as jpk
 from minigrid_tpu_torch import env_list, make
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.ops import packing as tpk
-from minigrid_tpu_torch.ops.fused_rollout import kernel_lane_block
+from minigrid_tpu_torch.ops.fused_rollout import fused_rollout_supported, kernel_lane_block
 
 
 def test_ported_ids_keep_the_jax_registration_order():
     assert env_list == [e for e in jax_env_list if e in env_list]
-    assert len(env_list) == 15  # Empty (4), DistShift (2), KeyCorridor (6), MultiRoom (3)
+    # Empty (4), Empty-Random (2), DistShift (2), DoorKey (4), Fetch (3),
+    # GoToDoor (3), GoToObject (2), PutNear (2), RedBlueDoors (2),
+    # MultiRoom (3), KeyCorridor (6).
+    assert len(env_list) == 33
+
+
+@pytest.mark.parametrize("mode", ["cached", "regen"])
+@pytest.mark.parametrize("env_id", env_list)
+def test_fused_rollout_supported_matches_jax(env_id, mode):
+    from minigrid_tpu.ops import fused_rollout as jfr
+
+    want = jfr.fused_rollout_supported(minigrid_tpu.make(env_id), mode=mode)
+    assert fused_rollout_supported(make(env_id), mode) == want
 
 
 @pytest.mark.parametrize("env_id", jax_env_list)

@@ -188,14 +188,16 @@ def test_random_policy_draws_from_the_generator():
 
 
 def test_unported_paths_raise():
+    """An id the port lacks, regen mode on an env without a generator, and
+    a transition whose hook is not ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make("MiniGrid-DoorKey-5x5-v0")
-    jcfg = minigrid_tpu.make("MiniGrid-DoorKey-5x5-v0").config
-    doorkey = Env("MiniGrid-DoorKey-5x5-v0", EnvConfig(**dataclasses.asdict(jcfg)), generate=None)
-    with pytest.raises(NotImplementedError, match="chunked regen"):
-        tfr.build_fused_rollout(doorkey, 8, mode="regen")
+        make("MiniGrid-FourRooms-v0")
+    jcfg = minigrid_tpu.make("MiniGrid-FourRooms-v0").config
+    fourrooms = Env("MiniGrid-FourRooms-v0", EnvConfig(**dataclasses.asdict(jcfg)), generate=None)
+    with pytest.raises(NotImplementedError, match="no generator"):
+        tfr.build_fused_rollout(fourrooms, 8, mode="regen")
     with pytest.raises(NotImplementedError, match="hooks"):
-        tfr.build_fused_rollout(dataclasses.replace(doorkey, transition="lavagap"), 8, mode="cached")
+        tfr.build_fused_rollout(dataclasses.replace(fourrooms, transition="lavagap"), 8, mode="cached")
 
 
 def test_port_never_imports_jax():

@@ -24,12 +24,14 @@ order):
     folds `0.9 / max_steps` into one constant, so a success's reward can
     differ in its last bit, as `total_reward` does; ROADMAP.md §C), with
     deferred resets (`reset_overlaps > 0`, re-entry passes);
-  * two chained train steps on KeyCorridorS3R1 regen (`max_steps` 5)
-    against `build_fused_train_step(backend="xla", grad_backend="kernel")`
-    (the gradient kernel in interpret mode), with `test_torch_train.py`
-    (f)'s bounds: carries byte-exact, metrics rtol 2e-3, params within
-    2·lr per step, Adam's `mu` and `nu` per flax leaf within 1e-5 of its
-    largest entry.
+  * two chained train steps on KeyCorridorS3R1 regen and on DoorKey-5x5
+    regen (no packed generator: the refresh packs the batched
+    `generate`), `max_steps` 5, against
+    `build_fused_train_step(backend="xla", grad_backend="kernel")` (the
+    gradient kernel in interpret mode), with `test_torch_train.py` (f)'s
+    bounds: carries byte-exact, metrics rtol 2e-3, params within 2·lr per
+    step, Adam's `mu` and `nu` per flax leaf within 1e-5 of its largest
+    entry.
 Without a file: `policy_rollout_supported` against the JAX package's on
 every ported id, both modes, with and without `collect`; `_merge_spill`
 against the JAX package's on numpy inputs, through one `jax.jit` per
@@ -102,19 +104,28 @@ def test_policy_rollout_supported_matches_jax(env_id, mode, collect):
 
 
 def test_unported_paths_still_refused():
-    """A hook the port lacks, a random layout without a packed generator
-    and a grid the shared-memory budget refuses."""
+    """A hook the port lacks and a grid the shared-memory budget refuse;
+    a random layout without a packed generator (Empty-8x8 with a random
+    start) is taken as the JAX package takes it, through its batched
+    `generate`."""
+    pytest.importorskip("jax")
+    import minigrid_tpu
+    from minigrid_tpu.ops import policy_rollout as jpr
+
     kc = make(ref.KC)
-    lavagap = dataclasses.replace(kc, transition="lavagap")
+    memory = dataclasses.replace(kc, transition="memory")
     empty = make("MiniGrid-Empty-8x8-v0")
     random_start = dataclasses.replace(empty, config=dataclasses.replace(empty.config, agent_start_pos=None))
     big = dataclasses.replace(empty, config=dataclasses.replace(empty.config, width=40, height=40))
-    assert not any(tpr.policy_rollout_supported(e, "regen", c) for e in (lavagap, random_start, big)
-                   for c in (False, True))
+    assert not any(tpr.policy_rollout_supported(e, "regen", c) for e in (memory, big) for c in (False, True))
+    jempty = minigrid_tpu.make("MiniGrid-Empty-8x8-v0")
+    jrandom = dataclasses.replace(jempty, config=dataclasses.replace(jempty.config, agent_start_pos=None))
+    for c in (False, True):
+        assert tpr.policy_rollout_supported(random_start, "regen", c) == jpr.policy_rollout_supported(
+            jrandom, "regen", collect=c) is True
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpr.build_fused_train_rollout(lavagap, 8, mode="cached")
-    with pytest.raises(NotImplementedError, match="packed generator"):
-        tpr.build_fused_train_rollout(random_start, 8, mode="regen")
+        tpr.build_fused_train_rollout(memory, 8, mode="cached")
+    tpr.build_fused_train_rollout(random_start, 8, mode="regen")
     with pytest.raises(ValueError, match="does not support"):
         TT.build_fused_train_step(big, 8, mode="cached")
 
@@ -223,7 +234,22 @@ def _rel(want, got):
 
 
 def test_regen_train_steps_match_jax():
-    name = "kc_train_regen"
+    _train_steps_match("kc_train_regen")
+
+
+def test_doorkey_regen_train_steps_match_jax():
+    """DoorKey-5x5, whose chunked regen refreshes through the batched
+    `generate`: the plain train step against the JAX package's, with the
+    bounds of KeyCorridor's but for Adam's torso moments, held to 5e-5 of
+    a leaf's largest entry. Both passes round the torso cotangents to bf16
+    and sum them in different orders, so one rounding can flip, and here
+    one does: after step 2 the torso moments differ by up to 1.17e-5
+    (torso_1/kernel's `mu`, on one thread; 2.8e-6 on eight), while every
+    head leaf stays within 2.6e-6."""
+    _train_steps_match("dk_train_regen", torso_tol=5e-5)
+
+
+def _train_steps_match(name, torso_tol=1e-5):
     _, _, mode, b, t, _, chunk, _, _, _ = ref.CASES[name]
     carry = ref.port_carry(name)
     arrays = _file_in(name, carry)
@@ -247,9 +273,10 @@ def test_regen_train_steps_match_jax():
         got = opt_state_to_numpy(ts.opt_state)
         assert int(ts.opt_state.count) == int(arrays[pre + "count"]) == n
         cuts = np.cumsum(sizes)[:-1]
+        torso = [leaf.startswith("torso") for leaf in ref.leaf_names(params["params"])]
         for moment in ("mu", "nu"):
-            for g, w in zip(np.split(got[moment], cuts), np.split(arrays[pre + moment], cuts)):
-                assert _rel(w, g) <= 1e-5, (n, moment, _rel(w, g))
+            for is_torso, g, w in zip(torso, np.split(got[moment], cuts), np.split(arrays[pre + moment], cuts)):
+                assert _rel(w, g) <= (torso_tol if is_torso else 1e-5), (n, moment, _rel(w, g))
     assert int(metrics["env_steps"]) == b * t
     assert float((flat - p0).abs().max()) > LR / 2  # the params moved
 

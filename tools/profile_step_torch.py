@@ -4,9 +4,9 @@ PyTorch port spends its time on a CUDA card.
     python tools/profile_step_torch.py            # random policy
     python tools/profile_step_torch.py --policy   # ActorCritic in the loop
     python tools/profile_step_torch.py --train    # the fused train step
-    python tools/profile_step_torch.py --regen [--env ID] [--steps T] [--chunk N] [--policy]
+    python tools/profile_step_torch.py --regen [--env ID] [--steps T] [--chunk N] [--batch B] [--policy]
                                                   # chunked regen
-    python tools/profile_step_torch.py --train --regen [--env ID] [--steps T] [--chunk N]
+    python tools/profile_step_torch.py --train --regen [--env ID] [--steps T] [--chunk N] [--batch B]
                                                   # the train step on a random layout
 
 At the main path's shape (Empty-8x8, B = 2**21, T = 256, as in
@@ -43,10 +43,12 @@ CUDA event that the step itself records at the end of each piece (its
   pullback  the cotangents pulled back to the flax layout (`_pullback`)
   optimizer clip + Adam on the flat vector and the updated module
 
-With `--regen`, at B = 32,768 on a random-layout family (`--env`, default
-KeyCorridorS6R3; T `--steps`, default 256; `regen_chunk` `--chunk`,
-default 128: `chip_smoke.py` phase 8's shape; phase 10's is
-`--env MiniGrid-MultiRoom-N4-S5-v0 --steps 288 --chunk 96`), the pieces
+With `--regen`, at B = 32,768 (`--batch`) on a random-layout family
+(`--env`, default KeyCorridorS6R3; T `--steps`, default 256;
+`regen_chunk` `--chunk`, default 128: `chip_smoke.py` phase 8's shape;
+phase 10's is `--env MiniGrid-MultiRoom-N4-S5-v0 --steps 288 --chunk 96`,
+phase 15a's `--env MiniGrid-DoorKey-8x8-v0 --chunk 32 --batch 262144`),
+the pieces
 of a chunked-regen call
 (`minigrid_tpu_torch.ops.chunked_regen.build_chunked_regen`), timed by
 CUDA events the call records through its `mark` argument and summed over
@@ -57,9 +59,10 @@ its chunks:
   kernel    pass 1 of each chunk: the rollout kernel (or the policy
             kernel) under the control rows
   refresh   the chain advance and the template refresh of the lanes that
-            reset (`masked_template_refresh`: the plain-torch generator,
-            the connect kernel or the room-chain kernel inside it); its
-            lane count is read on the host
+            reset (`masked_template_refresh`: the family's packed
+            generator, with the connect kernel or the room-chain kernel
+            inside it, or its batched `generate`, packed); its lane count
+            is read on the host
   reentry   the re-entry passes, the check for unfinished lanes included
   sums      the metrics
 
@@ -232,9 +235,9 @@ def _regen_counts():
     }
 
 
-def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int) -> int:
+def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int, batch: int = REGEN_BATCH) -> int:
     env = make(env_id)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), REGEN_BATCH), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), "regen")
     ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
     step = tr.build_fused_train_step(env, num_steps, mode="regen", regen_chunk=chunk)
     seeds = iter(range(100, 10**6))
@@ -258,7 +261,7 @@ def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int) -> int:
     for p in TRAIN_REGEN_PIECES:
         print(f"{p:9s} {pieces_ms[p]:.4f} ms/step ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
     print(f"pieces sum {whole:.4f} ms/step; whole train step {step_ms:.4f} ms/step "
-          f"({REGEN_BATCH * num_steps / step_ms * 1e3:.6e} env-steps/s), {window}-step window, {env_id} "
+          f"({batch * num_steps / step_ms * 1e3:.6e} env-steps/s), {window}-step window, {env_id} "
           f"T={num_steps} regen_chunk {chunk}; per step {per_call} [{card}]", flush=True)
 
     def run_window():
@@ -268,16 +271,16 @@ def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int) -> int:
 
     kernel_ms, device_ms = profile_one(run_window, REGEN_KERNELS + ("grad_g1_kernel", "grad_g2_kernel"))
     print(json.dumps({
-        "card": card, "env_id": env_id, "train": True, "regen_chunk": chunk, "batch_size": REGEN_BATCH,
+        "card": card, "env_id": env_id, "train": True, "regen_chunk": chunk, "batch_size": batch,
         "num_steps": num_steps, "window_steps": window, "pieces_ms": pieces_ms, "step_ms": step_ms,
         "per_step": per_call, "profiler_window_device_ms": device_ms, "profiler_window_kernel_ms": kernel_ms,
     }), flush=True)
     return 0
 
 
-def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool) -> int:
+def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool, batch: int = REGEN_BATCH) -> int:
     env = make(env_id)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), REGEN_BATCH), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), "regen")
     if policy:
         model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
         step = pr.build_policy_eval_rollout(env, model, num_steps, mode="regen", as_carry=True, regen_chunk=chunk)
@@ -310,7 +313,7 @@ def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool)
     for p in REGEN_PIECES:
         print(f"{p:8s} {pieces_ms[p]:.4f} ms/call ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
     print(f"pieces sum {whole:.4f} ms/call; whole step call {step_ms:.4f} ms/call "
-          f"({REGEN_BATCH * num_steps / step_ms * 1e3:.6e} env-steps/s), {window}-call window, {env_id} "
+          f"({batch * num_steps / step_ms * 1e3:.6e} env-steps/s), {window}-call window, {env_id} "
           f"T={num_steps} regen_chunk {chunk}{' policy' if policy else ''}: episodes {episodes}, reset_overlaps "
           f"{overlaps}; per call {per_call} [{card}]", flush=True)
 
@@ -321,7 +324,7 @@ def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool)
 
     kernel_ms, device_ms = profile_one(run_window, REGEN_KERNELS)
     print(json.dumps({
-        "card": card, "env_id": env_id, "policy": policy, "regen_chunk": chunk, "batch_size": REGEN_BATCH,
+        "card": card, "env_id": env_id, "policy": policy, "regen_chunk": chunk, "batch_size": batch,
         "num_steps": num_steps, "window_calls": window, "pieces_ms": pieces_ms, "step_ms": step_ms,
         "per_call": per_call, "episodes": episodes, "reset_overlaps": overlaps,
         "profiler_window_device_ms": device_ms, "profiler_window_kernel_ms": kernel_ms,
@@ -365,13 +368,13 @@ def main() -> int:
 
     if "--train" in args and "--regen" in args:
         return main_train_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
-                                int(opt("--chunk", 32)))
+                                int(opt("--chunk", 32)), int(opt("--batch", REGEN_BATCH)))
     if "--train" in args:
         return main_train(dev, card)
     policy = "--policy" in args
     if "--regen" in args:
         return main_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
-                          int(opt("--chunk", 128)), policy)
+                          int(opt("--chunk", 128)), policy, int(opt("--batch", REGEN_BATCH)))
     env = make(ENV_ID)
     carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
     if policy:
