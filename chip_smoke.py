@@ -196,6 +196,33 @@ result line):
      window's last carry (no commit rows) against its plain version, byte
      for byte (its own row in the kernels line), and RedBlueDoors-8x8
      regen policy evaluation at B=32,768, T=256 (the shape of (a)'s pass).
+ 17. The DynamicObstacles pre-hook (the obstacles' random walk), the
+     Memory, Unlock and DynamicObstacles hooks and both action remaps,
+     each timed window's kernels held against their plain versions at the
+     window's own shape, byte for byte (reward sums bit for bit), TF32 off:
+     (a) DynamicObstacles-16x16 (8 obstacles) cached, the random policy
+     (actions 0-6, so the remap acts), B=262,144, T=256, one warm-up and 3
+     timed calls with only the rollout kernel launched, then one 32-step
+     pass of B1 from the window's last carry against `plain_rollout`; (b)
+     DynamicObstacles-8x8 regen, B=32,768, T=256, chunk 32: policy
+     evaluation (the seeded 3-action `ActorCritic`; only the policy
+     kernel) and the fused train step (only the policy and gradient
+     kernels; the loss finite, the params moved), each one warm-up and 3
+     timed calls, then B2 eval and collect under fresh commit rows, one
+     32-step pass each from the windows' carries against
+     `plain_policy_rollout` under dyadic 3-action weights, and the gradient
+     kernel at 3 actions on the train window's trajectory against
+     `plain_grad_pass` within phase 7's bounds, two launches bit for bit;
+     (c) MemoryS17Random regen policy evaluation, B=32,768, T=256, chunk
+     32 (32-lane blocks), the same way; (d) the regen main path of
+     Unlock, UnlockPickup, BlockedUnlockPickup, MemoryS7,
+     DynamicObstacles-5x5 and -Random-6x6 at B=32,768, T=64, chunk 32: one
+     warm-up and one timed random-policy call with only the rollout kernel
+     launched, then one 32-step B1 pass under fresh commit rows against
+     `plain_rollout`. Each window has its own row in the kernels line.
+     The bound of a row that runs the pre-hook counts the walk: per
+     lane-step n Threefry-20 evaluations and 9·(n + 3) coordinate tests
+     per obstacle.
 
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
@@ -233,6 +260,9 @@ POLICY_HOOK_SOURCES = {
     "gotoobject": "minigrid_tpu_torch/ops/csrc/policy_hooks_fetch_goto.cu",
     "putnear": "minigrid_tpu_torch/ops/csrc/policy_hooks_putnear_rbd.cu",
     "redbluedoors": "minigrid_tpu_torch/ops/csrc/policy_hooks_putnear_rbd.cu",
+    "memory": "minigrid_tpu_torch/ops/csrc/policy_hooks_memory_unlock.cu",
+    "unlock": "minigrid_tpu_torch/ops/csrc/policy_hooks_memory_unlock.cu",
+    "dynamicobstacles": "minigrid_tpu_torch/ops/csrc/policy_hooks_dynobst.cu",
 }
 POLICY_REPLACES = "minigrid_tpu/ops/policy_rollout.py:282"
 POLICY_T = 256
@@ -333,6 +363,20 @@ FETCH_TIMED_B = 262_144
 FETCH_TIMED_T = 256
 RBD_TIMED_ID = "MiniGrid-RedBlueDoors-8x8-v0"
 RBD_TIMED_T = 256
+# Phase 17: the pre-hook, the last three hooks and the remaps.
+DO_CACHED_ID = "MiniGrid-Dynamic-Obstacles-16x16-v0"
+DO_CACHED_B = 262_144
+DO_CACHED_T = 256
+DO_REGEN_ID = "MiniGrid-Dynamic-Obstacles-8x8-v0"
+MEM_REGEN_ID = "MiniGrid-MemoryS17Random-v0"
+NEW_B = 32_768
+NEW_T = 256
+NEW_CHUNK = 32
+NEW_TIMED = 3
+NEW_FAMILY_IDS = ("MiniGrid-Unlock-v0", "MiniGrid-UnlockPickup-v0", "MiniGrid-BlockedUnlockPickup-v0",
+                  "MiniGrid-MemoryS7-v0", "MiniGrid-Dynamic-Obstacles-5x5-v0",
+                  "MiniGrid-Dynamic-Obstacles-Random-6x6-v0")
+NEW_FAMILY_T = 64
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -352,6 +396,12 @@ ROLLOUT_INSTR_FLOOD_PER_CELL = 2
 ROLLOUT_INSTR_FLOOD_PER_SHIFT = 3
 ROLLOUT_INSTR_FLOOD_PER_ROW = 8
 ROLLOUT_INSTR_HOOK_CTL = 10
+# The DynamicObstacles walk, per obstacle and lane-step: one Threefry-2x32
+# evaluation (20 rounds of add, rotate and xor, 5 key injections of 3, and
+# 4 set-up operations) and 9·(n + 3) coordinate tests, one each (each of
+# the 9 cells of the box against the bounds, the goal, the agent and the
+# n obstacles).
+ROLLOUT_INSTR_THREEFRY = 79
 # The fewest integer operations one connect-loop draw needs, from the
 # function: 21 Threefry-2x32 blocks (split(key, 5), then per randint a
 # split and two bits), each 20 rounds of add, rotate and xor plus 5 key
@@ -411,12 +461,15 @@ def int_issue_rate(dev) -> float:
 
 def rollout_instr(cfg, hook_ctl: bool) -> int:
     """The rollout kernel's fewest integer instructions per lane-step on
-    `cfg`: the view and the transition, the flood where walls occlude, and
-    the hook and commit rows if `hook_ctl`."""
+    `cfg`: the view and the transition, the flood where walls occlude, the
+    hook and commit rows if `hook_ctl`, and the DynamicObstacles walk where
+    `cfg` has obstacles."""
     v = cfg.agent_view_size
     instr = ROLLOUT_INSTR_PER_VIEW_CELL * v * v + ROLLOUT_INSTR_PER_TRANSITION
     if hook_ctl:
         instr += ROLLOUT_INSTR_HOOK_CTL
+    n = cfg.n_obstacles or 0
+    instr += n * (ROLLOUT_INSTR_THREEFRY + 9 * (n + 3))
     if not cfg.see_through_walls:
         instr += v * (ROLLOUT_INSTR_FLOOD_PER_CELL * v + ROLLOUT_INSTR_FLOOD_PER_SHIFT * 2 * (v - 1)
                       + ROLLOUT_INSTR_FLOOD_PER_ROW)
@@ -449,17 +502,24 @@ def policy_flop(v: int) -> int:
     return 3 * v * v * pr.HIDDEN + 2 * pr.HIDDEN * pr.HIDDEN + 2 * pr.HEAD_ROWS * pr.HIDDEN
 
 
-def b2_bound(cfg, b, t, collect, ctl=True):
+def b2_bound(cfg, b, t, collect, ctl=True, dev=None):
     """The policy kernel's bound for `b` lanes and `t` steps of `cfg`: the
     weights, the state, the seeds, the commit rows if `ctl` and the spill
-    if `collect`, and the network's operations."""
+    if `collect`, and the network's operations; with `dev`, also the env
+    step's integer instructions (`rollout_instr`, the walk included) at
+    the card's issue rate, when they take longer."""
     from minigrid_tpu_torch.ops import policy_rollout as pr
 
     v = cfg.agent_view_size
     spill = 4 * pr._spill_rows(v * v) * b * t if collect else 0
     nbytes = (state_bytes(cfg.width * cfg.height, b, t) + (2 * 12 * b if ctl else 0) + policy_weight_bytes(v)
               + spill)
-    return bound(nbytes, policy_flop(v) * b * t, BF16_FLOP_PER_S)
+    out = bound(nbytes, policy_flop(v) * b * t, BF16_FLOP_PER_S)
+    if dev is not None:
+        int_ms = rollout_instr(cfg, True) * b * t / int_issue_rate(dev) * 1e3
+        if int_ms > out[0]:
+            out = (int_ms, "operations")
+    return out
 
 
 def compare(got, want):
@@ -851,6 +911,60 @@ def phase_train_main_path(dev, card):
     return env, ts, warm_carry, launches, seconds, peak
 
 
+def grad_flop(v: int) -> int:
+    """The gradient kernel's operations per sample at view size `v`: the
+    forward (layer 1 by its 3 V*V active one-hot rows), the head, and the
+    backward products dwta, wta^T.dhead, dW2, W2^T.dh2 and dW1 (by the
+    active rows again)."""
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    h, k_active = pr.HIDDEN, 3 * v * v
+    return (k_active * h + 2 * h * h + 2 * pr.HEAD_ROWS * h) + (4 * pr.HEAD_ROWS * h + 4 * h * h + k_active * h)
+
+
+def grad_bound(v: int, b: int, t: int):
+    """The gradient kernel's bound for `b` lanes and `t` steps: each
+    sample's obs words, action, advantage and return read once, the weights
+    read and their gradients written, and `grad_flop` per sample."""
+    return bound(4 * (v * v + 3) * b * t + 2 * policy_weight_bytes(v), grad_flop(v) * b * t, BF16_FLOP_PER_S)
+
+
+def _grad_compare(args):
+    """The gradient kernel on `run_grad_kernel`'s `args` against
+    `plain_grad_pass`: one launch, then `TRAIN_TIMED_CALLS` timed ones (the
+    last compared), the plain pass timed once. Returns (ms, plain_ms, the
+    rel-to-max error per weight, the loss sums' rel error, max_abs_err,
+    two launches bit-identical, the kernel's loss sums, the plain (grads,
+    sums))."""
+    import torch
+
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    first = gk.run_grad_kernel(*args)
+    ms, second = time_events(lambda: gk.run_grad_kernel(*args), TRAIN_TIMED_CALLS)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip((*first[0], first[1]), (*second[0], second[1])))
+    plain_ms, (want_gw, want_sums) = time_events(lambda: gk.plain_grad_pass(*args), 1)
+    rel, err = {}, 0.0
+    for name, g, w in zip(pr.EvalWeights._fields, second[0], want_gw):
+        rel[name] = float((g - w).abs().max() / (w.abs().max() + 1e-9))
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    sums_rel = float(((second[1] - want_sums).abs() / want_sums.abs()).max())
+    err = max(err, float((second[1].double() - want_sums.double()).abs().max()))
+    return ms, plain_ms, rel, sums_rel, err, same, second[1], (want_gw, want_sums)
+
+
+def _grad_within_bounds(rel, sums_rel, same, sums) -> bool:
+    """Phase 7's bounds: heads 1e-4 and torso 1e-3 of each weight's largest
+    entry, loss sums rtol 1e-4, finite, two launches bit for bit."""
+    import torch
+
+    return (rel["wta"] < GRAD_HEAD_TOL and rel["ba"] < GRAD_HEAD_TOL
+            and all(rel[n] < GRAD_TORSO_TOL for n in ("wt1", "b1", "wt2", "b2"))
+            and bool(torch.isfinite(sums).all()) and sums_rel < GRAD_SUMS_RTOL and same)
+
+
 def phase_train_vs_plain(dev, card, env, ts, warm_carry):
     import torch
 
@@ -905,15 +1019,7 @@ def phase_train_vs_plain(dev, card, env, ts, warm_carry):
     adv = ret - value
     denom = float(TRAIN_T * TRAIN_B)
     args = (weights, obs_w, actions, adv, ret, cfg.num_actions, denom, tr.VALUE_COEF, tr.ENTROPY_COEF)
-    first = gk.run_grad_kernel(*args)
-    grad_ms, second = time_events(lambda: gk.run_grad_kernel(*args), TRAIN_TIMED_CALLS)
-    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip((*first[0], first[1]), (*second[0], second[1])))
-    grad_plain_ms, (want_gw, want_sums) = time_events(lambda: gk.plain_grad_pass(*args), 1)
-    rel, grad_err = {}, 0.0
-    for name, g, w in zip(pr.EvalWeights._fields, second[0], want_gw):
-        rel[name] = float((g - w).abs().max() / (w.abs().max() + 1e-9))
-        grad_err = max(grad_err, float((g.double() - w.double()).abs().max()))
+    grad_ms, grad_plain_ms, rel, sums_rel, grad_err, same, sums, (want_gw, want_sums) = _grad_compare(args)
     # What a G2 that left out its last lane split, or its first time
     # chunk, would read on dW1 and dW2: that part's share of the plain sums.
     splits, split_lanes = gk.grad_splits(TRAIN_B)
@@ -932,18 +1038,13 @@ def phase_train_vs_plain(dev, card, env, ts, warm_carry):
           f"part ({splits} lane splits): {dropped} [{card}]", flush=True)
     if min(min(r.values()) for r in dropped.values()) <= GRAD_TORSO_TOL:
         raise RuntimeError("phase 7 failed: the torso bound would not catch a G2 that left out a part")
-    sums_rel = float(((second[1] - want_sums).abs() / want_sums.abs()).max())
-    grad_err = max(grad_err, float((second[1].double() - want_sums.double()).abs().max()))
     print(f"phase 7: collecting policy kernel B={TRAIN_B} T={TRAIN_T} {collect_ms:.4f} ms/call "
           f"({TRAIN_B * TRAIN_T / collect_ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
     print(f"phase 7: grad kernel B={TRAIN_B} T={TRAIN_T} {grad_ms:.4f} ms/call, plain_grad_pass "
           f"{grad_plain_ms:.4f} ms; rel-to-max error {rel}, loss sums rel {sums_rel:.3e} "
-          f"(kernel {second[1].tolist()}, plain {want_sums.tolist()}), max_abs_err {grad_err}; "
+          f"(kernel {sums.tolist()}, plain {want_sums.tolist()}), max_abs_err {grad_err}; "
           f"two launches bit-identical: {same} [{card}]", flush=True)
-    heads_ok = rel["wta"] < GRAD_HEAD_TOL and rel["ba"] < GRAD_HEAD_TOL
-    torso_ok = all(rel[n] < GRAD_TORSO_TOL for n in ("wt1", "b1", "wt2", "b2"))
-    finite = bool(torch.isfinite(second[1]).all())
-    if not (heads_ok and torso_ok and finite and sums_rel < GRAD_SUMS_RTOL and same):
+    if not _grad_within_bounds(rel, sums_rel, same, sums):
         raise RuntimeError("phase 7 failed: the grad kernel is outside its bounds or does not repeat")
     return max_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms
 
@@ -1829,7 +1930,7 @@ def _time_pass(name, cfg, carry, t, dev, card, transition, surface, weights=None
         kw = dict(collect=collect, ctl=ctl_rows, transition=transition)
         kernel = lambda: pr.run_policy_kernel(*args, stream, weights, cfg, **kw)  # noqa: E731
         plain = lambda: pr.plain_policy_rollout(*args, stream, weights, cfg, **kw)  # noqa: E731
-        bnd = b2_bound(cfg, b, t, collect, ctl=ctl)
+        bnd = b2_bound(cfg, b, t, collect, ctl=ctl, dev=dev)
     kernel()  # warm
     ms, got = time_events(kernel, reps)
     plain_ms, want = time_events(plain, 1)
@@ -2136,6 +2237,164 @@ def phase_hooks(dev, card):
     return rows
 
 
+def _grad_vs_plain(tag, cfg, weights, traj, card):
+    """The gradient kernel on a collected trajectory against
+    `plain_grad_pass`, within phase 7's bounds. Returns (max_abs_err, ms,
+    plain_ms, bound)."""
+    from minigrid_tpu_torch.parallel import train as tr
+
+    obs_w, actions, _, value, reward, done = traj
+    t, b = actions.shape
+    ret = tr._trajectory_returns(reward, done, tr.GAMMA)
+    args = (weights, obs_w, actions, ret - value, ret, cfg.num_actions, float(t * b), tr.VALUE_COEF,
+            tr.ENTROPY_COEF)
+    ms, plain_ms, rel, sums_rel, err, same, sums, _ = _grad_compare(args)
+    bnd = grad_bound(cfg.agent_view_size, b, t)
+    print(f"phase {tag}: grad kernel at {cfg.num_actions} actions, B={b} T={t}: {ms:.4f} ms/call, plain_grad_pass "
+          f"{plain_ms:.4f} ms; rel-to-max error {rel}, loss sums rel {sums_rel:.3e}, max_abs_err {err}; two "
+          f"launches bit-identical: {same}; bound {bnd} [{card}]", flush=True)
+    if not _grad_within_bounds(rel, sums_rel, same, sums):
+        raise RuntimeError(f"phase {tag} failed: the grad kernel is outside its bounds or does not repeat")
+    return err, ms, plain_ms, bnd
+
+
+def phase_new_hooks(dev, card):
+    """Phase 17 (module docstring): the DynamicObstacles pre-hook, the
+    Memory, Unlock and DynamicObstacles hooks and the remaps, each timed
+    window's kernels held against their plain versions at the window's
+    shape. Returns `{row name: [launches, max_abs_err, ms, plain_ms, bound,
+    source]}`."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import train as tr
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    rows = {}
+
+    # (a) B1 with the pre-hook at its heaviest, cached.
+    env = make(DO_CACHED_ID)
+    state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), DO_CACHED_B), "cached")}
+    step = fr.build_fused_rollout(env, DO_CACHED_T, mode="cached", as_carry=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def cached_call(i, mark):
+        state["carry"], m = step(gen, state["carry"])
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("a", cached_call, NEW_TIMED, dev, ("rollout_kernel",), phase="17")
+    totals = _report_window("a", f"{DO_CACHED_ID} random policy", res, counts, seconds, pieces, peak, DO_CACHED_T,
+                            card, b=DO_CACHED_B, phase="17", mode="cached")
+    if totals["episodes"] == 0:
+        raise RuntimeError("phase 17a: no episode ended")
+    err, ms, plain_ms, bnd = _time_pass("17a", env.config, state["carry"], NEW_CHUNK, dev, card, env.transition,
+                                        "random", ctl=False)
+    rows["rollout_kernel_prehook"] = [counts["rollout_kernel"], err, ms, plain_ms, bnd, KERNEL_SOURCE]
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (b) DynamicObstacles-8x8 regen: policy evaluation and the train step.
+    env = make(DO_REGEN_ID)
+    cfg = env.config
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B), "regen")
+    model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    eval_step = pr.build_policy_eval_rollout(env, model, NEW_T, mode="regen", as_carry=True, regen_chunk=NEW_CHUNK)
+    state = {"carry": carry0}
+
+    def eval_call(i, mark):
+        state["carry"], m = eval_step(key(1000 + i, device=dev), state["carry"], mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("b", eval_call, NEW_TIMED, dev, ("policy_kernel",), phase="17")
+    _report_window("b", f"{DO_REGEN_ID} policy evaluation, chunk {NEW_CHUNK}", res, counts, seconds, pieces, peak,
+                   NEW_T, card, b=NEW_B, phase="17")
+    eval_launches, eval_carry = counts["policy_kernel"], state["carry"]
+
+    ts0 = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+    train = tr.build_fused_train_step(env, NEW_T, mode="regen", regen_chunk=NEW_CHUNK)
+    p0 = tr.flatten_params(ts0.params.flax_params())
+    state = {"ts": ts0, "carry": carry0}
+
+    def train_call(i, mark):
+        state["ts"], state["carry"], m = train(state["ts"], state["carry"], key(1100 + i, device=dev), mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("b", train_call, NEW_TIMED, dev,
+                                                      ("policy_kernel", "grad_kernel"), phase="17")
+    losses = [float(m["loss"]) for m in res]
+    moved = float((tr.flatten_params(state["ts"].params.flax_params()) - p0).abs().max())
+    print(f"phase 17b: {DO_REGEN_ID} fused train step, regen B={NEW_B} T={NEW_T} chunk {NEW_CHUNK}, "
+          f"{cfg.num_actions} actions: {NEW_TIMED} train steps {seconds:.4f} s, "
+          f"{NEW_B * NEW_T * NEW_TIMED / seconds:.6e} env-steps/s; loss per step {losses}; episodes "
+          f"{[float(m['episodes']) for m in res]}; params moved by up to {moved:.6e}; per step "
+          f"{_per_call(counts, NEW_TIMED)}; pieces ms per step { {k: round(v, 4) for k, v in pieces.items()} }; "
+          f"peak memory {peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    if not all(map(math.isfinite, losses)) or not moved > 0 or any(int(m["env_steps"]) != NEW_B * NEW_T for m in res):
+        raise RuntimeError(f"phase 17b: loss {losses}, params moved by {moved}, or env_steps != B*T")
+    params = dyadic_flax_params(12, num_actions=cfg.num_actions)
+    ew = pr.eval_weights_from_params(params, cfg.agent_view_size, device=dev)
+    tw = pr.train_weights_from_params(params, cfg.agent_view_size, device=dev)
+    b2 = _time_pass("17b", cfg, eval_carry, NEW_CHUNK, dev, card, env.transition, "eval", ew)
+    b2c = _time_pass("17b", cfg, state["carry"], NEW_CHUNK, dev, card, env.transition, "collect", tw, reps=1)
+    rows["policy_kernel_dynamicobstacles"] = [eval_launches, b2[0], b2[1], b2[2], b2[3],
+                                              POLICY_HOOK_SOURCES["dynamicobstacles"]]
+    rows["policy_kernel_dynamicobstacles_collect"] = [counts["policy_kernel"], b2c[0], b2c[1], b2c[2], b2c[3],
+                                                      POLICY_HOOK_SOURCES["dynamicobstacles"]]
+    # B3 at 3 actions on a trajectory of the trained weights.
+    weights = pr.train_weights_from_params(state["ts"].params, cfg.agent_view_size)
+    roll = pr.build_fused_train_rollout(env, NEW_T, mode="regen", regen_chunk=NEW_CHUNK)
+    _, traj, _ = roll(weights, key(1200, device=dev), state["carry"])
+    b3 = _grad_vs_plain("17b", cfg, weights, traj, card)
+    rows["grad_kernel_3_actions"] = [counts["grad_kernel"], b3[0], b3[1], b3[2], b3[3], GRAD_SOURCE]
+    del state, eval_carry, carry0, traj, roll, train, eval_step
+    torch.cuda.empty_cache()
+
+    # (c) MemoryS17Random regen policy evaluation, 32-lane blocks.
+    env = make(MEM_REGEN_ID)
+    cfg = env.config
+    model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    step = pr.build_policy_eval_rollout(env, model, NEW_T, mode="regen", as_carry=True, regen_chunk=NEW_CHUNK)
+    state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B), "regen")}
+
+    def mem_call(i, mark):
+        state["carry"], m = step(key(1300 + i, device=dev), state["carry"], mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("c", mem_call, NEW_TIMED, dev, ("policy_kernel",), phase="17")
+    _report_window("c", f"{MEM_REGEN_ID} policy evaluation, chunk {NEW_CHUNK}, {pr.policy_lane_block(cfg)}-lane "
+                   "blocks", res, counts, seconds, pieces, peak, NEW_T, card, b=NEW_B, phase="17")
+    ew = pr.eval_weights_from_params(dyadic_flax_params(13), cfg.agent_view_size, device=dev)
+    b2 = _time_pass("17c", cfg, state["carry"], NEW_CHUNK, dev, card, env.transition, "eval", ew)
+    rows["policy_kernel_memory"] = [counts["policy_kernel"], b2[0], b2[1], b2[2], b2[3], POLICY_HOOK_SOURCES["memory"]]
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (d) Each new family's regen main path under the random policy.
+    for env_id in NEW_FAMILY_IDS:
+        env = make(env_id)
+        step = fr.build_fused_rollout(env, NEW_FAMILY_T, mode="regen", as_carry=True, regen_chunk=NEW_CHUNK)
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B), "regen")}
+        gen = torch.Generator(device=dev).manual_seed(8)
+
+        def family_call(i, mark, step=step, state=state, gen=gen):
+            state["carry"], m = step(gen, state["carry"], mark=mark)
+            return m
+
+        res, counts, seconds, pieces, peak = _mark_window("d", family_call, 1, dev, ("rollout_kernel",), phase="17")
+        _report_window("d", f"{env_id} random policy, chunk {NEW_CHUNK}", res, counts, seconds, pieces, peak,
+                       NEW_FAMILY_T, card, b=NEW_B, phase="17")
+        b1 = _time_pass("17d", env.config, state["carry"], NEW_CHUNK, dev, card, env.transition, "random")
+        name = env_id.removeprefix("MiniGrid-").removesuffix("-v0").lower().replace("-", "_")
+        rows[f"rollout_kernel_{name}"] = [counts["rollout_kernel"], b1[0], b1[1], b1[2], b1[3], KERNEL_SOURCE]
+        del state, step
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2203,6 +2462,8 @@ def main() -> int:
     del dk_runs
     torch.cuda.empty_cache()
     hook_rows = phase_hooks(dev, card)
+    torch.cuda.empty_cache()
+    new_rows = phase_new_hooks(dev, card)
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():
@@ -2229,31 +2490,21 @@ def main() -> int:
     main_cfg = make(ENV_ID).config  # Empty-8x8: no occlusion, no hook, no commit rows
     v2 = main_cfg.agent_view_size ** 2
     rollout_bound = b1_bound(main_cfg, MAIN_B, MAIN_T, dev, ctl=False, hook=False)
-    weight_bytes = policy_weight_bytes(main_cfg.agent_view_size)
     policy_bound = b2_bound(main_cfg, MAIN_B, POLICY_T, collect=False, ctl=False)
     # The train path at its own shape: the collecting kernel adds its
-    # spill's writes; the gradient kernel reads each sample's obs words,
-    # action, advantage and return once, and does per sample the forward
-    # (layer 1 by its 3 V*V active one-hot rows), the head, and the
-    # backward products dwta, wta^T.dhead, dW2, W2^T.dh2 and dW1 (by the
-    # active rows again).
-    from minigrid_tpu_torch.ops import grad_kernel as gk
-
+    # spill's writes (`b2_bound`); the gradient kernel as `grad_bound`
+    # counts it, and the dense count for comparison.
     spill_bytes = 4 * pr._spill_rows(v2) * TRAIN_B * TRAIN_T
     collect_bound = b2_bound(main_cfg, TRAIN_B, TRAIN_T, collect=True, ctl=False)
-    h, k_active, k_dense = pr.HIDDEN, 3 * v2, v2 * 20
-    grad_flop = (k_active * h + 2 * h * h + 2 * pr.HEAD_ROWS * h) + (
-        2 * pr.HEAD_ROWS * h + 2 * pr.HEAD_ROWS * h + 2 * h * h + 2 * h * h + k_active * h
-    )
+    h, k_dense = pr.HIDDEN, v2 * 20
     grad_flop_dense = (2 * k_dense * h + 2 * h * h + 2 * pr.HEAD_ROWS * h) + (
         4 * pr.HEAD_ROWS * h + 4 * h * h + 2 * k_dense * h
     )
-    grad_bytes = (4 * (v2 + 3)) * TRAIN_B * TRAIN_T + 2 * weight_bytes
-    grad_bound = bound(grad_bytes, grad_flop * TRAIN_B * TRAIN_T, BF16_FLOP_PER_S)
+    train_grad_bound = grad_bound(main_cfg.agent_view_size, TRAIN_B, TRAIN_T)
     grad_dense_ms = grad_flop_dense * TRAIN_B * TRAIN_T / BF16_FLOP_PER_S * 1e3
     print(f"bounds [{card}]: policy_kernel collect {collect_bound} (spill {spill_bytes} B), grad_kernel "
-          f"{grad_bound} ({grad_flop} FLOP per sample with layer 1 by its active rows; dense "
-          f"{grad_flop_dense} FLOP per sample, {grad_dense_ms:.4f} ms)", flush=True)
+          f"{train_grad_bound} ({grad_flop(main_cfg.agent_view_size)} FLOP per sample with layer 1 by its active "
+          f"rows; dense {grad_flop_dense} FLOP per sample, {grad_dense_ms:.4f} ms)", flush=True)
     probe_n = 8 * 128
     probe_bound = bound(2 * 4 * probe_n, probe_n, int_issue_rate(dev))
     print(f"bounds [{card}]: rollout_kernel {rollout_bound} ({rollout_instr(main_cfg, False)} instructions per "
@@ -2322,8 +2573,8 @@ def main() -> int:
             "max_abs_err": grad_err,
             "ms": grad_ms,
             "plain_ms": grad_plain_ms,
-            "bound_ms": grad_bound[0],
-            "bound_by": grad_bound[1],
+            "bound_ms": train_grad_bound[0],
+            "bound_by": train_grad_bound[1],
             "library_ms": None,
         },
         {
@@ -2444,6 +2695,20 @@ def main() -> int:
             "library_ms": None,
         },
         *hook_kernels,
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": GRAD_REPLACES if name.startswith("grad") else (
+                KERNEL_REPLACES if name.startswith("rollout") else POLICY_REPLACES),
+            "launches": launches_,
+            "max_abs_err": err_,
+            "ms": ms_,
+            "plain_ms": plain_ms_,
+            "bound_ms": bnd_[0],
+            "bound_by": bnd_[1],
+            "library_ms": None,
+        } for name, (launches_, err_, ms_, plain_ms_, bnd_, source) in new_rows.items()),
         {
             "name": "mosaic_probe_kernel",
             "route": "cuda",

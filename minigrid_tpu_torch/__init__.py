@@ -4,10 +4,11 @@ The JAX package `minigrid_tpu` is the reference; this package mirrors its
 module paths so each piece has an obvious counterpart, and imports only
 `torch` and `numpy`. Ported so far, on the steady carry surface: the
 packed rollout (`ops/fused_rollout.py`), its step loop in one
-hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for 33 ids of
-ten families: Empty, DistShift, DoorKey, Fetch, GoToDoor, GoToObject,
-PutNear, RedBlueDoors, KeyCorridor and MultiRoom (six family hooks in the
-kernel, `ops/packed_hooks.py`). In regen mode the random-layout families
+hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for 48 ids of
+fifteen families: Empty, DistShift, DoorKey, DynamicObstacles, Memory,
+Fetch, GoToDoor, GoToObject, PutNear, RedBlueDoors, MultiRoom, Unlock,
+UnlockPickup, BlockedUnlockPickup and KeyCorridor (every family hook of
+the JAX package in the kernel, `ops/packed_hooks.py`). In regen mode the random-layout families
 run exact chunked regen (`ops/chunked_regen.py`) with fresh layouts from
 their packed generators, whose plan loops are kernels of their own
 (`ops/csrc/gen_kernel.cu`), or from their batched `generate`, packed;

@@ -1,21 +1,27 @@
 """Registrations of the ported env ids, in the JAX package's order
 (`minigrid_tpu/envs/_register_all.py`): Empty (fixed and random start),
-DistShift, DoorKey, Fetch, GoToDoor, GoToObject, PutNear, RedBlueDoors,
-MultiRoom and KeyCorridor, each with the JAX package's configuration."""
+DistShift, DoorKey, DynamicObstacles, Memory, Fetch, GoToDoor,
+GoToObject, PutNear, RedBlueDoors, MultiRoom, Unlock, UnlockPickup,
+BlockedUnlockPickup and KeyCorridor, each with the JAX package's
+configuration."""
 
 from __future__ import annotations
 
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.envs import distshift as _distshift
 from minigrid_tpu_torch.envs import doorkey as _doorkey
+from minigrid_tpu_torch.envs import dynamicobstacles as _dynobst
 from minigrid_tpu_torch.envs import empty as _empty
 from minigrid_tpu_torch.envs import fetch as _fetch
 from minigrid_tpu_torch.envs import gotodoor as _gotodoor
 from minigrid_tpu_torch.envs import gotoobject as _gotoobject
 from minigrid_tpu_torch.envs import keycorridor as _keycorridor
+from minigrid_tpu_torch.envs import memory as _memory
 from minigrid_tpu_torch.envs import multiroom as _multiroom
 from minigrid_tpu_torch.envs import putnear as _putnear
 from minigrid_tpu_torch.envs import redbluedoors as _rbd
+from minigrid_tpu_torch.envs import unlock as _unlock
+from minigrid_tpu_torch.envs import unlockpickup as _unlockpickup
 from minigrid_tpu_torch.envs.registry import register
 
 for _size in (5, 6, 8, 16):
@@ -68,6 +74,47 @@ for _size in (5, 6, 8, 16):
         f"MiniGrid-DoorKey-{_size}x{_size}-v0",
         EnvConfig(family="doorkey", width=_size, height=_size, max_steps=10 * _size * _size),
         _doorkey.generate,
+    )
+
+# Three actions; max_steps = 4 * size * size.
+for _name, _size, _n, _random in (
+    ("5x5", 5, 2, False),
+    ("Random-5x5", 5, 2, True),
+    ("6x6", 6, 3, False),
+    ("Random-6x6", 6, 3, True),
+    ("8x8", 8, 4, False),
+    ("16x16", 16, 8, False),
+):
+    register(
+        f"MiniGrid-Dynamic-Obstacles-{_name}-v0",
+        EnvConfig(
+            family="dynamicobstacles",
+            width=_size,
+            height=_size,
+            max_steps=4 * _size * _size,
+            num_actions=3,
+            n_obstacles=_n,
+            agent_start_pos=None if _random else (1, 1),
+            agent_start_dir=None if _random else 0,
+        ),
+        _dynobst.generate,
+        _dynobst.TRANSITION,
+    )
+
+# max_steps = 5 * size * size.
+for _name, _size, _rand in (
+    ("S17Random", 17, True),
+    ("S13Random", 13, True),
+    ("S13", 13, False),
+    ("S11", 11, False),
+    ("S9", 9, False),
+    ("S7", 7, False),
+):
+    register(
+        f"MiniGrid-Memory{_name}-v0",
+        EnvConfig(family="memory", width=_size, height=_size, max_steps=5 * _size * _size, random_length=_rand),
+        _memory.generate,
+        _memory.TRANSITION,
     )
 
 for _size, _n in ((5, 2), (6, 2), (8, 3)):
@@ -133,6 +180,28 @@ for _name, _min, _max, _maxsz in (("N2-S4", 2, 2, 4), ("N4-S5", 4, 4, 5), ("N6",
         ),
         _multiroom.generate,
     )
+
+# Two rooms of size 6 side by side: an 11x6 grid.
+_RS = 6
+_ROOMGRID_1x2 = dict(width=(_RS - 1) * 2 + 1, height=_RS, room_size=_RS, num_rows=1, num_cols=2)
+register(
+    "MiniGrid-Unlock-v0",
+    EnvConfig(family="unlock", max_steps=8 * _RS * _RS, **_ROOMGRID_1x2),
+    _unlock.generate,
+    _unlock.TRANSITION,
+)
+register(
+    "MiniGrid-UnlockPickup-v0",
+    EnvConfig(family="unlockpickup", max_steps=8 * _RS * _RS, **_ROOMGRID_1x2),
+    _unlockpickup.generate,
+    _unlockpickup.TRANSITION,
+)
+register(
+    "MiniGrid-BlockedUnlockPickup-v0",
+    EnvConfig(family="blockedunlockpickup", max_steps=16 * _RS * _RS, extras=("blocked",), **_ROOMGRID_1x2),
+    _unlockpickup.generate,
+    _unlockpickup.TRANSITION,
+)
 
 # Three columns of rooms; max_steps = 30 * room_size**2.
 for _rs, _rows in ((3, 1), (3, 2), (3, 3), (4, 3), (5, 3), (6, 3)):

@@ -3,19 +3,26 @@
 
 A `num_rows × num_cols` matrix of `room_size²` rooms sharing wall lines,
 with per-room door slots in the order right, down, left, up. The port
-has the pieces `generate_packed` draws with: the colour order, the door
-slot positions (`init_plan`) and the neighbour arithmetic. The scalar
-`RG` helpers (`init`, `add_door`, `add_object`, `place_agent`,
-`connect_all`) come with the RoomGrid families that need them.
+has the pieces `generate_packed` draws with (the colour order, the door
+slot positions `init_plan`, the neighbour arithmetic) and the `RG`
+helpers of the JAX package batched over lanes: `init`, `add_door`,
+`room_interior_mask`, `reject_next_to_mask`, `place_in_room`,
+`add_object` and `place_agent`, each on a `(B, H, W, 5)` grid with one
+key per lane. Room and slot indices are Python ints, as the families
+that use them pass them. `remove_wall` and `connect_all` come with the
+families that need them.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
 from minigrid_tpu_torch.core import constants as C
-from minigrid_tpu_torch.core import prng
-from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.core import grid as G
+from minigrid_tpu_torch.core import prng, sampling
+from minigrid_tpu_torch.core.state import CH_TYPE, EnvConfig
 
 # _rand_color draws uniformly from the sorted colour names.
 COLOR_ORDER = tuple(C.COLOR_TO_IDX[name] for name in C.COLOR_NAMES)
@@ -68,3 +75,140 @@ def _neighbor_idx(i, j, k):
     dx = (k == RIGHT).to(i.dtype) - (k == LEFT).to(i.dtype)
     dy = (k == DOWN).to(i.dtype) - (k == UP).to(i.dtype)
     return i + dx, j + dy
+
+
+class RG(NamedTuple):
+    """A batch of room-grid build states (`B` leading everywhere)."""
+
+    grid: torch.Tensor  # (B, H, W, 5) uint8
+    door_pos: torch.Tensor  # (B, R, C, 4, 2) int32, (x, y) per slot
+    has_door: torch.Tensor  # (B, R, C, 4) bool
+    door_locked: torch.Tensor  # (B, R, C, 4) bool
+    locked: torch.Tensor  # (B, R, C) bool: the room owns a locked door
+    agent_pos: torch.Tensor  # (B, 2) int32
+
+
+def room_top(config: EnvConfig, i: int, j: int) -> Tuple[int, int]:
+    """The top-left corner of room (i = column, j = row)."""
+    s = config.room_size - 1
+    return i * s, j * s
+
+
+def init(keys: torch.Tensor, config: EnvConfig, base_grid: torch.Tensor) -> RG:
+    """Every room's wall outline painted on `base_grid`, the door slots
+    drawn (`init_plan`) and the agent at the centre of the middle room."""
+    rows, cols, rs = config.num_rows, config.num_cols, config.room_size
+    b, dev = keys.shape[0], keys.device
+    grid = base_grid
+    for j in range(rows):
+        for i in range(cols):
+            grid = G.wall_rect(grid, *room_top(config, i, j), rs, rs)
+    ax = (cols // 2) * (rs - 1) + rs // 2
+    ay = (rows // 2) * (rs - 1) + rs // 2
+    no = torch.zeros((b, rows, cols, 4), dtype=torch.bool, device=dev)
+    return RG(
+        grid=grid,
+        door_pos=init_plan(keys, config),
+        has_door=no,
+        door_locked=no.clone(),
+        locked=torch.zeros((b, rows, cols), dtype=torch.bool, device=dev),
+        agent_pos=torch.tensor([ax, ay], dtype=torch.int32, device=dev).expand(b, 2).clone(),
+    )
+
+
+def add_door(rg: RG, config: EnvConfig, i: int, j: int, k: int, color: torch.Tensor, locked: bool) -> RG:
+    """A door of `(B,)` colours in slot k of room (i, j), locked or closed,
+    registered on both rooms it joins."""
+    pos = rg.door_pos[:, j, i, k]
+    state = C.STATE_LOCKED if locked else C.STATE_CLOSED
+    z = torch.zeros_like(color)
+    cell = torch.stack([torch.full_like(color, C.DOOR), color, torch.full_like(color, state), z, z], dim=1)
+    grid = G.set_cell(rg.grid, pos[:, 0], pos[:, 1], cell)
+    ni = i + int(C.DIR_TO_VEC[k][0])
+    nj = j + int(C.DIR_TO_VEC[k][1])
+    has_door, door_locked, room_locked = rg.has_door.clone(), rg.door_locked.clone(), rg.locked.clone()
+    has_door[:, j, i, k] = has_door[:, nj, ni, (k + 2) % 4] = True
+    door_locked[:, j, i, k] = door_locked[:, nj, ni, (k + 2) % 4] = locked
+    room_locked[:, j, i] |= locked
+    return rg._replace(grid=grid, has_door=has_door, door_locked=door_locked, locked=room_locked)
+
+
+def room_interior_mask(config: EnvConfig, i: int, j: int, device="cpu") -> torch.Tensor:
+    """`(1, H, W)` bool of room (i, j)'s whole rectangle (`place_obj`'s
+    window; the free-cell test leaves its walls out)."""
+    rs = config.room_size
+    return sampling.rect_mask(config.height, config.width, *room_top(config, i, j), rs, rs, device=device)
+
+
+def reject_next_to_mask(config: EnvConfig, agent_pos: torch.Tensor) -> torch.Tensor:
+    """`(B, H, W)` bool: cells at Manhattan distance 2 or more from each
+    lane's agent (`(B, 2)` x, y)."""
+    dev = agent_pos.device
+    ys = torch.arange(config.height, device=dev)[None, :, None]
+    xs = torch.arange(config.width, device=dev)[None, None, :]
+    ax = agent_pos[:, 0].reshape(-1, 1, 1)
+    ay = agent_pos[:, 1].reshape(-1, 1, 1)
+    return (xs - ax).abs() + (ys - ay).abs() >= 2
+
+
+def place_in_room(rg: RG, config: EnvConfig, keys: torch.Tensor, i: int, j: int, cell: torch.Tensor):
+    """One `(B, 5)` cell per lane on a free cell of room (i, j) away from
+    the agent. Returns `(rg, x, y)`."""
+    mask = (
+        sampling.free_cell_mask(rg.grid, rg.agent_pos)
+        & room_interior_mask(config, i, j, device=rg.grid.device)
+        & reject_next_to_mask(config, rg.agent_pos)
+    )
+    x, y = sampling.sample_cell(keys, mask)
+    return rg._replace(grid=G.set_cell(rg.grid, x, y, cell)), x, y
+
+
+def add_object(
+    rg: RG,
+    config: EnvConfig,
+    keys: torch.Tensor,
+    i: int,
+    j: int,
+    kind: Optional[int] = None,
+    color: Optional[torch.Tensor] = None,
+):
+    """An object in room (i, j): of a random kind among key, ball and box
+    and of a random colour, where `kind` (an int) and `color` (`(B,)`) are
+    not given. Returns `(rg, type, color, x, y)`, `(B,)` int32 each."""
+    k_kind, k_color, k_pos = prng.split(keys, 3).unbind(1)
+    if kind is None:
+        kinds = torch.tensor([C.KEY, C.BALL, C.BOX], dtype=torch.int32, device=keys.device)
+        kind_arr = kinds[prng.randint(k_kind, 0, 3).long()]
+    else:
+        kind_arr = torch.full((keys.shape[0],), kind, dtype=torch.int32, device=keys.device)
+    if color is None:
+        color = rand_color(k_color)
+    z = torch.zeros_like(kind_arr)
+    cell = torch.stack([kind_arr, color.to(torch.int32), z, z, z], dim=1)
+    rg, x, y = place_in_room(rg, config, k_pos, i, j, cell)
+    return rg, kind_arr, color.to(torch.int32), x, y
+
+
+def place_agent(rg: RG, config: EnvConfig, keys: torch.Tensor, i: int, j: int):
+    """The agent on a free cell of room (i, j) with a heading whose front
+    cell is empty or a wall, the (position, heading) pair drawn uniformly
+    in the `(y·W + x)·4 + d` order. Returns `(rg, dir)`."""
+    b, h, w = rg.grid.shape[:3]
+    free = sampling.free_cell_mask(rg.grid) & room_interior_mask(config, i, j, device=rg.grid.device)
+    t = rg.grid[..., CH_TYPE]
+    ok = (t == C.EMPTY) | (t == C.WALL)
+    no_col = torch.zeros_like(ok[:, :, :1])
+    no_row = torch.zeros_like(ok[:, :1, :])
+    front_ok = torch.stack(
+        [
+            torch.cat([ok[:, :, 1:], no_col], 2),  # right
+            torch.cat([ok[:, 1:, :], no_row], 1),  # down
+            torch.cat([no_col, ok[:, :, :-1]], 2),  # left
+            torch.cat([no_row, ok[:, :-1, :]], 1),  # up
+        ],
+        dim=-1,
+    )
+    idx = sampling.sample_flat(keys, (free[..., None] & front_ok).reshape(b, h * w * 4))
+    x = ((idx // 4) % w).to(torch.int32)
+    y = (idx // (4 * w)).to(torch.int32)
+    return rg._replace(agent_pos=torch.stack([x, y], dim=1)), (idx % 4).to(torch.int32)

@@ -116,9 +116,9 @@ def _open() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr = ctypes.c_void_p
-        lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 10 + [ptr]
+        lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 11 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
-        lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 13 + [ptr]
+        lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 14 + [ptr]
         lib.mg_policy_launch.restype = ctypes.c_int
         lib.mg_grad_launch.argtypes = (
             [ptr] * 17 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_int, ptr]

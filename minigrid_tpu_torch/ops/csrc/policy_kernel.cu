@@ -2,10 +2,9 @@
 // collect mode.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/policy_rollout.py::_policy_kernel
-// with the ported family post-hooks (six of the nine: pickup-target,
-// Fetch, GoToDoor, GoToObject, PutNear, RedBlueDoors; Unlock, Memory and
-// DynamicObstacles, the pre-hook and the remaps are still to port). It
-// runs T steps per lane in one launch. Each step takes the actor on the lane's pre-step
+// with every family hook (the nine post-hooks, the two action remaps and
+// the DynamicObstacles pre-hook, in step_device.cuh). It runs T steps per
+// lane in one launch. Each step takes the actor on the lane's pre-step
 // view, as `policy_logits` computes it: value-major one-hot features of the
 // (V*V) view (hidden cells read as value 0) -> (256 x V*V*20) bf16 product
 // -> bf16 + b1 -> relu -> (256 x 256) bf16 product -> bf16 + b2 -> relu ->
@@ -72,12 +71,17 @@
 //    step 0, after step t - 1 for step t), its scalar rows after the draw
 //    and the env step. Nothing is written after the last step.
 //  * Instantiated: every kCollect and kCtl, under each hook at the lane
-//    blocks its families reach: no hook, pickup-target and RedBlueDoors at
-//    BT 64 and 32, Fetch, GoToDoor, GoToObject and PutNear at BT 64 (40
-//    kernels). The template is in policy_kernel.cuh; the family hooks are
-//    instantiated in policy_hooks_fetch_goto.cu and
-//    policy_hooks_putnear_rbd.cu, so that the three files compile in
-//    parallel. A combination not built returns cudaErrorInvalidValue.
+//    blocks its families reach: no hook, pickup-target, RedBlueDoors,
+//    Memory and DynamicObstacles at BT 64 and 32, Fetch, GoToDoor,
+//    GoToObject, PutNear and Unlock at BT 64 (60 kernels). The template is
+//    in policy_kernel.cuh; the family hooks are instantiated in
+//    policy_hooks_fetch_goto.cu, policy_hooks_putnear_rbd.cu,
+//    policy_hooks_memory_unlock.cu and policy_hooks_dynobst.cu, so that
+//    the five files compile in parallel. A combination not built returns
+//    cudaErrorInvalidValue.
+//  * The DynamicObstacles obstacles' coordinates sit after the offset
+//    tables, [4n][BT] int32 (committed and new), not in registers: 4 KB
+//    at 16x16, BT = 32.
 //  * Under kCtl a lane that can no longer commit stays in the T loop,
 //    since all 256 threads take part in the products and the barriers: it
 //    draws no action, takes no step, adds nothing to its sums, reads no
@@ -93,8 +97,9 @@ extern "C" {
 
 // Launch the policy rollout on `stream` with `smem_bytes` of dynamic shared
 // memory per block (ops/policy_rollout.py::policy_smem_bytes, the layout
-// policy_kernel carves) and family hook `hook` (an id of step_device.cuh,
-// kHookNone to kHookRedBlueDoors); returns the cudaError_t of the launch
+// policy_kernel carves), family hook `hook` (an id of step_device.cuh,
+// kHookNone to kHookDynamicObstacles) and `n_obst` DynamicObstacles
+// obstacles (0 under any other hook); returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for an unknown hook, or a lane block the hook is
 // not built for). A non-null `spill` selects
 // collect mode: the kernel then writes the (T, spill_rows, B) int32
@@ -107,7 +112,7 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
                      void* counts_out, void* spill, const void* ctl_in, void* ctl_out, int B, int T,
                      int width, int height, int view,
                      int max_steps, int see_through_walls, int num_regs, int num_actions,
-                     int spill_rows, int hook, int lane_block, int smem_bytes, void* stream) {
+                     int spill_rows, int hook, int n_obst, int lane_block, int smem_bytes, void* stream) {
   mg_policy::Params p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -138,6 +143,7 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.num_regs = num_regs;
   p.num_actions = num_actions;
   p.spill_rows = spill_rows;
+  p.n_obst = n_obst;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool collect = spill != nullptr;
   const bool ctl = ctl_in != nullptr;
@@ -152,6 +158,10 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
     case kHookPutNear:
     case kHookRedBlueDoors:
       return mg_policy::launch_putnear_rbd(p, hook, lane_block, collect, ctl, smem_bytes, s);
+    case kHookMemory:
+    case kHookUnlock:
+      return mg_policy::launch_memory_unlock(p, hook, lane_block, collect, ctl, smem_bytes, s);
+    case kHookDynamicObstacles: return mg_policy::launch_dynobst(p, lane_block, collect, ctl, smem_bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
 // The policy kernel (policy_kernel.cu describes it) as templates, shared
 // by the translation units that instantiate it: policy_kernel.cu (no hook
 // and the pickup-target hook, with the C entry point), and
-// policy_hooks_fetch_goto.cu and policy_hooks_putnear_rbd.cu (the other
+// policy_hooks_fetch_goto.cu, policy_hooks_putnear_rbd.cu,
+// policy_hooks_memory_unlock.cu and policy_hooks_dynobst.cu (the other
 // family hooks). Each compiles in its own nvcc process, so the build takes
 // as long as the largest of them.
 
@@ -40,6 +41,7 @@ struct Params {
   const int32_t* ctl_in;  // kCtl: (3, B) commit rows
   int32_t* ctl_out;       // kCtl: (3, B)
   int B, T, width, height, view, max_steps, see_through_walls, num_regs, num_actions, spill_rows;
+  int n_obst;  // DynamicObstacles obstacles (0 under any other hook)
 };
 
 // Launchers of the family-hook instantiations, one per translation unit:
@@ -49,6 +51,9 @@ int launch_fetch_goto(const Params& p, int hook, int lane_block, bool collect, b
                       cudaStream_t stream);
 int launch_putnear_rbd(const Params& p, int hook, int lane_block, bool collect, bool ctl, int smem,
                        cudaStream_t stream);
+int launch_memory_unlock(const Params& p, int hook, int lane_block, bool collect, bool ctl, int smem,
+                         cudaStream_t stream);
+int launch_dynobst(const Params& p, int lane_block, bool collect, bool ctl, int smem, cudaStream_t stream);
 
 }  // namespace mg_policy
 
@@ -109,9 +114,11 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Pa
   float* b1_s = wta_s + kHeadRows * kHidden;
   float* b2_s = b1_s + kHidden;
   float* ba_s = b2_s + kHidden;
-  const StepShape sh{p.width, p.height, p.width * p.height, v, p.max_steps, p.see_through_walls};
+  const StepShape sh{p.width,     p.height,           p.width * p.height, v,
+                     p.max_steps, p.see_through_walls, p.n_obst,           p.num_regs - 2};
   int32_t* grid_s = reinterpret_cast<int32_t*>(ba_s + kHeadRows);
   int32_t* tab = grid_s + sh.hw * BT;
+  int32_t* obst = tab + 4 + 4 * v2;  // [4n][BT]: the DynamicObstacles rows
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -148,7 +155,8 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Pa
   int episodes = 0;
   int checksum = 0;
   if (live) {
-    load_lane<kHook>(g, BT, p.words_in, p.regs_in, B, lane, sh.hw, s);
+    s.ob = obst + tid;
+    load_lane<kHook>(g, BT, p.words_in, p.regs_in, B, lane, sh, s);
     if (kCtl) {
       ctl.consumed = p.ctl_in[lane];
       ctl.steps_done = p.ctl_in[B + lane];
@@ -252,8 +260,8 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Pa
   }
 
   if (live) {
-    store_lane(g, BT, p.words_out, p.regs_out, p.regs_in, p.tmpl_regs, reset_any, B, lane, sh.hw,
-               p.num_regs, s);
+    store_lane<kHook>(g, BT, p.words_out, p.regs_out, p.regs_in, p.tmpl_regs, reset_any, B, lane, sh,
+                      p.num_regs, s);
     p.rsum_out[lane] = rsum;
     p.counts_out[lane] = episodes;
     p.counts_out[B + lane] = checksum;

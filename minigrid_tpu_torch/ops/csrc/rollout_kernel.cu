@@ -2,11 +2,12 @@
 // probe kernel at the end of the file.
 //
 // Replaces the TPU kernel minigrid_tpu/ops/fused_rollout.py::_rollout_kernel
-// (the base step, six of the nine family post-hooks and the chunked-regen
-// control rows; the Unlock, Memory and DynamicObstacles hooks, the
-// DynamicObstacles pre-hook, the action remaps and the matmul row reader
-// are still to port). It runs T environment steps per lane in one launch and computes
-// what that kernel computes: the 7-action transition, the family hook, the
+// (the base step, every family hook and the chunked-regen control rows; the
+// TPU kernel's matmul row reader is a layout choice of that chip, and this
+// kernel reads rows by address under every `row_reader`). It runs T
+// environment steps per lane in one launch and computes what that kernel
+// computes: the family's action remap and pre-hook (the DynamicObstacles
+// walk), the 7-action transition, the family post-hook, the
 // forward-cell write-back, the re-centring on a forward move, template
 // auto-reset, the V*V egocentric view read with out-of-bounds wall fill and
 // the carried-object overlay, the occlusion flood, and the per-step obs
@@ -21,7 +22,8 @@
 // shared-memory load, plus the flood when walls occlude). The lane's grid
 // stays in shared memory for the whole call, so the only per-step global
 // traffic is 4 B of action read per lane-step; template words are read only
-// by lanes that reset.
+// by lanes that reset. Under the DynamicObstacles pre-hook each lane-step
+// adds n Threefry-20 evaluations and the walk's coordinate tests.
 //
 // Design:
 //  * One thread per lane. A block of `bt` lanes keeps its grids in shared
@@ -33,6 +35,9 @@
 //    step_device.cuh, which the policy kernel shares. The hook id and the
 //    control rows are template parameters, so the base step compiles as
 //    it did without them.
+//  * The DynamicObstacles obstacles' coordinates live in shared memory
+//    after the offset tables, [4n][bt] int32 (committed and new), not in
+//    registers.
 
 #include <cstddef>
 #include <cstdint>
@@ -56,7 +61,7 @@ struct Params {
   float* rsum_out;     // (B,)
   int32_t* counts_out;  // (2, B): episodes; obs checksum
   int32_t* ctl_out;     // (3, B), when ctl_in is not null
-  int B, T, width, height, view, max_steps, see_through_walls, num_regs;
+  int B, T, width, height, view, max_steps, see_through_walls, num_regs, n_obst;
 };
 
 template <int kHook, bool kCtl>
@@ -64,9 +69,10 @@ __global__ void rollout_kernel(const Params p) {
   extern __shared__ int32_t smem[];
   const int bt = blockDim.x;
   const int tid = threadIdx.x;
-  const StepShape sh{p.width, p.height, p.width * p.height, p.view, p.max_steps,
-                     p.see_through_walls};
+  const StepShape sh{p.width,     p.height,           p.width * p.height, p.view,
+                     p.max_steps, p.see_through_walls, p.n_obst,           p.num_regs - 2};
   int32_t* tab = smem + static_cast<size_t>(sh.hw) * bt;  // after the grids
+  int32_t* obst = tab + 4 + 4 * p.view * p.view;           // after the tables
 
   for (int i = tid; i < 4 + 4 * p.view * p.view; i += bt) tab[i] = p.tables[i];
   __syncthreads();  // the only block-wide step; each thread owns its column
@@ -77,7 +83,8 @@ __global__ void rollout_kernel(const Params p) {
   int32_t* g = smem + tid;  // this lane's grid: row r at g[r * bt]
 
   Lane s;
-  load_lane<kHook>(g, bt, p.words_in, p.regs_in, B, lane, sh.hw, s);
+  s.ob = obst + tid;  // this lane's obstacle rows, if any
+  load_lane<kHook>(g, bt, p.words_in, p.regs_in, B, lane, sh, s);
   Ctl ctl{};
   if (kCtl) {
     ctl.consumed = p.ctl_in[lane];
@@ -109,8 +116,8 @@ __global__ void rollout_kernel(const Params p) {
     checksum += obs_sum;
   }
 
-  store_lane(g, bt, p.words_out, p.regs_out, p.regs_in, p.tmpl_regs, reset_any, B, lane, sh.hw,
-             p.num_regs, s);
+  store_lane<kHook>(g, bt, p.words_out, p.regs_out, p.regs_in, p.tmpl_regs, reset_any, B, lane, sh,
+                    p.num_regs, s);
   p.rsum_out[lane] = rsum;
   p.counts_out[lane] = episodes;
   p.counts_out[B + lane] = checksum;
@@ -160,7 +167,8 @@ int mg_probe_launch(const void* in, void* out, int n, void* stream) {
 }
 
 // Launch the rollout on `stream` with family hook `hook` (an id of
-// step_device.cuh, kHookNone to kHookRedBlueDoors); a non-null `ctl_in`
+// step_device.cuh, kHookNone to kHookDynamicObstacles) and `n_obst`
+// DynamicObstacles obstacles (0 for any other hook); a non-null `ctl_in`
 // runs the chunked-regen commit protocol and writes `ctl_out`. Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for an unknown hook).
 int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
@@ -168,7 +176,7 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
                       const void* ctl_in, void* words_out, void* regs_out, void* rsum_out,
                       void* counts_out, void* ctl_out, int B, int T, int width, int height,
                       int view, int max_steps, int see_through_walls, int num_regs, int hook,
-                      int lane_block, void* stream) {
+                      int n_obst, int lane_block, void* stream) {
   Params p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -190,9 +198,11 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
   p.max_steps = max_steps;
   p.see_through_walls = see_through_walls;
   p.num_regs = num_regs;
+  p.n_obst = n_obst;
 
-  const size_t smem = (static_cast<size_t>(width) * height * lane_block + 4 + 4 * view * view) *
-                      sizeof(int32_t);
+  const size_t smem =
+      ((static_cast<size_t>(width) * height + 4 * n_obst) * lane_block + 4 + 4 * view * view) *
+      sizeof(int32_t);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ctl = ctl_in != nullptr;
   switch (hook) {
@@ -203,6 +213,9 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
     case kHookGoToObject: return launch<kHookGoToObject>(p, ctl, lane_block, smem, st);
     case kHookPutNear: return launch<kHookPutNear>(p, ctl, lane_block, smem, st);
     case kHookRedBlueDoors: return launch<kHookRedBlueDoors>(p, ctl, lane_block, smem, st);
+    case kHookMemory: return launch<kHookMemory>(p, ctl, lane_block, smem, st);
+    case kHookUnlock: return launch<kHookUnlock>(p, ctl, lane_block, smem, st);
+    case kHookDynamicObstacles: return launch<kHookDynamicObstacles>(p, ctl, lane_block, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

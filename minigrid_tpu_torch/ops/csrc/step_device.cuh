@@ -2,9 +2,9 @@
 // and policy_kernel.cu): the 7-action transition, the forward-cell
 // write-back, the re-centring on a forward move, template auto-reset, and
 // the V*V egocentric view read with out-of-bounds wall fill, the
-// carried-object overlay and the occlusion flood, with the family
-// post-hooks (six of the JAX package's nine) and the chunked-regen commit
-// rows. The JAX
+// carried-object overlay and the occlusion flood, with every family hook
+// of the JAX package (the nine post-hooks, the two action remaps and the
+// DynamicObstacles pre-hook) and the chunked-regen commit rows. The JAX
 // package's counterparts are `_step_core` and `_obs_core` in
 // minigrid_tpu/ops/fused_rollout.py.
 //
@@ -25,6 +25,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kEmpty = 1;
@@ -41,21 +43,30 @@ constexpr int kStateLocked = 2;
 constexpr int kGrey = 5;
 constexpr int kWallWord = kWall | (kGrey << 4);
 constexpr int kEmptyWord = kEmpty;
+constexpr int kBlue = 2;
+constexpr int kBallWord = kBall | (kBlue << 4);  // a DynamicObstacles obstacle
 constexpr int kNumScalars = 8;  // x, y, dir, ct, cc, cct, ccc, step_count
 
-// The static shape of a rollout: grid, view and episode length.
+// The static shape of a rollout: grid, view and episode length; the
+// DynamicObstacles count, and the first of the two rng rows (num_regs - 2).
 struct StepShape {
-  int width, height, hw, view, max_steps, see_through_walls;
+  int width, height, hw, view, max_steps, see_through_walls, n_obst, rng_row;
 };
 
 // A lane's scalar registers, its grid's row offset, and the aux rows the
 // hooks read (those of the current episode): aux0 and aux1 always, aux2 and
 // aux3 only under the hooks that read them (kReadsAux23), so that the
-// other instantiations keep their register count.
+// other instantiations keep their register count. Under the
+// DynamicObstacles hook, the episode's rng words and the lane's column of
+// obstacle rows in shared memory (stride bt): rows 0..2n-1 hold the
+// committed (x, y) of each obstacle, rows 2n..4n-1 the walk's new ones
+// until the step commits.
 struct Lane {
   int x, y, d, ct, cc, cct, ccc, sc;
   int shift;  // logical row s is physical row (s + shift) % hw
   int aux0, aux1, aux2, aux3;
+  uint32_t k0, k1;
+  int32_t* ob;
 };
 
 __device__ __forceinline__ int wrap_row(int p, int hw) { return p >= hw ? p - hw : p; }
@@ -79,17 +90,31 @@ constexpr int kHookGoToDoor = 3;      // _hook_gotodoor
 constexpr int kHookGoToObject = 4;    // _hook_gotoobject
 constexpr int kHookPutNear = 5;       // _hook_putnear
 constexpr int kHookRedBlueDoors = 6;  // _hook_redbluedoors
+constexpr int kHookMemory = 7;        // _hook_memory, _remap_memory
+constexpr int kHookUnlock = 8;        // _hook_unlock
+constexpr int kHookDynamicObstacles = 9;  // _make_pre_dynamicobstacles, _hook_dynamicobstacles,
+                                          // _remap_dynamicobstacles
 
 template <int kHook>
-constexpr bool kReadsAux23 = kHook == kHookPutNear || kHook == kHookRedBlueDoors;
+constexpr bool kReadsAux23 = kHook == kHookPutNear || kHook == kHookRedBlueDoors || kHook == kHookMemory;
+
+// The episode's rng words and obstacle rows from the (num_regs, B)
+// registers `regs` (the live ones, or the template's on a reset).
+__device__ __forceinline__ void load_obstacles(const int32_t* regs, size_t B, int lane, int bt,
+                                               const StepShape& sh, Lane& s) {
+  s.k0 = static_cast<uint32_t>(regs[sh.rng_row * B + lane]);
+  s.k1 = static_cast<uint32_t>(regs[(sh.rng_row + 1) * B + lane]);
+  for (int r = 0; r < 2 * sh.n_obst; ++r) s.ob[r * bt] = regs[(kNumScalars + r) * B + lane];
+}
 
 // Load lane `lane`'s grid column (g) and scalars from the (HW, B) words and
-// (num_regs, B) registers.
+// (num_regs, B) registers. Under the DynamicObstacles hook `s.ob` must
+// point at the lane's obstacle column already.
 template <int kHook>
 __device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* words,
-                                          const int32_t* regs, size_t B, int lane, int hw,
-                                          Lane& s) {
-  for (int r = 0; r < hw; ++r) g[r * bt] = words[r * B + lane];
+                                          const int32_t* regs, size_t B, int lane,
+                                          const StepShape& sh, Lane& s) {
+  for (int r = 0; r < sh.hw; ++r) g[r * bt] = words[r * B + lane];
   s.x = regs[0 * B + lane];
   s.y = regs[1 * B + lane];
   s.d = regs[2 * B + lane];
@@ -105,12 +130,16 @@ __device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* wor
     s.aux2 = regs[(kNumScalars + 2) * B + lane];
     s.aux3 = regs[(kNumScalars + 3) * B + lane];
   }
+  if constexpr (kHook == kHookDynamicObstacles) load_obstacles(regs, B, lane, bt, sh, s);
 }
 
 // int32 arithmetic that wraps as the reference's does (aux rows may hold
-// any value): a - b, and |a| (the most negative value stays itself).
+// any value): a - b, a + b, and |a| (the most negative value stays itself).
 __device__ __forceinline__ int wsub(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
 }
 __device__ __forceinline__ int wabs(int a) {
   return a < 0 ? static_cast<int>(0u - static_cast<uint32_t>(a)) : a;
@@ -133,6 +162,76 @@ __device__ __forceinline__ bool door_open(int w) {
   return (w & 15) == kDoor && ((w >> 8) & 15) == kStateOpen;
 }
 
+// The DynamicObstacles walk (the pre-hook), without a grid write: each
+// obstacle i in turn draws hash_u31(k0, k1, sc * n + i) and moves to the
+// draw's pick (u % count) among the valid cells of its 3x3 box in
+// row-major (dy, dx) order, or stays when none is valid. A cell is valid if
+// it is interior, not the goal (w - 2, h - 2), not the agent's, and no
+// obstacle's current cell: those before i at their new cells, i and those
+// after at their old ones (so staying is never a candidate). Validity comes
+// from the registers, as in the reference. The new cells go to rows 2n..4n-1
+// of the lane's obstacle column. Returns the forward word after the walk's
+// writes, in their order (obstacle i empties its old cell, then fills its
+// new one): `fw` is the word before them, `fp` the forward cell's physical
+// row.
+__device__ __forceinline__ int obstacle_walk(const Lane& s, const StepShape& sh, int bt, int fp, int fw) {
+  const int n = sh.n_obst;
+  const int32_t* cur = s.ob;
+  int32_t* nxt = s.ob + 2 * n * bt;
+  const uint32_t c0 = static_cast<uint32_t>(s.sc) * static_cast<uint32_t>(n);
+  for (int i = 0; i < n; ++i) {
+    const int u = hash_u31(s.k0, s.k1, c0 + static_cast<uint32_t>(i));
+    const int ox = cur[2 * i * bt];
+    const int oy = cur[(2 * i + 1) * bt];
+    // Bit (dy + 1) * 3 + (dx + 1) stands for the cell (ox + dx, oy + dy).
+    uint32_t valid = 0;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int nx = wadd(ox, k % 3 - 1);
+      const int ny = wadd(oy, k / 3 - 1);
+      const bool ok = nx >= 1 && nx <= sh.width - 2 && ny >= 1 && ny <= sh.height - 2 &&
+                      !(nx == sh.width - 2 && ny == sh.height - 2) && !(nx == s.x && ny == s.y);
+      valid |= static_cast<uint32_t>(ok) << k;
+    }
+    for (int j = 0; j < n; ++j) {
+      const int32_t* o = j < i ? nxt : cur;
+      const int dx = wsub(o[2 * j * bt], ox);
+      const int dy = wsub(o[(2 * j + 1) * bt], oy);
+      if (dx >= -1 && dx <= 1 && dy >= -1 && dy <= 1) valid &= ~(1u << ((dy + 1) * 3 + dx + 1));
+    }
+    int nx = ox;
+    int ny = oy;
+    const int count = __popc(valid);
+    if (count > 0) {
+      uint32_t m = valid;
+      for (int r = u % count; r > 0; --r) m &= m - 1;  // drop the r lowest valid cells
+      const int k = __ffs(m) - 1;
+      nx = wadd(ox, k % 3 - 1);
+      ny = wadd(oy, k / 3 - 1);
+    }
+    nxt[2 * i * bt] = nx;
+    nxt[(2 * i + 1) * bt] = ny;
+    if (abs_row(s, sh, ox, oy) == fp) fw = kEmptyWord;
+    if (abs_row(s, sh, nx, ny) == fp) fw = kBallWord;
+  }
+  return fw;
+}
+
+// The walk's writes, once the step commits, in the reference's order: each
+// obstacle empties its old cell and fills its new one; the new cells become
+// the committed ones.
+__device__ __forceinline__ void commit_walk(int32_t* g, int bt, const StepShape& sh, Lane& s) {
+  const int n = sh.n_obst;
+  for (int i = 0; i < n; ++i) {
+    const int nx = s.ob[(2 * n + 2 * i) * bt];
+    const int ny = s.ob[(2 * n + 2 * i + 1) * bt];
+    g[abs_row(s, sh, s.ob[2 * i * bt], s.ob[(2 * i + 1) * bt]) * bt] = kEmptyWord;
+    g[abs_row(s, sh, nx, ny) * bt] = kBallWord;
+    s.ob[2 * i * bt] = nx;
+    s.ob[(2 * i + 1) * bt] = ny;
+  }
+}
+
 // A lane's exact-chunked-regen commit rows (ops/chunked_regen.py,
 // invariants I2-I3): this launch's template used, steps committed toward
 // the chunk, lane frozen for the rest of the launch.
@@ -140,17 +239,20 @@ struct Ctl {
   int consumed, steps_done, frozen;
 };
 
-// One transition under action `a`, the family hook `kHook`, then template
-// auto-reset. `tab` holds off_fwd (4 entries) then off_view (4 * V * V).
-// Sets `reward` and `done` (terminated or truncated, so the lane was
-// reset) and returns true if the step was committed.
+// One transition under action `a`, the family hooks `kHook` (the action
+// remap and the pre-hook before the base transition, the post-hook after
+// it, which sees the original action), then template auto-reset. `tab`
+// holds off_fwd (4 entries) then off_view (4 * V * V). Sets `reward` and
+// `done` (terminated or truncated, so the lane was reset) and returns true
+// if the step was committed.
 //
 // With kCtl the step runs under the commit protocol: it is skipped once
 // the lane has committed `chunk_len` steps or is frozen, and a step that
 // ends an episode while this launch's template is already consumed
 // freezes the lane and is discarded whole. So `done` is decided before the
 // grid is written: nothing of a step that is not committed is left behind,
-// and it adds 0 to reward, episodes and checksum.
+// and it adds 0 to reward, episodes and checksum. The pre-hook's walk is
+// computed first and written only on commit, so it too leaves no trace.
 template <int kHook, bool kCtl>
 __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* tab,
                                              const int32_t* tmpl_words, const int32_t* tmpl_regs,
@@ -162,7 +264,16 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
   if (kCtl && (ctl.steps_done >= chunk_len || ctl.frozen != 0)) return false;
   const int hw = sh.hw;
   const int fp = wrap_row(s.shift + tab[s.d], hw);  // forward cell, physical row
-  const int fw = g[fp * bt];
+  int fw = g[fp * bt];
+  bool not_clear = false;  // the forward cell before the walk is blocked
+  if constexpr (kHook == kHookDynamicObstacles) {
+    not_clear = (fw & 15) != kEmpty && (fw & 15) != kGoal;
+    fw = obstacle_walk(s, sh, bt, fp, fw);
+  }
+  // The remapped action drives the base transition; the hooks read `a_orig`.
+  const int a_orig = a;
+  if constexpr (kHook == kHookMemory) a = a == 3 ? 5 : a;
+  if constexpr (kHook == kHookDynamicObstacles) a = a >= 3 ? 0 : a;
   const int ft = fw & 15;
   const int fc = (fw >> 4) & 15;
   const int fs = (fw >> 8) & 15;
@@ -211,7 +322,7 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
 
   if constexpr (kHook == kHookPickupTarget) {
     // A pickup that leaves the agent carrying the aux target succeeds.
-    if (a == 3 && ct1 == s.aux0 && cc1 == s.aux1) {
+    if (a_orig == 3 && ct1 == s.aux0 && cc1 == s.aux1) {
       r = success;
       terminated = true;
     }
@@ -231,8 +342,8 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     const int dy = wabs(wsub(moves ? s.y + diry : s.y, s.aux1));
     const bool near = kHook == kHookGoToDoor ? (dx == 0 && dy == 1) || (dy == 0 && dx == 1)
                                              : dx <= 1 && dy <= 1;
-    if (a == 6 && near) r = success;
-    terminated = terminated || a == 6 || a == 5;
+    if (a_orig == 6 && near) r = success;
+    terminated = terminated || a_orig == 6 || a_orig == 5;
   }
   if constexpr (kHook == kHookPutNear) {
     // A pickup action while holding anything but the aux object (aux0,
@@ -240,10 +351,10 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     // it landed in the pre-step forward cell within one cell of the
     // target (aux2, aux3).
     const bool wrong = ct1 > 0 && (ct1 != s.aux0 || cc1 != s.aux1);
-    const bool dropped = s.ct > 0 && a == 4;
+    const bool dropped = s.ct > 0 && a_orig == 4;
     const bool near = wabs(wsub(s.x + dirx, s.aux2)) <= 1 && wabs(wsub(s.y + diry, s.aux3)) <= 1;
     if (dropped && ct1 == 0 && near) r = success;
-    terminated = terminated || (a == 3 && wrong) || dropped;
+    terminated = terminated || (a_orig == 3 && wrong) || dropped;
   }
   if constexpr (kHook == kHookRedBlueDoors) {
     // The red door (aux0, aux1) and the blue door (aux2, aux3) before and
@@ -264,6 +375,36 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     if (fail) r = 0.0f;
     terminated = terminated || win || fail;
   }
+  if constexpr (kHook == kHookMemory) {
+    // Stepping onto the success cell (aux0, aux1) rewards, onto the
+    // failure cell (aux2, aux3) fails with 0; either ends the episode.
+    const int x1 = moves ? s.x + dirx : s.x;
+    const int y1 = moves ? s.y + diry : s.y;
+    const bool on_success = x1 == s.aux0 && y1 == s.aux1;
+    const bool on_failure = x1 == s.aux2 && y1 == s.aux3;
+    if (on_success) r = success;
+    if (on_failure) r = 0.0f;
+    terminated = terminated || on_success || on_failure;
+  }
+  if constexpr (kHook == kHookUnlock) {
+    // A toggle that leaves the door (aux0, aux1) open succeeds; the door
+    // is read after this step's forward-cell write, which has not
+    // happened yet.
+    const int row = abs_row(s, sh, s.aux0, s.aux1);
+    if (a_orig == 5 && door_open(row == fp ? static_cast<int>(new_fwd) : g[row * bt])) {
+      r = success;
+      terminated = true;
+    }
+  }
+  if constexpr (kHook == kHookDynamicObstacles) {
+    // A forward move (of the remapped action, as the reference's hook
+    // remaps it again) into a cell blocked before the walk costs -1 and
+    // ends the episode.
+    if (a == 2 && not_clear) {
+      r = -1.0f;
+      terminated = true;
+    }
+  }
   const bool d = terminated || sc1 >= sh.max_steps;
   if (kCtl) {
     if (d && ctl.consumed == 1) {  // would reuse the consumed template: freeze
@@ -274,6 +415,7 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     if (d) ctl.consumed = 1;
   }
 
+  if constexpr (kHook == kHookDynamicObstacles) commit_walk(g, bt, sh, s);
   g[fp * bt] = static_cast<int32_t>(new_fwd);
   if (moves) s.shift = fp;  // re-centre: the forward cell becomes row 0
   if (d) {
@@ -293,6 +435,7 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
       s.aux2 = tmpl_regs[(kNumScalars + 2) * B + lane];
       s.aux3 = tmpl_regs[(kNumScalars + 3) * B + lane];
     }
+    if constexpr (kHook == kHookDynamicObstacles) load_obstacles(tmpl_regs, B, lane, bt, sh, s);
   } else {
     s.x = moves ? s.x + dirx : s.x;
     s.y = moves ? s.y + diry : s.y;
@@ -366,16 +509,21 @@ __device__ __forceinline__ void read_view(const int32_t* g, int bt, const int32_
 }
 
 // Store the lane's grid (undoing the row offset) and registers. The aux,
-// mission and rng rows only change on reset, to the template's.
+// mission and rng rows change only on reset, to the template's, except the
+// DynamicObstacles obstacle rows, which the walk moves: those are stored
+// from the lane's obstacle column.
+template <int kHook>
 __device__ __forceinline__ void store_lane(const int32_t* g, int bt, int32_t* words_out,
                                            int32_t* regs_out, const int32_t* regs_in,
                                            const int32_t* tmpl_regs, bool reset_any, size_t B,
-                                           int lane, int hw, int num_regs, const Lane& s) {
-  for (int r = 0; r < hw; ++r) words_out[r * B + lane] = g[wrap_row(r + s.shift, hw) * bt];
+                                           int lane, const StepShape& sh, int num_regs, const Lane& s) {
+  for (int r = 0; r < sh.hw; ++r) words_out[r * B + lane] = g[wrap_row(r + s.shift, sh.hw) * bt];
   const int scalars[kNumScalars] = {s.x, s.y, s.d, s.ct, s.cc, s.cct, s.ccc, s.sc};
   for (int r = 0; r < kNumScalars; ++r) regs_out[r * B + lane] = scalars[r];
   const int32_t* tail = reset_any ? tmpl_regs : regs_in;
-  for (int r = kNumScalars; r < num_regs; ++r) regs_out[r * B + lane] = tail[r * B + lane];
+  const int live = kHook == kHookDynamicObstacles ? 2 * sh.n_obst : 0;
+  for (int r = 0; r < live; ++r) regs_out[(kNumScalars + r) * B + lane] = s.ob[r * bt];
+  for (int r = kNumScalars + live; r < num_regs; ++r) regs_out[r * B + lane] = tail[r * B + lane];
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Threefry-2x32, 20 rounds, on native uint32_t: the port's
 // core/prng.py::threefry2x32 and the JAX package's
 // minigrid_tpu/core/prng.py::threefry2x32. Shared by the policy kernel
-// (its seed stream reads x0) and the connect kernel (a jax.random split
-// child is the pair (x0, x1), and scalar random bits are x0 ^ x1).
+// (its seed stream reads x0), the connect kernel (a jax.random split
+// child is the pair (x0, x1), and scalar random bits are x0 ^ x1) and the
+// DynamicObstacles walk in step_device.cuh (hash_u31).
 
 #pragma once
 
@@ -32,6 +33,13 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t
     x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
   }
   return make_uint2(x0, x1);
+}
+
+// core/prng.py::hash_u31: 31 uniform bits per (key, counter), the low 31
+// bits of x0 at counter (c, 0). The caller wraps c in uint32, as the
+// reference's int32 counter wraps.
+__device__ __forceinline__ int hash_u31(uint32_t k0, uint32_t k1, uint32_t c) {
+  return static_cast<int>(threefry2x32(k0, k1, c, 0u).x & 0x7FFFFFFFu);
 }
 
 }  // namespace

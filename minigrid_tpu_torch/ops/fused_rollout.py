@@ -15,9 +15,10 @@ int32 register file. Two backends run the same step semantics:
     on any device. It is the reference the kernel is held against, the
     role `build_packed_xla_rollout` plays in the JAX package.
 
-Semantics are the JAX package's `_step_core`/`_obs_core`: the 7-action
-base transition, the family's post-hook (`ops/packed_hooks.py`; six of
-the JAX package's nine), forward-cell write-back, the re-centring roll
+Semantics are the JAX package's `_step_core`/`_obs_core`: the family's
+action remap and pre-hook, the 7-action base transition, the family's
+post-hook (`ops/packed_hooks.py`; all of the JAX package's), forward-cell
+write-back, the re-centring roll
 on a forward move, template auto-reset, the V² egocentric view with
 out-of-bounds wall fill and the carried-object overlay, the occlusion
 flood, and the per-step obs checksum. Modes: "cached" (every reset
@@ -99,26 +100,42 @@ def step_core(
     see_through_walls: bool,
     with_obs: bool = False,
     hook=None,
+    remap_action=None,
+    pre_hook=None,
     chunk_ctl=None,
     chunk_len=None,
 ):
-    """One packed transition + family hook + auto-reset + obs checksum:
+    """One packed transition + family hooks + auto-reset + obs checksum:
     the JAX package's `_step_core`.
 
     Returns `(words2, regs2, reward (1,B) f32, done (1,B) bool,
-    obs_sum (1,B) int32)`. `hook` is a post-hook of `ops/packed_hooks.py`
-    (None for the base step). With `chunk_ctl`, the `(3, B)` int32 commit
+    obs_sum (1,B) int32)`. `hook`, `remap_action` and `pre_hook` are what
+    `ops/packed_hooks.py::packed_hook` gives the transition (None for the
+    base step): the remapped action drives the base transition and the
+    hook sees the original; the pre-hook mutates the grid and registers
+    before the base transition and hands its stash to the hook, and a step
+    that does not reset keeps its registers (the aux rows included). With
+    `chunk_ctl`, the `(3, B)` int32 commit
     rows of exact chunked regen (`consumed`, `steps_done`, `frozen`;
     `ops/chunked_regen.py` I2-I3) and the chunk length `chunk_len`: a lane
     that has committed `chunk_len` steps or is frozen does nothing, and a
     step that ends an episode while the lane's template is already consumed
     freezes the lane and is discarded whole (state, reward, done, obs
-    checksum); the updated rows follow `obs_sum`. With `with_obs`, the
+    checksum; the pre-hook's writes too); the updated rows follow
+    `obs_sum`. With `with_obs`, the
     post-step view `(vw, vis)` (`obs_core`) comes last."""
     hw = width * height
     off_fwd, _, _, _ = _dir_tables(width, height, view)
     dev = words.device
     iota_hw = torch.arange(hw, dtype=torch.int32, device=dev)[:, None]
+
+    words_in, regs_in = words, regs  # what a step that is not committed leaves
+    a_orig = a
+    if remap_action is not None:
+        a = remap_action(a)
+    stash = None
+    if pre_hook is not None:
+        words, regs, stash = pre_hook(words, regs)
 
     x = regs[R_X : R_X + 1]
     y = regs[R_Y : R_Y + 1]
@@ -211,9 +228,10 @@ def step_core(
             return torch.gather(grid, 0, (((ay * width + ax) - base) % hw).long())
 
         reward, terminated = hook(
-            HookVals(a=a, x=x, y=y, ct=ct, cc=cc, x1=x1, y1=y1, ct1=ct1, cc1=cc1, fwd_x=x + dirx, fwd_y=y + diry,
+            HookVals(a=a_orig, x=x, y=y, ct=ct, cc=cc, x1=x1, y1=y1, ct1=ct1, cc1=cc1, fwd_x=x + dirx, fwd_y=y + diry,
                      reward=reward, terminated=terminated, success=success, aux=regs[R_AUX : R_AUX + AUX_LEN],
-                     read_pre=functools.partial(read_abs, words), read_post=functools.partial(read_abs, words1))
+                     read_pre=functools.partial(read_abs, words), read_post=functools.partial(read_abs, words1),
+                     stash=stash)
         )
 
     # Re-centre the grid on the agent after a forward move.
@@ -240,8 +258,8 @@ def step_core(
         active = (steps_done < chunk_len) & (frozen == 0)
         freeze_now = active & done & (consumed == 1)
         commit = active & ~freeze_now
-        words2 = torch.where(commit, words2, words)
-        regs2 = torch.where(commit, regs2, regs)
+        words2 = torch.where(commit, words2, words_in)
+        regs2 = torch.where(commit, regs2, regs_in)
         done = done & commit
         reward = torch.where(commit, reward, torch.zeros_like(reward))
         ctl2 = torch.cat([torch.where(done, torch.ones_like(consumed), consumed), steps_done + _i32(commit),
@@ -316,6 +334,13 @@ def obs_core(
     return vw, vis
 
 
+def hook_kwargs(transition: str, config: EnvConfig) -> dict:
+    """`step_core`'s `hook`, `remap_action` and `pre_hook` for `transition`
+    under `config` (`packed_hook`)."""
+    hook, remap_action, pre_hook = packed_hook(transition, config)
+    return dict(hook=hook, remap_action=remap_action, pre_hook=pre_hook)
+
+
 def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig, transition=BASE_STEP, ctl=None):
     """`T = actions.shape[0]` packed steps as a loop of torch ops, on any
     device, under `transition`'s hook. Returns `(words', regs', rsum,
@@ -335,7 +360,7 @@ def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig
         view=config.agent_view_size,
         max_steps=config.max_steps,
         see_through_walls=config.see_through_walls,
-        hook=packed_hook(transition),
+        **hook_kwargs(transition, config),
     )
     if ctl is not None:
         step = functools.partial(step, chunk_len=actions.shape[0])
@@ -362,21 +387,29 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
 _MAX_VIEW = 31  # the flood keeps one view row in the bits of a uint32
 
 
+def obstacle_rows(config: EnvConfig) -> int:
+    """Shared-memory int32 rows per lane that the kernels keep for the
+    DynamicObstacles walk: the obstacles' committed coordinates and the
+    walk's new ones, `2·n` each (0 for any other family)."""
+    return 4 * (config.n_obstacles or 0)
+
+
 def kernel_lane_block(config: EnvConfig) -> int:
     """Lanes per CUDA block: the largest of 128, 64, 32 whose `[HW][bt]`
-    int32 grid (plus the offset tables) fits one block's shared memory.
-    Raises on a configuration the kernel does not take."""
-    hw = config.width * config.height
+    int32 grid (plus the obstacle rows and the offset tables) fits one
+    block's shared memory. Raises on a configuration the kernel does not
+    take."""
+    rows = config.width * config.height + obstacle_rows(config)
     v = config.agent_view_size
     if v < 3 or v % 2 == 0 or v > _MAX_VIEW:
         raise ValueError(f"rollout kernel: view size {v} must be odd and in [3, {_MAX_VIEW}]")
     tables = (4 + 4 * v * v) * 4
     for bt in (128, 64, 32):
-        if hw * bt * 4 + tables <= _SMEM_LIMIT:
+        if rows * bt * 4 + tables <= _SMEM_LIMIT:
             return bt
     raise ValueError(
         f"rollout kernel: a {config.width}x{config.height} grid needs "
-        f"{hw * 32 * 4 + tables} B of shared memory for 32 lanes; the limit is {_SMEM_LIMIT}"
+        f"{rows * 32 * 4 + tables} B of shared memory for 32 lanes; the limit is {_SMEM_LIMIT}"
     )
 
 
@@ -411,7 +444,7 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
         return plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config, transition, ctl)
     from minigrid_tpu_torch.ops import _build
 
-    packed_hook(transition)  # raises for a hook that is not ported
+    packed_hook(transition, config)  # raises for a transition without hooks
     hook_id = KERNEL_HOOK_IDS[transition]
 
     hw = config.width * config.height
@@ -450,8 +483,8 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
             *map(ptr, (words, regs, tmpl_words, tmpl_regs, actions, tables, ctl,
                        words_out, regs_out, rsum, counts, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size,
-            config.max_steps, int(config.see_through_walls), NUM_REGS, hook_id, bt,
-            ctypes.c_void_p(stream),
+            config.max_steps, int(config.see_through_walls), NUM_REGS, hook_id,
+            config.n_obstacles or 0, bt, ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
@@ -501,7 +534,7 @@ def _unsupported(env: Env, mode: str) -> Optional[Exception]:
     does: the base step or a ported hook; cached mode, or regen (the static
     template, or chunked regen on the family's generator)."""
     try:
-        packed_hook(env.transition)
+        packed_hook(env.transition, env.config)
     except NotImplementedError as e:
         return NotImplementedError(f"{env.env_id}: {e}")
     if mode not in ("regen", "cached"):
@@ -718,6 +751,7 @@ def build_fused_rollout(
     actions_override=None,
     regen_chunk: int = 32,
     refresh_block=None,
+    row_reader: str = "auto",
 ):
     """`rollout(generator, states) -> (states, RolloutMetrics)`, or with
     `as_carry=True` the steady surface `step(generator, carry) -> (carry,
@@ -726,12 +760,20 @@ def build_fused_rollout(
     tensors. `actions_override` (`(T, B)` or `(T,)`) replaces the random
     policy.
 
+    `row_reader` takes the JAX package's values, "auto", "slices" and
+    "matmul", and raises on any other. They choose how the TPU kernel
+    reads its forward and view rows, a layout choice of that chip: the
+    CUDA kernel and the plain twin read each row by its address under
+    every value, with the same results.
+
     In regen mode a random-layout family runs exact chunked regen
     (`ops/chunked_regen.py`): kernel passes of `regen_chunk` steps (the
     largest divisor of `num_steps` up to it), with the templates of the
     lanes that reset regenerated between passes in slices of
     `refresh_block` lanes (default `chunked_regen.refresh_block_size`);
     `reset_overlaps` counts the steps deferred to a re-entry pass."""
+    if row_reader not in ("auto", "slices", "matmul"):
+        raise ValueError(f"unknown row_reader {row_reader!r}")
     return _build_rollout(
         env, num_steps, mode, as_carry, actions_override, regen_chunk, refresh_block, run_rollout_kernel
     )

@@ -1,34 +1,40 @@
 """Family hooks of the packed rollout (counterpart of
 `minigrid_tpu/ops/packed_hooks.py`).
 
-A family whose `step` overrides the base transition (reward on an event,
-an extra termination) runs the base transition and then its hook, which
-adjusts `(reward, terminated)`. A hook is elementwise math on `(1, B)`
-lane vectors, plus for the door families reads of absolute grid cells;
-`step_core` runs it in the plain version, and the CUDA kernels run its
-counterpart in `csrc/step_device.cuh`, chosen by the id in
-`KERNEL_HOOK_IDS`.
+A family whose `step` overrides the base transition runs up to three
+pieces around it, each keyed by the transition name an `Env` carries:
 
-Hooks are keyed by the transition name an `Env` carries. Ported, in the
-rollout kernel and the policy kernel: six of the JAX package's nine
-post-hooks (`minigrid_tpu/ops/packed_hooks.py::HOOKS`): pickup-target
-(KeyCorridor; UnlockPickup and ObstructedMaze share it, but their
-generators are not ported), Fetch, GoToDoor, GoToObject, PutNear and
-RedBlueDoors. Still to port (ROADMAP.md): the Unlock, Memory and
-DynamicObstacles hooks, the DynamicObstacles pre-hook, and the two action
-remaps (`ACTION_REMAPS`: Memory's pickup acts as toggle, DynamicObstacles'
-actions from 3 up act as 0).
+  * a post-hook (`HOOKS`), after the base transition: elementwise math on
+    `(1, B)` lane vectors, plus for the door families reads of absolute
+    grid cells, that adjusts `(reward, terminated)`;
+  * an action remap (`ACTION_REMAPS`), before it: the base transition
+    takes the remapped action, the post-hook the original one;
+  * a pre-hook (`PRE_HOOK_FACTORIES`, built per configuration), before it:
+    a grid mutation whose stash the post-hook reads.
+
+`step_core` runs them in the plain version, and the CUDA kernels run
+their counterparts in `csrc/step_device.cuh`, chosen by the id in
+`KERNEL_HOOK_IDS`. All of the JAX package's are ported, in the rollout
+kernel and the policy kernel: the nine post-hooks (pickup-target, shared
+by KeyCorridor, UnlockPickup and BlockedUnlockPickup; Fetch, GoToDoor,
+GoToObject, PutNear, RedBlueDoors, Memory, Unlock and DynamicObstacles),
+the DynamicObstacles pre-hook (the obstacles' random walk) and the two
+remaps (Memory's pickup acts as toggle; DynamicObstacles' actions from 3
+up act as 0).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from minigrid_tpu_torch.core import constants as C
-from minigrid_tpu_torch.core.state import Actions
+from minigrid_tpu_torch.core import prng
+from minigrid_tpu_torch.core.state import Actions, EnvConfig
+from minigrid_tpu_torch.envs import dynamicobstacles as _dynobst
 from minigrid_tpu_torch.envs.base import BASE_STEP
+from minigrid_tpu_torch.ops.packing import EMPTY_WORD, R_AUX, R_DIR, R_RNG, R_SC, R_X, R_Y, _dir_tables, _sel4
 
 
 class HookVals(NamedTuple):
@@ -36,9 +42,10 @@ class HookVals(NamedTuple):
 
     `read_pre(x, y)` / `read_post(x, y)` read the packed word of the
     absolute cell `(x, y)` (`(1, B)` coordinates) from the grid before /
-    after this step's forward-cell write."""
+    after this step's forward-cell write (after the pre-hook's writes in
+    both cases)."""
 
-    a: torch.Tensor  # the action
+    a: torch.Tensor  # the action, before any remap
     x: torch.Tensor  # pre-step agent position and carried type, colour
     y: torch.Tensor
     ct: torch.Tensor
@@ -55,6 +62,7 @@ class HookVals(NamedTuple):
     aux: torch.Tensor  # (AUX_LEN, B) the episode's extras
     read_pre: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     read_post: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    stash: Any = None  # what the family's pre-hook returned, or None
 
 
 def _zero(reward: torch.Tensor) -> torch.Tensor:
@@ -133,6 +141,84 @@ def _hook_redbluedoors(v: HookVals):
     return reward, v.terminated | success | fail
 
 
+def _hook_memory(v: HookVals):
+    """Memory: stepping onto the success cell (aux 0, 1) rewards, onto the
+    failure cell (aux 2, 3) fails with 0; either ends the episode."""
+    on_success = (v.x1 == v.aux[0:1]) & (v.y1 == v.aux[1:2])
+    on_failure = (v.x1 == v.aux[2:3]) & (v.y1 == v.aux[3:4])
+    reward = torch.where(on_success, v.success, v.reward)
+    reward = torch.where(on_failure, _zero(reward), reward)
+    return reward, v.terminated | on_success | on_failure
+
+
+def _hook_unlock(v: HookVals):
+    """Unlock: a toggle that leaves the door (aux 0, 1) open rewards and
+    ends the episode."""
+    door_open = (v.a == Actions.toggle) & _door_open(v.read_post(v.aux[0:1], v.aux[1:2]))
+    return torch.where(door_open, v.success, v.reward), v.terminated | door_open
+
+
+def _hook_dynamicobstacles(v: HookVals):
+    """DynamicObstacles: a forward move into a cell that was blocked before
+    the walk (the pre-hook's stash) costs -1 and ends the episode. The
+    action is remapped here too, since a hook sees the original."""
+    collided = (_remap_dynamicobstacles(v.a) == Actions.forward) & v.stash
+    return torch.where(collided, torch.full_like(v.reward, -1.0), v.reward), v.terminated | collided
+
+
+def _make_pre_dynamicobstacles(config: EnvConfig):
+    """The DynamicObstacles pre-hook for `config`: `pre(words, regs) ->
+    (words', regs', not_clear)`.
+
+    `not_clear` is whether the agent's forward cell holds anything but an
+    empty cell or the goal before the walk (the collision predicate). Then
+    each obstacle i in turn draws `hash_u31(rng rows, step_count·n + i)`
+    and moves to that draw's pick among the free cells of its 3×3 box
+    (`select_walk_target`): interior, not the goal (w-2, h-2), not the
+    agent's cell, and no obstacle's current cell (obstacles before i at
+    their new cells, itself and those after at their old ones). Validity
+    comes from the registers (`aux[0:2n]`), as in the JAX package: such a
+    grid holds only its outer wall, the goal and the obstacles. Each
+    obstacle empties its old cell and puts a blue ball in its new one."""
+    n = config.n_obstacles
+    w, h = config.width, config.height
+    hw = w * h
+    ball_word = C.BALL | (C.BLUE << 4)
+    off_fwd = _dir_tables(w, h, config.agent_view_size)[0]
+
+    def pre(words: torch.Tensor, regs: torch.Tensor):
+        x, y, d = regs[R_X : R_X + 1], regs[R_Y : R_Y + 1], regs[R_DIR : R_DIR + 1]
+        sc = regs[R_SC : R_SC + 1]
+        k0, k1 = regs[R_RNG : R_RNG + 1], regs[R_RNG + 1 : R_RNG + 2]
+        base = y * w + x
+        ft = _sel4(d, [words[o : o + 1] for o in off_fwd]) & 15
+        not_clear = (ft != C.EMPTY) & (ft != C.GOAL)
+
+        cur = [(regs[R_AUX + 2 * i : R_AUX + 2 * i + 1], regs[R_AUX + 2 * i + 1 : R_AUX + 2 * i + 2]) for i in range(n)]
+        for i in range(n):
+            u = prng.hash_u31(k0, k1, sc.to(torch.int64) * n + i)
+            ox, oy = cur[i]
+            valid9, xs9, ys9 = [], [], []
+            for dy, dx in _dynobst.WALK_OFFSETS:
+                nx, ny = ox + dx, oy + dy
+                ok = (nx >= 1) & (nx <= w - 2) & (ny >= 1) & (ny <= h - 2)
+                ok &= ~((nx == w - 2) & (ny == h - 2))
+                ok &= ~((nx == x) & (ny == y))
+                for cx, cy in cur:
+                    ok &= ~((nx == cx) & (ny == cy))
+                valid9.append(ok)
+                xs9.append(nx)
+                ys9.append(ny)
+            nx, ny = _dynobst.select_walk_target(valid9, u, xs9, ys9, ox, oy)
+            words = words.scatter(0, (((oy * w + ox) - base) % hw).long(), EMPTY_WORD)
+            words = words.scatter(0, (((ny * w + nx) - base) % hw).long(), ball_word)
+            cur[i] = (nx, ny)
+        regs = torch.cat([regs[:R_AUX], *(r for xy in cur for r in xy), regs[R_AUX + 2 * n :]])
+        return words, regs, not_clear
+
+    return pre
+
+
 # Transition name -> post-hook.
 HOOKS = {
     "pickup_target": _hook_pickup_target,
@@ -141,6 +227,30 @@ HOOKS = {
     "gotoobject": _hook_gotoobject,
     "putnear": _hook_putnear,
     "redbluedoors": _hook_redbluedoors,
+    "memory": _hook_memory,
+    "unlock": _hook_unlock,
+    "dynamicobstacles": _hook_dynamicobstacles,
+}
+
+# Transition name -> pre-hook factory `(EnvConfig) -> pre(words, regs) ->
+# (words', regs', stash)`, run before the base transition.
+PRE_HOOK_FACTORIES = {
+    "dynamicobstacles": _make_pre_dynamicobstacles,
+}
+
+
+def _remap_memory(a: torch.Tensor) -> torch.Tensor:
+    return torch.where(a == Actions.pickup, torch.full_like(a, Actions.toggle), a)
+
+
+def _remap_dynamicobstacles(a: torch.Tensor) -> torch.Tensor:
+    return torch.where(a >= 3, torch.zeros_like(a), a)
+
+
+# Transition name -> the action remap the base transition takes.
+ACTION_REMAPS = {
+    "memory": _remap_memory,
+    "dynamicobstacles": _remap_dynamicobstacles,
 }
 
 # Transition name -> the hook's id in the CUDA kernels (step_device.cuh).
@@ -152,16 +262,21 @@ KERNEL_HOOK_IDS = {
     "gotoobject": 4,
     "putnear": 5,
     "redbluedoors": 6,
+    "memory": 7,
+    "unlock": 8,
+    "dynamicobstacles": 9,
 }
 
 
-def packed_hook(transition: str) -> Optional[object]:
-    """The hook of a transition, or None for the base step. A transition
-    whose hook is not ported raises."""
+def packed_hook(transition: str, config: EnvConfig):
+    """`(hook, remap_action, pre_hook)` of a transition under `config`, each
+    None where the transition has none (all three for the base step). A
+    transition without packed hooks raises."""
     if transition == BASE_STEP:
-        return None
+        return None, None, None
     if transition not in HOOKS:
         raise NotImplementedError(
-            f"the packed step hooks of transition {transition!r} are not ported yet (see ROADMAP.md)"
+            f"transition {transition!r} has no packed step hooks in the port (see ROADMAP.md)"
         )
-    return HOOKS[transition]
+    factory = PRE_HOOK_FACTORIES.get(transition)
+    return HOOKS[transition], ACTION_REMAPS.get(transition), factory(config) if factory is not None else None

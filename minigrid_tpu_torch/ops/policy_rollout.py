@@ -25,9 +25,9 @@ grid, `testing.dyadic_flax_params`) the port, the kernel and the JAX
 package agree byte for byte; under other weights the summation order can
 flip a bf16 rounding, and with it, rarely, a sampled action.
 
-Scope: the base transition and the ported family hooks
-(`ops/packed_hooks.py`: pickup-target, Fetch, GoToDoor, GoToObject,
-PutNear, RedBlueDoors), in cached mode and in regen mode. Regen on a
+Scope: the base transition and every family's hooks
+(`ops/packed_hooks.py`: the nine post-hooks, the DynamicObstacles
+pre-hook and the two action remaps), in cached mode and in regen mode. Regen on a
 static-layout family (fixed-start Empty, DistShift) keeps the template;
 on a random-layout family both evaluation and the collecting rollout run
 exact chunked regen (`ops/chunked_regen.py`), the kernel and its twin
@@ -61,7 +61,9 @@ from minigrid_tpu_torch.ops.fused_rollout import (
     _replay_rng_chain,
     _surface,
     build_carry_surface,
+    hook_kwargs,
     obs_core,
+    obstacle_rows,
     packed_step_supported,
     rollout_metrics,
     step_core,
@@ -315,7 +317,7 @@ def plain_policy_rollout(
         max_steps=config.max_steps,
         see_through_walls=config.see_through_walls,
         with_obs=True,
-        hook=packed_hook(transition),
+        **hook_kwargs(transition, config),
     )
     if ctl is not None:
         step = functools.partial(step, chunk_len=seeds.shape[0])
@@ -368,13 +370,14 @@ def policy_smem_bytes(config: EnvConfig, bt: int) -> int:
     """Shared memory of one block of `bt` lanes, as `csrc/policy_kernel.cu`
     lays it out: h1 `[bt][256 + 8]`, the features `[bt][K + 8]` and h2
     `[256][bt + 8]` in bf16, the head weights and biases in f32, the grids
-    `[HW][bt]` and the offset tables in int32. The launch takes this count."""
+    `[HW][bt]`, the offset tables and the obstacle rows `[4n][bt]`
+    (`obstacle_rows`) in int32. The launch takes this count."""
     v = config.agent_view_size
     hw = config.width * config.height
     return (
         bt * (HIDDEN + 8) * 2 + bt * (padded_features(v) + 8) * 2 + HIDDEN * (bt + 8) * 2
         + (HEAD_ROWS * HIDDEN + 2 * HIDDEN + HEAD_ROWS) * 4
-        + hw * bt * 4 + (4 + 4 * v * v) * 4
+        + hw * bt * 4 + (4 + 4 * v * v) * 4 + obstacle_rows(config) * bt * 4
     )
 
 
@@ -465,7 +468,7 @@ def run_policy_kernel(
         return plain_policy_rollout(
             words, regs, tmpl_words, tmpl_regs, seeds, weights, config, collect, ctl, transition
         )
-    packed_hook(transition)  # raises for a hook that is not ported
+    packed_hook(transition, config)  # raises for a transition without hooks
     hook_id = KERNEL_HOOK_IDS[transition]
     hw = config.width * config.height
     b = words.shape[1]
@@ -516,8 +519,8 @@ def run_policy_kernel(
             )),
             *(ctypes.c_void_p(x.data_ptr() if x is not None else None) for x in (spill, ctl, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size, config.max_steps,
-            int(config.see_through_walls), NUM_REGS, config.num_actions, rows, hook_id, bt,
-            policy_smem_bytes(config, bt), ctypes.c_void_p(stream),
+            int(config.see_through_walls), NUM_REGS, config.num_actions, rows, hook_id,
+            config.n_obstacles or 0, bt, policy_smem_bytes(config, bt), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(

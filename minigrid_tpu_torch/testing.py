@@ -21,7 +21,7 @@ JAX package's tests do) so that the hook's success fires.
 hook reads as its family lays them out, and the events that make the hook
 fire planted near each agent: the target object or door in its forward
 cell, the object it must drop in its hands, the target cell within a step
-or two.
+or two, an obstacle in its forward cell.
 """
 
 from __future__ import annotations
@@ -142,7 +142,39 @@ def _plant(words: np.ndarray, regs: np.ndarray, width: int, x, y, word, lanes) -
     words[rows[idx], idx] = np.broadcast_to(word, lanes.shape)[idx]
 
 
-def _hook_events(rng: np.random.Generator, transition: str, words, regs, width: int, height: int) -> None:
+def _off_cell(rng, x, y, fx, fy, width: int, height: int):
+    """A random cell per lane that is neither the agent's nor its forward
+    cell."""
+    ox = rng.integers(0, width, size=x.shape)
+    oy = rng.integers(0, height, size=x.shape)
+    clash = ((ox == x) & (oy == y)) | ((ox == fx) & (oy == fy))
+    return np.where(clash, np.where(x > 1, 0, width - 1), ox), oy
+
+
+def _obstacles(rng, words, regs, width: int, height: int, n: int, front) -> None:
+    """n distinct interior cells per lane, off the agent's, as obstacle
+    balls in the aux rows and on the grid; obstacle 0 in the forward cell
+    of the `front` lanes where that cell is interior."""
+    b = words.shape[1]
+    x, y, d = regs[R_X], regs[R_Y], regs[R_DIR]
+    fx, fy = x + np.array([1, 0, -1, 0])[d], y + np.array([0, 1, 0, -1])[d]
+    xs, ys = np.arange(width * height) % width, np.arange(width * height) // width
+    interior = (xs >= 1) & (xs <= width - 2) & (ys >= 1) & (ys <= height - 2)
+    score = rng.random((b, width * height))
+    score[:, ~interior] = np.inf
+    lanes = np.arange(b)
+    score[lanes, y * width + x] = np.inf
+    in_front = front & (fx >= 1) & (fx <= width - 2) & (fy >= 1) & (fy <= height - 2)
+    score[lanes[in_front], (fy * width + fx)[in_front]] = -1.0
+    cells = np.argsort(score, axis=1)[:, :n]
+    for i in range(n):
+        ox, oy = cells[:, i] % width, cells[:, i] // width
+        regs[R_AUX + 2 * i], regs[R_AUX + 2 * i + 1] = ox, oy
+        _plant(words, regs, width, ox, oy, np.full(b, C.BALL | (C.BLUE << 4)), np.ones(b, bool))
+
+
+def _hook_events(rng: np.random.Generator, transition: str, words, regs, width: int, height: int,
+                 n_obstacles: int = 0) -> None:
     """Set the aux rows `transition`'s hook reads and plant its events, in
     place, for one packed state batch."""
     b = words.shape[1]
@@ -172,28 +204,43 @@ def _hook_events(rng: np.random.Generator, transition: str, words, regs, width: 
     elif transition == "redbluedoors":
         # One door in the forward cell, the other on a random cell off the
         # agent's, each open, closed or locked.
-        ox = rng.integers(0, width, size=b)
-        oy = rng.integers(0, height, size=b)
-        clash = ((ox == x) & (oy == y)) | ((ox == fx) & (oy == fy))
-        ox = np.where(clash, np.where(x > 1, 0, width - 1), ox)
+        ox, oy = _off_cell(rng, x, y, fx, fy, width, height)
         red_front = half
         aux[0], aux[1] = np.where(red_front, fx, ox), np.where(red_front, fy, oy)
         aux[2], aux[3] = np.where(red_front, ox, fx), np.where(red_front, oy, fy)
         for (ax, ay), color in (((aux[0], aux[1]), C.RED), ((aux[2], aux[3]), C.BLUE)):
             state = rng.integers(0, 3, size=b)
             _plant(words, regs, width, ax, ay, C.DOOR | (color << 4) | (state << 8), np.ones(b, bool))
+    elif transition == "memory":
+        # Half the lanes face their success cell, the rest their failure
+        # cell, each free to step on; the other cell lies within two cells.
+        ox, oy = x + rng.integers(-2, 3, size=b), y + rng.integers(-2, 3, size=b)
+        aux[0], aux[1] = np.where(half, fx, ox), np.where(half, fy, oy)
+        aux[2], aux[3] = np.where(half, ox, fx), np.where(half, oy, fy)
+        _plant(words, regs, width, fx, fy, np.full(b, C.EMPTY), np.ones(b, bool))
+    elif transition == "unlock":
+        # The door in the forward cell of half the lanes, on a random cell
+        # off the agent's elsewhere; open, closed or locked.
+        ox, oy = _off_cell(rng, x, y, fx, fy, width, height)
+        aux[0], aux[1] = np.where(half, fx, ox), np.where(half, fy, oy)
+        door = C.DOOR | (rng.integers(0, 6, size=b) << 4) | (rng.integers(0, 3, size=b) << 8)
+        _plant(words, regs, width, aux[0], aux[1], door, np.ones(b, bool))
+    elif transition == "dynamicobstacles":
+        if n_obstacles < 1:
+            raise ValueError("the dynamicobstacles case needs n_obstacles")
+        _obstacles(rng, words, regs, width, height, n_obstacles, half)
     else:
         raise ValueError(f"no planted events for transition {transition!r}")
 
 
 def hooked_packed_case(
-    seed: int, transition: str, width: int, height: int, batch: int, max_steps: int
+    seed: int, transition: str, width: int, height: int, batch: int, max_steps: int, n_obstacles: int = 0
 ) -> Dict[str, np.ndarray]:
     """`random_packed_case` whose live states and templates carry the aux
     rows `transition`'s hook reads, with its events planted (see the
-    module docstring)."""
+    module docstring); `n_obstacles` is the DynamicObstacles count."""
     case = random_packed_case(seed, width, height, batch, max_steps)
     rng = np.random.default_rng(seed + 1)
     for w, r in (("words", "regs"), ("tmpl_words", "tmpl_regs")):
-        _hook_events(rng, transition, case[w], case[r], width, height)
+        _hook_events(rng, transition, case[w], case[r], width, height, n_obstacles)
     return case

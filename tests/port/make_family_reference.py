@@ -1,10 +1,13 @@
 """Write the JAX package's generator outputs that
-`tests/port/test_torch_doorkey.py` and `tests/port/test_torch_hooks.py`
-hold the port's generators against (`data/family_generators_b32.npz`),
-and recompute them live for those files' `slow` tests.
+`tests/port/test_torch_doorkey.py`, `tests/port/test_torch_hooks.py`,
+`tests/port/test_torch_dynamicobstacles.py` and
+`tests/port/test_torch_memory_unlock.py` hold the port's generators
+against (`data/family_generators_b32.npz`), and recompute them live for
+those files' `slow` tests.
 
-For each of the 18 ids of Empty-Random, DoorKey, Fetch, GoToDoor,
-GoToObject, PutNear and RedBlueDoors: `jax.vmap(generate)` on the 32 keys
+For each of the 33 ids of Empty-Random, DoorKey, Fetch, GoToDoor,
+GoToObject, PutNear, RedBlueDoors, DynamicObstacles, Memory, Unlock,
+UnlockPickup and BlockedUnlockPickup: `jax.vmap(generate)` on the 32 keys
 `split(key(21), 32)`, every state field stored as `<env id>/<field>`.
 Each generator takes one to four seconds to compile on a CPU; the tier-1
 run compiles none of them, which keeps its worker processes clear of
@@ -36,6 +39,10 @@ HOOKED_IDS = (
     + [f"MiniGrid-PutNear-{n}-v0" for n in ("6x6-N2", "8x8-N3")]
     + [f"MiniGrid-RedBlueDoors-{s}x{s}-v0" for s in (6, 8)]
 )
+DYNOBST_IDS = [f"MiniGrid-Dynamic-Obstacles-{n}-v0" for n in ("5x5", "Random-5x5", "6x6", "Random-6x6", "8x8", "16x16")]
+MEMORY_UNLOCK_IDS = [f"MiniGrid-Memory{n}-v0" for n in ("S17Random", "S13Random", "S13", "S11", "S9", "S7")] + [
+    "MiniGrid-Unlock-v0", "MiniGrid-UnlockPickup-v0", "MiniGrid-BlockedUnlockPickup-v0"]
+ALL_IDS = DOORKEY_IDS + HOOKED_IDS + DYNOBST_IDS + MEMORY_UNLOCK_IDS
 
 
 def keys():
@@ -76,7 +83,7 @@ def assert_port_matches(env_id: str, want: dict) -> None:
 
 
 def main() -> int:
-    arrays = {f"{e}/{k}": v for e in DOORKEY_IDS + HOOKED_IDS for k, v in jax_states(e).items()}
+    arrays = {f"{e}/{k}": v for e in ALL_IDS for k, v in jax_states(e).items()}
     PATH.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(PATH, **arrays)
     print(f"wrote {PATH} ({PATH.stat().st_size} bytes)")

@@ -173,7 +173,7 @@ def test_random_layout_regen_needs_a_packed_generator():
             assert int(getattr(m, name)) == int(getattr(jm, name)), (i, name)
         np.testing.assert_allclose(float(m.total_reward), float(jm.total_reward), rtol=1e-6)
         assert int(m.episodes) > 0
-    unported_hook = dataclasses.replace(make(ENV_ID), transition="memory")
+    unported_hook = dataclasses.replace(make(ENV_ID), transition="no_such_transition")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfr.build_fused_rollout(unported_hook, 8, mode="cached")
 

@@ -78,6 +78,9 @@ def _imported_packages(path):
 def test_no_port_module_imports_jax_flax_or_the_jax_package():
     paths = _port_sources()
     assert len(paths) >= 20, paths
+    for module in ("envs/dynamicobstacles.py", "envs/memory.py", "envs/unlock.py", "envs/unlockpickup.py",
+                   "envs/roomgrid.py", "ops/packed_hooks.py"):
+        assert os.path.join(REPO, "minigrid_tpu_torch", module) in paths, module
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths
     }

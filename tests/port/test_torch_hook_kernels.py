@@ -1,19 +1,22 @@
 """On a card: the rollout kernel (B1) and the policy kernel (B2) under the
-five family hooks ported with their families (Fetch, GoToDoor,
-GoToObject, PutNear, RedBlueDoors), and B2's `<64, collect, ctl, no hook>`
+family hooks ported with their families (Fetch, GoToDoor, GoToObject,
+PutNear, RedBlueDoors; Memory with its remap, Unlock, DynamicObstacles
+with its pre-hook and remap), and B2's `<64, collect, ctl, no hook>`
 instantiation that DoorKey's train step reaches, against their plain
 versions, byte for byte (reward sums bit for bit):
 
   * on `testing.hooked_packed_case` states (the hook's events planted in
-    front of each agent) at each family's grid, the first action the one
-    that fires the hook; B1 with and without commit rows, B2 in eval and
-    collect mode with and without them (RedBlueDoors at 6x6 in 64-lane
-    blocks and at 16x8 in 32-lane blocks); the hook must change the plain
-    version's outcome against the base step;
+    front of each agent; DynamicObstacles' obstacle in the forward cell)
+    at each family's grid, the first action the one that fires the hook,
+    then actions from -1 to 7; B1 with and without commit rows, B2 in eval
+    and collect mode with and without them (RedBlueDoors at 6x6 in 64-lane
+    blocks and at 16x8 in 32-lane blocks, Memory at S7 and S17 and
+    DynamicObstacles at 8x8 and 16x16 likewise); the hook must change the
+    plain version's outcome against the base step;
   * from each family's `packed_init` carry on the card, regen mode (the
     template refresh packs the batched `generate`): the random-policy and
-    policy-evaluation rollouts and DoorKey-5x5's collecting rollout,
-    kernels against `build_*_plain_rollout`.
+    policy-evaluation rollouts and the collecting rollouts of DoorKey-5x5
+    and DynamicObstacles-5x5, kernels against `build_*_plain_rollout`.
 
 The JAX package is not imported, so the file runs on a machine with a card
 and without JAX:
@@ -44,8 +47,15 @@ HOOKED = {
     "gotoobject": ("MiniGrid-GoToObject-8x8-N2-v0", 6),
     "putnear": ("MiniGrid-PutNear-8x8-N3-v0", 4),
     "redbluedoors": ("MiniGrid-RedBlueDoors-8x8-v0", 5),
+    "memory": ("MiniGrid-MemoryS7-v0", 2),
+    "unlock": ("MiniGrid-Unlock-v0", 5),
+    "dynamicobstacles": ("MiniGrid-Dynamic-Obstacles-16x16-v0", 2),
 }
-POLICY_CASES = [(t, e) for t, (e, _) in HOOKED.items()] + [("redbluedoors", "MiniGrid-RedBlueDoors-6x6-v0")]
+POLICY_CASES = [(t, e) for t, (e, _) in HOOKED.items()] + [
+    ("redbluedoors", "MiniGrid-RedBlueDoors-6x6-v0"),
+    ("memory", "MiniGrid-MemoryS17Random-v0"),
+    ("dynamicobstacles", "MiniGrid-Dynamic-Obstacles-8x8-v0"),
+]
 B, T = 1024, 24
 
 
@@ -58,7 +68,7 @@ def _cuda():
 
 def _case(transition, env_id, dev, seed=11):
     cfg = dataclasses.replace(make(env_id).config, max_steps=12)
-    case = hooked_packed_case(seed, transition, cfg.width, cfg.height, B, cfg.max_steps)
+    case = hooked_packed_case(seed, transition, cfg.width, cfg.height, B, cfg.max_steps, cfg.n_obstacles or 0)
     rng = np.random.default_rng(seed + 2)
     ctl = np.stack([rng.integers(0, 2, B), rng.integers(0, T + 1, B), rng.random(B) < 0.1]).astype(np.int32)
     ctl[:, : B // 2] = 0  # half the lanes start the pass fresh
@@ -77,7 +87,7 @@ def test_cuda_rollout_kernel_hook_matches_plain(transition, ctl):
     dev = _cuda()
     env_id, fire = HOOKED[transition]
     cfg, args, ctl_in, rng = _case(transition, env_id, dev)
-    actions = rng.integers(0, 7, (T, B)).astype(np.int32)
+    actions = rng.integers(-1, 8, (T, B)).astype(np.int32)
     actions[0] = fire
     actions = torch.from_numpy(actions).to(dev)
     kw = dict(ctl=ctl_in if ctl else None)
@@ -102,7 +112,7 @@ def test_cuda_policy_kernel_hook_matches_plain(transition, env_id, collect, ctl)
     cfg, args, ctl_in, rng = _case("fetch" if transition == "base" else transition, env_id, dev)
     seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, (T, B)).astype(np.int32)).to(dev)
     weights = (tpr.train_weights_from_params if collect else tpr.eval_weights_from_params)(
-        dyadic_flax_params(5), cfg.agent_view_size, device=dev)
+        dyadic_flax_params(5, num_actions=cfg.num_actions), cfg.agent_view_size, device=dev)
     kw = dict(collect=collect, ctl=ctl_in if ctl else None, transition=transition)
     launches = tpr.policy_kernel_launches
     got = tpr.run_policy_kernel(*args, seeds, weights, cfg, **kw)
@@ -123,7 +133,8 @@ def _family_carry(env_id, dev, max_steps=5, b=B):
     return env, tfr.packed_init(env, env.reset_batch(prng.key(3, device=dev), b), "regen")
 
 
-FAMILY_IDS = ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-Empty-Random-6x6-v0"] + [e for e, _ in HOOKED.values()]
+FAMILY_IDS = ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-Empty-Random-6x6-v0"] + [e for e, _ in HOOKED.values()] + [
+    "MiniGrid-UnlockPickup-v0", "MiniGrid-BlockedUnlockPickup-v0", "MiniGrid-Dynamic-Obstacles-Random-6x6-v0"]
 
 
 @pytest.mark.gpu
@@ -139,7 +150,7 @@ def test_cuda_regen_rollouts_match_plain_from_a_family_carry(env_id):
             for build in (tfr.build_fused_rollout, tfr.build_packed_plain_rollout)]
     assert _same(runs[0][0], runs[1][0]) and _same(runs[0][1], runs[1][1])
     assert int(runs[0][1].reset_overlaps) > 0
-    params = dyadic_flax_params(6)
+    params = dyadic_flax_params(6, num_actions=env.config.num_actions)
     runs = [build(env, params, 16, mode="regen", regen_chunk=8, as_carry=True)(prng.key(5, device=dev), carry)
             for build in (tpr.build_policy_eval_rollout, tpr.build_policy_eval_plain_rollout)]
     assert _same(runs[0][0], runs[1][0]) and _same(runs[0][1], runs[1][1])
@@ -147,14 +158,16 @@ def test_cuda_regen_rollouts_match_plain_from_a_family_carry(env_id):
 
 
 @pytest.mark.gpu
-def test_cuda_doorkey_train_rollout_matches_plain():
-    """DoorKey-5x5's collecting rollout in regen mode (B2 `<64, collect,
-    ctl, no hook>` and the packed batched `generate`), chunk 8, against
+@pytest.mark.parametrize("env_id", ["MiniGrid-DoorKey-5x5-v0", "MiniGrid-Dynamic-Obstacles-5x5-v0"])
+def test_cuda_doorkey_train_rollout_matches_plain(env_id):
+    """The collecting rollout in regen mode of DoorKey-5x5 (B2 `<64,
+    collect, ctl, no hook>` and the packed batched `generate`) and of
+    DynamicObstacles-5x5 (the pre-hook, 3 actions), chunk 8, against
     `build_fused_train_plain_rollout`: carry, metrics and merged
     trajectory byte for byte."""
     dev = _cuda()
-    env, carry = _family_carry("MiniGrid-DoorKey-5x5-v0", dev)
-    weights = tpr.train_weights_from_params(dyadic_flax_params(7), 7, device=dev)
+    env, carry = _family_carry(env_id, dev)
+    weights = tpr.train_weights_from_params(dyadic_flax_params(7, num_actions=env.config.num_actions), 7, device=dev)
     runs = [build(env, 16, mode="regen", regen_chunk=8)(weights, prng.key(8, device=dev), carry)
             for build in (tpr.build_fused_train_rollout, tpr.build_fused_train_plain_rollout)]
     (cg, tg, mg), (cw, tw, mw) = runs

@@ -20,6 +20,10 @@ the CPU:
     at chunks 4 and 8 with `max_steps` cut to 5, so that resets are
     deferred.
 
+The hooks ported with Memory, Unlock and DynamicObstacles:
+test_torch_memory_unlock.py and test_torch_dynamicobstacles.py; here,
+each of the nine hooks against the JAX package's on the same `HookVals`.
+
 Kernel against plain version: test_torch_hook_kernels.py (on a card).
 """
 
@@ -38,6 +42,7 @@ import minigrid_tpu  # noqa: E402
 from minigrid_tpu.envs import missions as jmissions  # noqa: E402
 from minigrid_tpu.ops import fused_rollout as jfr  # noqa: E402
 from minigrid_tpu_torch import env_list, make  # noqa: E402
+from minigrid_tpu_torch.core import constants as C  # noqa: E402
 from minigrid_tpu_torch.core.prng import key, split  # noqa: E402
 from minigrid_tpu_torch.envs import fetch  # noqa: E402
 from minigrid_tpu_torch.ops import fused_rollout as tfr  # noqa: E402
@@ -59,8 +64,10 @@ T = 12
 def test_the_twelve_hooked_ids_are_registered():
     assert HOOKED_IDS == [e for e in env_list if any(e.startswith(f"MiniGrid-{n}-") for n in FAMILIES.values())]
     assert len(HOOKED_IDS) == 12
-    assert sorted(tph.HOOKS) == sorted(["pickup_target", *FAMILIES])
-    assert sorted(tph.KERNEL_HOOK_IDS.values()) == list(range(7))
+    assert sorted(tph.HOOKS) == sorted(["pickup_target", *FAMILIES, "memory", "unlock", "dynamicobstacles"])
+    assert sorted(tph.KERNEL_HOOK_IDS.values()) == list(range(10))
+    assert sorted(tph.PRE_HOOK_FACTORIES) == ["dynamicobstacles"]
+    assert sorted(tph.ACTION_REMAPS) == ["dynamicobstacles", "memory"]
 
 
 @pytest.mark.parametrize("env_id", HOOKED_IDS)
@@ -125,6 +132,18 @@ def _two_calls(env, carry, t, mode, chunk, seed, max_steps=None, transition=None
     return out
 
 
+def assert_step_outputs(got, want):
+    """`step_core`'s outputs against `_step_core`'s: every integer byte for
+    byte, the per-step reward to rtol 1e-6 (XLA:CPU folds `0.9 /
+    max_steps` into one constant, so a success can differ in its last
+    bit; ROADMAP.md §C)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.float32:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=0, err_msg=f"output {i}")
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"output {i}")
+
+
 def _outcome(metrics):
     return [(int(m.episodes), round(float(m.total_reward), 4)) for m in metrics]
 
@@ -152,3 +171,47 @@ def test_fetch_regen_matches_jax_at_two_chunks(chunk):
     got = _two_calls(env, carry, 16, "regen", chunk, 1, max_steps=5)
     assert sum(int(m.episodes) for m in got) > 0
     assert sum(int(m.reset_overlaps) for m in got) > 0
+
+
+@pytest.mark.parametrize("transition", sorted(tph.HOOKS))
+def test_each_hook_matches_jax_on_the_same_values(transition):
+    """A post-hook of the port and its JAX counterpart on the same random
+    lane vectors (the action from -1 to 7, positions near the aux cells,
+    door words read back): `(reward, terminated)` equal."""
+    from minigrid_tpu.ops import packed_hooks as jph
+
+    jhook = {"pickup_target": jph._hook_pickup_target, "fetch": jph._hook_fetch, "gotodoor": jph._hook_gotodoor,
+             "gotoobject": jph._hook_gotoobject, "putnear": jph._hook_putnear, "memory": jph._hook_memory,
+             "unlock": jph._hook_unlock, "redbluedoors": jph._hook_redbluedoors,
+             "dynamicobstacles": jph._hook_dynamicobstacles}[transition]
+    rng = np.random.default_rng(len(transition))
+    b = 512
+    ints = {k: rng.integers(0, 4, (1, b)).astype(np.int32) for k in ("x", "y", "x1", "y1", "fwd_x", "fwd_y")}
+    ints.update(ct=rng.integers(0, 8, (1, b)).astype(np.int32), cc=rng.integers(0, 3, (1, b)).astype(np.int32),
+                ct1=rng.integers(0, 8, (1, b)).astype(np.int32), cc1=rng.integers(0, 3, (1, b)).astype(np.int32),
+                a=rng.integers(-1, 8, (1, b)).astype(np.int32))
+    aux = np.concatenate([rng.integers(0, 4, (4, b)), rng.integers(0, 8, (20, b))]).astype(np.int32)
+    door = (C.DOOR | (rng.integers(0, 3, (16, b)) << 8)).astype(np.int32)  # a door word per cell of a 4x4 grid
+    door_post = np.where(rng.random((16, b)) < 0.5, door ^ (1 << 8), door).astype(np.int32)
+    reward = np.where(rng.random((1, b)) < 0.2, 0.5, 0.0).astype(np.float32)
+    terminated = rng.random((1, b)) < 0.1
+    success = np.full((1, b), 0.75, np.float32)
+    stash = rng.random((1, b)) < 0.5
+
+    def torch_reader(grid):
+        return lambda ax, ay: torch.take_along_dim(torch.from_numpy(grid), ((ay * 4 + ax) % 16).long(), dim=0)
+
+    def jax_reader(grid):
+        return lambda ax, ay: jnp.take_along_axis(jnp.asarray(grid), (ay * 4 + ax) % 16, axis=0)
+
+    got = tph.HOOKS[transition](tph.HookVals(
+        **{k: torch.from_numpy(v) for k, v in ints.items()}, reward=torch.from_numpy(reward),
+        terminated=torch.from_numpy(terminated), success=torch.from_numpy(success), aux=torch.from_numpy(aux),
+        read_pre=torch_reader(door), read_post=torch_reader(door_post), stash=torch.from_numpy(stash)))
+    want = jax.jit(lambda: jhook(jph.HookVals(
+        **{k: jnp.asarray(v) for k, v in ints.items()}, reward=jnp.asarray(reward), terminated=jnp.asarray(terminated),
+        success=jnp.asarray(success), aux=jnp.asarray(aux), read_pre=jax_reader(door), read_post=jax_reader(door_post),
+        stash=jnp.asarray(stash))))()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[0].numpy() != reward).any() or (got[1].numpy() != terminated).any()

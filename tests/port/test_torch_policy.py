@@ -268,3 +268,32 @@ def test_eval_rollout_matches_jax_xla_twin(env_id, mode, steps):
     assert int(metrics.total_steps) == ROLLOUT_B * steps
     if mode == "regen":
         assert int(metrics.episodes) >= ROLLOUT_B // 2  # the regen rng chain ran
+
+
+@pytest.mark.parametrize("env_id", ["MiniGrid-MemoryS7-v0", "MiniGrid-Dynamic-Obstacles-5x5-v0"])
+def test_eval_rollout_matches_jax_on_the_remapped_families(env_id):
+    """MemoryS7 (pickup acts as toggle) and DynamicObstacles-5x5 (the
+    pre-hook; 3 actions, so the weights' head has 3 actor rows), cached
+    mode, two calls of T = 24 from the port's own carry, step counts spread
+    so that episodes end: carries and integer metrics byte-exact,
+    `total_reward` to rtol 1e-6. The JAX package runs from that carry and
+    so compiles no generator."""
+    env = make(env_id)
+    params = dyadic_flax_params(2, num_actions=env.config.num_actions)
+    states = _port_states(env, "regen", 3)  # `_port_states` spreads the step counts in "regen"
+    carry = tfr.packed_init(env, states, "cached")
+    jstep = jax.jit(jpr.build_policy_eval_rollout(minigrid_tpu.make(env_id), params, 24, mode="cached",
+                                                  backend="xla", as_carry=True))
+    step = tpr.build_policy_eval_rollout(env, params, 24, mode="cached", as_carry=True)
+    jc = jfr.PackedCarry(**{k: jnp.asarray(v) for k, v in carry_to_numpy(carry).items()})
+    episodes = 0
+    for i in range(2):
+        carry, m = step(prng.key(40 + i, device=CPU), carry)
+        jc, jm = jstep(jax.random.PRNGKey(40 + i), jc)
+        for name, got in carry_to_numpy(carry).items():
+            np.testing.assert_array_equal(got, np.asarray(getattr(jc, name)), err_msg=f"call {i} {name}")
+        for name in ("episodes", "total_steps", "obs_checksum", "reset_overlaps"):
+            assert int(getattr(m, name)) == int(getattr(jm, name)), (i, name)
+        np.testing.assert_allclose(float(m.total_reward), float(jm.total_reward), rtol=1e-6)
+        episodes += int(m.episodes)
+    assert episodes > 0

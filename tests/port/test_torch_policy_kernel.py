@@ -136,10 +136,11 @@ def test_supported_envs_and_modes():
     jrandom = dataclasses.replace(jempty, config=dataclasses.replace(jempty.config, agent_start_pos=None))
     assert tpr.policy_rollout_supported(random_start, "regen") == jpr.policy_rollout_supported(jrandom, "regen")
     assert tpr.policy_rollout_supported(random_start, "regen")
-    assert not tpr.policy_rollout_supported(dataclasses.replace(empty, transition="memory"), "cached")
+    assert not tpr.policy_rollout_supported(dataclasses.replace(empty, transition="no_such_transition"), "cached")
     tpr.build_policy_eval_plain_rollout(random_start, dyadic_flax_params(0), 8, mode="regen")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpr.build_policy_eval_rollout(dataclasses.replace(empty, transition="memory"), dyadic_flax_params(0), 8)
+        tpr.build_policy_eval_rollout(dataclasses.replace(empty, transition="no_such_transition"),
+                                      dyadic_flax_params(0), 8)
 
 
 @pytest.mark.parametrize("k", [256, 980])

@@ -155,3 +155,21 @@ def test_permutation_sort_keeps_ties_in_order_as_lax_sort_key_val():
     got = prng.sort_key_val(_t(sort_keys), _t(values)).numpy()
     np.testing.assert_array_equal(got, want)
     assert (np.diff(np.sort(sort_keys, axis=1), axis=1) == 0).any()
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_hash_u31_matches_jax_at_the_walk_counters(n):
+    """The DynamicObstacles walk's draws: `hash_u31(rng rows, step_count·n
+    + i)` with the counter an int32 that wraps, at step counts from 0 to
+    just past 2**31 / n."""
+    rng = np.random.default_rng(n)
+    k = rng.integers(-(2**31), 2**31, (2, 64), dtype=np.int64).astype(np.int32)
+    sc = np.concatenate([np.arange(8), 2**31 // n - 4 + np.arange(8), rng.integers(0, 2**31 // n, 48)]).astype(np.int32)
+    counters = (sc[None, :].astype(np.int64) * n + np.arange(n)[:, None]).astype(np.uint32).view(np.int32)
+    want = jax.jit(lambda k0, k1, c: jprng.hash_u31(k0, k1, c))(jnp.asarray(k[0]), jnp.asarray(k[1]),
+                                                                 jnp.asarray(counters))
+    got = prng.hash_u31(torch.from_numpy(k[0]), torch.from_numpy(k[1]),
+                        torch.from_numpy(sc).to(torch.int64)[None, :] * n + torch.arange(n)[:, None])
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (counters < 0).any()  # the counter wrapped

@@ -3,9 +3,14 @@ the rollout kernel's limits: the configuration carries across unchanged,
 the kernel takes its grid and view, the offset tables agree, and `make`
 either returns that configuration or names ROADMAP.md; on every ported id
 and both auto-reset modes, `fused_rollout_supported` is the JAX
-package's."""
+package's; and on every cell of `tests/test_support_matrix.py`'s
+`FAMILY_REPS` that the port covers (15 of the 22 families), both modes
+and all three surfaces, the port's support predicates are the JAX
+package's, and all true."""
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,10 +26,11 @@ from minigrid_tpu_torch.ops.fused_rollout import fused_rollout_supported, kernel
 
 def test_ported_ids_keep_the_jax_registration_order():
     assert env_list == [e for e in jax_env_list if e in env_list]
-    # Empty (4), Empty-Random (2), DistShift (2), DoorKey (4), Fetch (3),
-    # GoToDoor (3), GoToObject (2), PutNear (2), RedBlueDoors (2),
-    # MultiRoom (3), KeyCorridor (6).
-    assert len(env_list) == 33
+    # Empty (4), Empty-Random (2), DistShift (2), DoorKey (4),
+    # DynamicObstacles (6), Memory (6), Fetch (3), GoToDoor (3),
+    # GoToObject (2), PutNear (2), RedBlueDoors (2), MultiRoom (3), Unlock,
+    # UnlockPickup, BlockedUnlockPickup, KeyCorridor (6).
+    assert len(env_list) == 48
 
 
 @pytest.mark.parametrize("mode", ["cached", "regen"])
@@ -50,3 +56,38 @@ def test_every_jax_id_carries_across(env_id):
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make(env_id)
+
+
+def _family_reps():
+    """`FAMILY_REPS` of tests/test_support_matrix.py, read without importing
+    that module."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "test_support_matrix.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "FAMILY_REPS" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError("FAMILY_REPS not found")
+
+
+PORTED_REPS = [e for e in _family_reps() if e in env_list]
+
+
+def test_fifteen_of_the_support_matrix_families_are_ported():
+    assert len(_family_reps()) == 22 and len(PORTED_REPS) == 15
+
+
+@pytest.mark.parametrize("surface", ["fused", "eval", "collect"])
+@pytest.mark.parametrize("mode", ["cached", "regen"])
+@pytest.mark.parametrize("env_id", PORTED_REPS)
+def test_support_matrix_cell_matches_jax(env_id, mode, surface):
+    from minigrid_tpu.ops import fused_rollout as jfr
+    from minigrid_tpu.ops import policy_rollout as jpr
+    from minigrid_tpu_torch.ops import policy_rollout as tpr
+
+    env, jenv = make(env_id), minigrid_tpu.make(env_id)
+    if surface == "fused":
+        got, want = fused_rollout_supported(env, mode), jfr.fused_rollout_supported(jenv, mode=mode)
+    else:
+        collect = surface == "collect"
+        got = tpr.policy_rollout_supported(env, mode, collect=collect)
+        want = jpr.policy_rollout_supported(jenv, mode, collect=collect)
+    assert got == want is True

@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import jax
+import make_family_reference as fref
 import numpy as np
 import pytest
 import torch
@@ -113,10 +114,15 @@ def _port_two_calls(env, carry, seed, build=tfr.build_fused_rollout, mode="regen
 ENV_IDS = ["MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-8x8-v0", "MiniGrid-DistShift1-v0"]
 
 
-# The static-layout ids; KeyCorridor's and MultiRoom's reset_batch are held
-# against JAX in test_torch_keycorridor.py and test_torch_multiroom.py,
-# where their compiles are shared.
-@pytest.mark.parametrize("env_id", [e for e in env_list if "KeyCorridor" not in e and "MultiRoom" not in e])
+# The ids whose generators this file compiles live: KeyCorridor's and
+# MultiRoom's reset_batch are held against JAX in test_torch_keycorridor.py
+# and test_torch_multiroom.py, where their compiles are shared, and the
+# families ported with DynamicObstacles, Memory and Unlock hold their
+# generators against `data/family_generators_b32.npz`
+# (test_torch_dynamicobstacles.py, test_torch_memory_unlock.py), so that
+# the tier-1 run compiles none of their JAX generators.
+@pytest.mark.parametrize("env_id", [e for e in env_list if "KeyCorridor" not in e and "MultiRoom" not in e
+                                    and e not in fref.DYNOBST_IDS + fref.MEMORY_UNLOCK_IDS])
 def test_reset_batch_matches_jax(env_id):
     _, jstates = _jax_states(env_id, 5)
     got = state_to_numpy(make(env_id).reset_batch(key(5, device="cpu"), B))
@@ -211,3 +217,27 @@ def test_port_never_imports_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
+
+
+def test_row_reader_values_match_the_jax_packages():
+    """`build_fused_rollout` takes the JAX package's `row_reader` values
+    and raises on any other; the readers are a layout choice of the TPU
+    kernel, so all three give the same carries, which match
+    `build_packed_xla_rollout` (whose forward and view rows are read
+    through `_matmul_rows`)."""
+    env_id = "MiniGrid-Dynamic-Obstacles-5x5-v0"
+    env = make(env_id)
+    acts = _actions(2)
+    carry0 = tfr.packed_init(env, env.reset_batch(key(2, device="cpu"), B), "cached")
+    with pytest.raises(ValueError, match="unknown row_reader"):
+        tfr.build_fused_rollout(env, T, mode="cached", row_reader="gather")
+    runs = {}
+    for reader in ("auto", "slices", "matmul"):
+        step = tfr.build_fused_rollout(env, T, mode="cached", as_carry=True, actions_override=acts, row_reader=reader)
+        runs[reader] = carry_to_numpy(step(None, carry0)[0])
+    jstep = jax.jit(jfr.build_packed_xla_rollout(minigrid_tpu.make(env_id), T, mode="cached", as_carry=True,
+                                                 actions_override=acts))
+    jc, _ = jstep(jax.random.PRNGKey(0), jfr.PackedCarry(**carry_to_numpy(carry0)))
+    for reader, got in runs.items():
+        for name, arr in got.items():
+            np.testing.assert_array_equal(arr, np.asarray(getattr(jc, name)), err_msg=f"{reader} {name}")

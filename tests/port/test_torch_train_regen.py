@@ -24,9 +24,13 @@ order):
     folds `0.9 / max_steps` into one constant, so a success's reward can
     differ in its last bit, as `total_reward` does; ROADMAP.md §C), with
     deferred resets (`reset_overlaps > 0`, re-entry passes);
-  * two chained train steps on KeyCorridorS3R1 regen and on DoorKey-5x5
+  * DynamicObstacles-5x5 and MemoryS7 policy evaluation in regen mode
+    (chunk 8, `max_steps` 5; the pre-hook and the remaps, DynamicObstacles
+    with 3 actions), as KeyCorridor's;
+  * two chained train steps on KeyCorridorS3R1 regen, on DoorKey-5x5
     regen (no packed generator: the refresh packs the batched
-    `generate`), `max_steps` 5, against
+    `generate`) and on DynamicObstacles-5x5 regen (3 actions: the head's
+    actor rows, the pre-hook), `max_steps` 5, against
     `build_fused_train_step(backend="xla", grad_backend="kernel")` (the
     gradient kernel in interpret mode), with `test_torch_train.py` (f)'s
     bounds: carries byte-exact, metrics rtol 2e-3, params within 2·lr per
@@ -104,16 +108,16 @@ def test_policy_rollout_supported_matches_jax(env_id, mode, collect):
 
 
 def test_unported_paths_still_refused():
-    """A hook the port lacks and a grid the shared-memory budget refuse;
-    a random layout without a packed generator (Empty-8x8 with a random
-    start) is taken as the JAX package takes it, through its batched
-    `generate`."""
+    """A transition without packed hooks and a grid the shared-memory
+    budget refuse; a random layout without a packed generator (Empty-8x8
+    with a random start) is taken as the JAX package takes it, through its
+    batched `generate`."""
     pytest.importorskip("jax")
     import minigrid_tpu
     from minigrid_tpu.ops import policy_rollout as jpr
 
     kc = make(ref.KC)
-    memory = dataclasses.replace(kc, transition="memory")
+    memory = dataclasses.replace(kc, transition="no_such_transition")
     empty = make("MiniGrid-Empty-8x8-v0")
     random_start = dataclasses.replace(empty, config=dataclasses.replace(empty.config, agent_start_pos=None))
     big = dataclasses.replace(empty, config=dataclasses.replace(empty.config, width=40, height=40))
@@ -181,18 +185,29 @@ def test_merge_spill_matches_jax(tc, first_pass):
 
 @pytest.mark.parametrize("mode", ["cached", "regen"])
 def test_keycorridor_policy_eval_matches_jax(mode):
-    name = f"kc_eval_{mode}"
-    _, _, _, _, t, _, chunk, _, key_seed, _ = ref.CASES[name]
+    _policy_eval_matches(f"kc_eval_{mode}")
+
+
+@pytest.mark.parametrize("name", ["do_eval_regen", "mem_eval_regen"])
+def test_remapped_family_policy_eval_matches_jax(name):
+    """DynamicObstacles-5x5 (the pre-hook, its remap, 3 actions) and
+    MemoryS7 (its remap) in regen mode."""
+    _policy_eval_matches(name)
+
+
+def _policy_eval_matches(name):
+    _, _, mode, _, t, _, chunk, _, key_seed, _ = ref.CASES[name]
     carry = ref.port_carry(name)
     arrays = _file_in(name, carry)
-    step = tpr.build_policy_eval_rollout(ref.port_env(name), dyadic_flax_params(ref.PARAMS_SEED), t, mode=mode,
+    step = tpr.build_policy_eval_rollout(ref.port_env(name), ref.params(name, ref.PARAMS_SEED), t, mode=mode,
                                          as_carry=True, regen_chunk=chunk)
     metrics = []
     for i in range(2):
         carry, m = step(prng.key(key_seed, device=CPU), carry)
         _assert_call(i, carry, m, arrays)
         metrics.append(m)
-    assert float(metrics[0].total_reward) > 0  # the hook's successes
+    if name.startswith("kc"):
+        assert float(metrics[0].total_reward) > 0  # the hook's successes
     if mode == "regen":
         assert sum(int(m.reset_overlaps) for m in metrics) > 0
 
@@ -249,11 +264,18 @@ def test_doorkey_regen_train_steps_match_jax():
     _train_steps_match("dk_train_regen", torso_tol=5e-5)
 
 
+def test_dynamicobstacles_regen_train_steps_match_jax():
+    """DynamicObstacles-5x5 (the pre-hook, the remap, 3 actions, the
+    batched `generate` in the refresh): the plain train step against the
+    JAX package's, with DoorKey's bounds."""
+    _train_steps_match("do_train_regen", torso_tol=5e-5)
+
+
 def _train_steps_match(name, torso_tol=1e-5):
     _, _, mode, b, t, _, chunk, _, _, _ = ref.CASES[name]
     carry = ref.port_carry(name)
     arrays = _file_in(name, carry)
-    params = dyadic_flax_params(ref.TRAIN_PARAMS_SEED)
+    params = ref.params(name, ref.TRAIN_PARAMS_SEED)
     sizes = ref.leaf_sizes(params["params"])
     model = ActorCritic.from_flax(params, device=CPU)
     ts = TT.TrainState(model, TT.make_optimizer().init(TT.flatten_params(model.flax_params())))

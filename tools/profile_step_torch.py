@@ -1,9 +1,9 @@
 """Where one carry-surface `step` call, or one fused train step, of the
 PyTorch port spends its time on a CUDA card.
 
-    python tools/profile_step_torch.py            # random policy
-    python tools/profile_step_torch.py --policy   # ActorCritic in the loop
-    python tools/profile_step_torch.py --train    # the fused train step
+    python tools/profile_step_torch.py [--env ID] [--batch B]           # random policy
+    python tools/profile_step_torch.py --policy [--env ID] [--batch B]  # ActorCritic in the loop
+    python tools/profile_step_torch.py --train [--env ID] [--batch B]   # the fused train step
     python tools/profile_step_torch.py --regen [--env ID] [--steps T] [--chunk N] [--batch B] [--policy]
                                                   # chunked regen
     python tools/profile_step_torch.py --train --regen [--env ID] [--steps T] [--chunk N] [--batch B]
@@ -25,8 +25,14 @@ the other on the current stream, with a CUDA event between each:
             holds the gaps while the host launches the replay's ops
   sums      the metric sums
 
+With `--env ID` (and `--batch B`), the same pieces on another id: regen
+mode where its layout is static, cached mode otherwise (no replay), as
+`chip_smoke.py` phase 17a times DynamicObstacles-16x16 cached (`--env
+MiniGrid-Dynamic-Obstacles-16x16-v0 --batch 262144`: the "kernel" share
+is the rollout kernel's, the obstacle walk included, of a call).
+
 With `--train`, at the train path's shape (B = 131,072, T = 256, as in
-`chip_smoke.py` phase 6), the pieces of `train_step(ts, carry, key)`
+`chip_smoke.py` phase 6; `--env` and `--batch` as above), the pieces of `train_step(ts, carry, key)`
 (`minigrid_tpu_torch.parallel.train.build_fused_train_step`), timed by a
 CUDA event that the step itself records at the end of each piece (its
 `mark` argument), so the profile follows the step's own code:
@@ -125,9 +131,9 @@ REGEN_PIECES = ("actions", "kernel", "refresh", "reentry", "sums")
 REGEN_KERNELS = ("rollout_kernel", "policy_kernel", "connect_kernel", "mr_chain_kernel")
 
 
-def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
-    """One regen step call, piece by piece: (carry, ms per piece, replay
-    iterations)."""
+def timed_pieces(env, num_steps, source, carry, stream_fn, run_core, mode="regen"):
+    """One step call, piece by piece: (carry, ms per piece, replay
+    iterations); cached mode has no replay (0 ms)."""
     cfg = env.config
     b, dev = carry.words.shape[1], carry.words.device
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(PIECES) + 1)]
@@ -138,13 +144,13 @@ def timed_pieces(env, num_steps, source, carry, stream_fn, run_core):
         carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, stream, cfg
     )
     ev[2].record()
-    rng = fr._replay_rng_chain(env, carry.rng, epi[0])
+    rng = fr._replay_rng_chain(env, carry.rng, epi[0]) if mode == "regen" else carry.rng
     ev[3].record()
     _sums = (epi.sum(dtype=torch.int64), rsum.sum(), csum.sum(dtype=torch.int64))
     ev[4].record()
     torch.cuda.synchronize()
     ms = {p: ev[i].elapsed_time(ev[i + 1]) for i, p in enumerate(PIECES)}
-    iterations = int(epi.max())
+    iterations = int(epi.max()) if mode == "regen" else 0
     return fr.PackedCarry(words, regs, carry.tmpl_words, carry.tmpl_regs, rng), ms, iterations
 
 
@@ -166,11 +172,18 @@ def timed_train_step(step, ts, carry, key_):
     return ts, carry, ms
 
 
-def main_train(dev, card) -> int:
-    env = make(ENV_ID)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), TRAIN_BATCH), "regen")
+def _static_mode(env) -> str:
+    """Regen where the layout is static (template auto-reset is exact),
+    else cached: the modes of the single-pass step."""
+    return "regen" if fr._regen_is_static(env) else "cached"
+
+
+def main_train(dev, card, env_id: str = ENV_ID, batch: int = TRAIN_BATCH) -> int:
+    env = make(env_id)
+    mode = _static_mode(env)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), mode)
     ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
-    step = tr.build_fused_train_step(env, NUM_STEPS, mode="regen")
+    step = tr.build_fused_train_step(env, NUM_STEPS, mode=mode)
     keys = iter([key(100 + i, device=dev) for i in range(WARMUP + 2 * CALLS + 1)])
     for _ in range(WARMUP):
         ts, carry, _ = step(ts, carry, next(keys))
@@ -193,12 +206,12 @@ def main_train(dev, card) -> int:
     for p in TRAIN_PIECES:
         print(f"{p:9s} {pieces_ms[p]:.4f} ms/step ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
     print(f"pieces sum {whole:.4f} ms/step; whole train step {step_ms:.4f} ms/step "
-          f"({TRAIN_BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
+          f"({batch * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s), {env_id} {mode} [{card}]", flush=True)
 
     kernel_ms, device_ms = profile_one(lambda: step(ts, carry, next(keys)),
                                        ("policy_kernel", "grad_g1_kernel", "grad_g2_kernel"))
     print(json.dumps({
-        "card": card, "env_id": ENV_ID, "train": True, "batch_size": TRAIN_BATCH, "num_steps": NUM_STEPS,
+        "card": card, "env_id": env_id, "mode": mode, "train": True, "batch_size": batch, "num_steps": NUM_STEPS,
         "pieces_ms": pieces_ms, "step_ms": step_ms, "profiler_device_ms": device_ms, "profiler_kernel_ms": kernel_ms,
     }), flush=True)
     return 0
@@ -370,27 +383,29 @@ def main() -> int:
         return main_train_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
                                 int(opt("--chunk", 32)), int(opt("--batch", REGEN_BATCH)))
     if "--train" in args:
-        return main_train(dev, card)
+        return main_train(dev, card, opt("--env", ENV_ID), int(opt("--batch", TRAIN_BATCH)))
     policy = "--policy" in args
     if "--regen" in args:
         return main_regen(dev, card, opt("--env", REGEN_ENV_ID), int(opt("--steps", NUM_STEPS)),
                           int(opt("--chunk", 128)), policy, int(opt("--batch", REGEN_BATCH)))
-    env = make(ENV_ID)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), BATCH), "regen")
+    env_id, batch = opt("--env", ENV_ID), int(opt("--batch", BATCH))
+    env = make(env_id)
+    mode = _static_mode(env)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), mode)
     if policy:
         model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
         weights = pr.eval_weights_from_params(model, env.config.agent_view_size)
-        step = pr.build_policy_eval_rollout(env, model, NUM_STEPS, mode="regen", as_carry=True)
+        step = pr.build_policy_eval_rollout(env, model, NUM_STEPS, mode=mode, as_carry=True)
         sources = iter([key(100 + i, device=dev) for i in range(WARMUP + 2 * CALLS + 1)])
         stream_fn = lambda k, b, d: pr._seeds_for(k, NUM_STEPS, b)
-        run_core = lambda *a: pr.run_policy_kernel(*a[:5], weights, a[5])
+        run_core = lambda *a: pr.run_policy_kernel(*a[:5], weights, a[5], transition=env.transition)
         kernel_name = "policy_kernel"
     else:
-        step = fr.build_fused_rollout(env, NUM_STEPS, mode="regen", as_carry=True)
+        step = fr.build_fused_rollout(env, NUM_STEPS, mode=mode, as_carry=True)
         gen = torch.Generator(device=dev).manual_seed(1)
         sources = iter(lambda: gen, None)
         stream_fn = lambda g, b, d: fr._action_stream(env, NUM_STEPS, g, b, d)
-        run_core = fr.run_rollout_kernel
+        run_core = lambda *a: fr.run_rollout_kernel(*a, transition=env.transition)
         kernel_name = "rollout_kernel"
 
     for _ in range(WARMUP):
@@ -398,7 +413,7 @@ def main() -> int:
     totals = dict.fromkeys(PIECES, 0.0)
     iterations = 0
     for _ in range(CALLS):
-        carry, ms, it = timed_pieces(env, NUM_STEPS, next(sources), carry, stream_fn, run_core)
+        carry, ms, it = timed_pieces(env, NUM_STEPS, next(sources), carry, stream_fn, run_core, mode)
         iterations += it
         for p in PIECES:
             totals[p] += ms[p]
@@ -416,12 +431,12 @@ def main() -> int:
     for p in PIECES:
         print(f"{p:8s} {pieces_ms[p]:.4f} ms/call ({100 * pieces_ms[p] / whole:.1f}%)", flush=True)
     print(f"pieces sum {whole:.4f} ms/call; whole step call {step_ms:.4f} ms/call "
-          f"({BATCH * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s); "
+          f"({batch * NUM_STEPS / step_ms * 1e3:.6e} env-steps/s), {env_id} {mode}; "
           f"replay {iterations / CALLS:.2f} iterations/call [{card}]", flush=True)
 
     kernel_ms, device_ms = profile_one(lambda: step(next(sources), carry), (kernel_name,))
     print(json.dumps({
-        "card": card, "env_id": ENV_ID, "policy": policy, "batch_size": BATCH, "num_steps": NUM_STEPS,
+        "card": card, "env_id": env_id, "mode": mode, "policy": policy, "batch_size": batch, "num_steps": NUM_STEPS,
         "pieces_ms": pieces_ms, "step_ms": step_ms, "replay_iterations_per_call": iterations / CALLS,
         "profiler_device_ms": device_ms, "profiler_kernel_ms": kernel_ms[kernel_name],
     }), flush=True)
