@@ -6,7 +6,9 @@
 Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. The card's name and power limit (nvidia-smi), then the build of the
-     CUDA kernels from the sources in this checkout, timed.
+     CUDA kernels from the sources in this checkout, timed, and `ptxas
+     -v`'s registers and spills of every policy-kernel and gradient-kernel
+     instantiation (a spill fails).
   2. The main path at full size: Empty-8x8, `reset_batch(key(0), 2**21)`,
      `packed_init(..., "regen")`, one warm-up and three timed
      `step(generator, carry)` calls at T=256, `packed_finish`. Every
@@ -24,7 +26,8 @@ result line):
      and 25x25 without. Words, registers, episodes and checksum must be
      byte-exact and per-lane reward sums bit-identical (tolerance 0). The
      probe kernel on a random (8, 128) int32 block against `x + 1`,
-     exact.
+     exact; timed through its wrapper, as raw launches, and as the
+     kernel's own device time (`torch.profiler`).
   4. The policy-in-the-loop main path at full width: Empty-8x8 regen,
      B=2**21, T=256, the `ActorCritic` (980 -> 256 -> 256, bf16 torso, f32
      heads) drawn from a seeded generator on the card,
@@ -41,10 +44,14 @@ result line):
      slices of 65,536 lanes with the matching columns of the same seeds
      (both timed, the twin as the sum of its slices), and on random
      packed states at 8x8 and 9x7 with and without see-through walls and
-     at 16x16 and 25x25 (32-lane blocks), B=8192, T=64. Under phase 4's weights, after T=1, at most
+     at 16x16 and 25x25 (64-lane blocks), B=8192, T=64. Under phase 4's
+     weights, after T=1, at most
      1e-4 of 65,536 lanes may differ (the f32 sums run in another order
      on the tensor cores and can flip a near-tie draw). The kernel alone
-     is timed at the main path's shape and weights (mean of 3).
+     is timed at the main path's shape and weights (mean of 3), beside the
+     weight bytes its blocks read from L2 per lane-step as its design
+     counts them, which must be at most half of what 64-lane blocks
+     streaming W1 and W2 every step read.
 
   6. The fused train step at full width: Empty-8x8 regen, B=131,072
      (the largest batch the JAX package's records train at; its (T, 56, B)
@@ -67,7 +74,9 @@ result line):
      share of dW1 and dW2 that one of G2's lane splits, or one of its time
      chunks, carries (the reading of a kernel that skipped it), each
      required to lie above the bound. Both kernels are timed at the main
-     path's shape (mean of 3).
+     path's shape (mean of 3), the gradient kernel also split into G1 and
+     G2 (`torch.profiler`), beside G2's yardstick: one cuBLAS bf16 GEMM of
+     dW2's half over a time chunk's samples, times the chunks (timed only).
 
   8. KeyCorridor regen, the slice's main path: KeyCorridorS6R3 (16x16,
      occlusion, the pickup-target hook), `reset_batch(key(0), 32,768)`,
@@ -119,7 +128,7 @@ result line):
      policy kernel at 25x25 on random packed states runs in phase 5; (e)
      both chunked-regen steps at N2-S4 with `max_steps` cut to 3, chunk 8,
      B=8192, T=16, where lanes end two episodes in a chunk; and the
-     rollout kernel (hookless) and the policy kernel (BT=32) under the
+     rollout kernel (hookless) and the policy kernel (BT=64) under the
      control rows alone, one 96-step pass at phase 10's shape, timed.
 
  12. The policy paths on random layouts, this slice's main path, at full
@@ -136,7 +145,7 @@ result line):
      only the policy kernel (hook, collect, control rows), the gradient
      kernel and the connect kernel; (c) the fused train step on
      MultiRoom-N4-S5, T=288, chunk 96, 3 timed steps, only the policy
-     kernel (collect, control rows, 32-lane blocks), the gradient kernel
+     kernel (collect, control rows, 64-lane blocks), the gradient kernel
      and the room-chain kernel, with deferred resets and re-entry passes.
      The loss must be finite, the params must move, `env_steps == B*T`.
      Each prints env-steps/s, the pieces' ms, host syncs, re-entry passes
@@ -214,7 +223,7 @@ result line):
      kernel at 3 actions on the train window's trajectory against
      `plain_grad_pass` within phase 7's bounds, two launches bit for bit;
      (c) MemoryS17Random regen policy evaluation, B=32,768, T=256, chunk
-     32 (32-lane blocks), the same way; (d) the regen main path of
+     32 (128-lane blocks), the same way; (d) the regen main path of
      Unlock, UnlockPickup, BlockedUnlockPickup, MemoryS7,
      DynamicObstacles-5x5 and -Random-6x6 at B=32,768, T=64, chunk 32: one
      warm-up and one timed random-policy call with only the rollout kernel
@@ -433,6 +442,39 @@ def card_line() -> str:
     return nvidia_smi("name,power.limit")
 
 
+def compiler_report(log: str) -> None:
+    """`ptxas -v`'s registers and spills of every policy-kernel (B2) and
+    gradient-kernel (B3) instantiation, one line each; any spill fails."""
+    import re
+
+    current, rows = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = m.group(1)
+        if current is None or not ("policy_kernel" in current or "grad_g" in current):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows.setdefault(current, {})["spills"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.setdefault(current, {})["registers"] = int(m.group(1))
+    spilled = []
+    for name, row in sorted(rows.items()):
+        m = re.search(r"policy_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)E", name)
+        label = (f"policy_kernel<BT={m.group(1)}, collect={m.group(2)}, ctl={m.group(3)}, hook={m.group(4)}>" if m
+                 else re.sub(r".*(grad_g\d_kernel).*", r"\1", name))
+        spills = row.get("spills", (0, 0))
+        print(f"phase 1: {label}: {row.get('registers')} registers, spill stores {spills[0]} B, "
+              f"spill loads {spills[1]} B", flush=True)
+        if any(spills):
+            spilled.append(label)
+    print(f"phase 1: {len(rows)} policy and gradient kernel instantiations, {len(spilled)} with a spill", flush=True)
+    if spilled:
+        raise RuntimeError(f"phase 1: register spills in {spilled}")
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the operations over their peak rate."""
@@ -582,12 +624,50 @@ def phase_probe(dev, card):
     library_ms, _ = time_events(lambda: torch.add(x, 1), PROBE_REPS)
     mismatches = int((got != want).sum())
     err = float((got.double() - want.double()).abs().max())
-    print(f"phase 3: probe kernel {tuple(x.shape)} {ms:.6f} ms/call, plain x+1 {plain_ms:.6f} ms/call, "
-          f"torch.add {library_ms:.6f} ms/call, "
-          f"mismatches={mismatches} max_abs_err={err} [{card}]", flush=True)
+    raw_ms, device_ms = probe_device_time(dev, x)
+    print(f"phase 3: probe kernel {tuple(x.shape)} {ms:.6f} ms/call through its wrapper, plain x+1 {plain_ms:.6f} "
+          f"ms/call, torch.add {library_ms:.6f} ms/call; raw launches {raw_ms:.6f} ms/call, the kernel's device "
+          f"time {device_ms if device_ms is not None else 'not measured'} ms/launch (it runs once per process, "
+          f"in load_library); mismatches={mismatches} max_abs_err={err} [{card}]", flush=True)
     if mismatches:
         raise RuntimeError("phase 3 failed: the probe kernel differs from x + 1")
     return err, ms, plain_ms, library_ms
+
+
+def probe_device_time(dev, x):
+    """The probe kernel without its wrapper's host path (capability check,
+    allocation, device guard): CUDA events around PROBE_REPS raw
+    `mg_probe_launch` calls into one output, and the kernel's own device
+    time per launch from `torch.profiler` (None if the profiler saw no
+    device time)."""
+    import ctypes
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from minigrid_tpu_torch.ops import _build
+
+    lib = _build.load_library(dev)
+    out = torch.empty_like(x)
+    args = (ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), x.numel(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    raw_ms, _ = time_events(lambda: lib.mg_probe_launch(*args), PROBE_REPS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROBE_REPS):
+            lib.mg_probe_launch(*args)
+        torch.cuda.synchronize()
+    us = kernel_device_us(prof, "probe_kernel")
+    return raw_ms, (us / PROBE_REPS / 1e3 if us else None)
+
+
+def kernel_device_us(prof, name: str) -> float:
+    """Device microseconds of the kernels whose name contains `name` in a
+    `torch.profiler` run."""
+    total = 0.0
+    for e in prof.key_averages():
+        if name in e.key:
+            total += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+    return total
 
 
 def time_events(fn, reps):
@@ -837,9 +917,25 @@ def phase_policy_vs_plain(dev, card, env, model, warm_carry):
     # The kernel alone at the main path's shape and weights.
     pr.run_policy_kernel(*full, seeds_full, weights, cfg)  # warm
     ms, _ = time_events(lambda: pr.run_policy_kernel(*full, seeds_full, weights, cfg), POLICY_TIMED_CALLS)
+    per_lane_step, streamed_64 = policy_weight_traffic(cfg)
     print(f"phase 5: policy kernel B={MAIN_B} T={POLICY_T} {ms:.4f} ms/call "
-          f"({MAIN_B * POLICY_T / ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
+          f"({MAIN_B * POLICY_T / ms * 1e3:.6e} env-steps/s); weight bytes a block reads from L2 per lane-step "
+          f"{per_lane_step:.2f} (64-lane blocks streaming W1 and W2 every step: {streamed_64:.2f}) [{card}]",
+          flush=True)
+    if per_lane_step > streamed_64 / 2:
+        raise RuntimeError("phase 5: the policy kernel reads more than half the weight bytes of 64-lane blocks")
     return max_err, ms, plain_ms, lanes
+
+
+def policy_weight_traffic(cfg):
+    """Weight bytes the policy kernel's blocks read from L2 per lane-step at
+    `cfg`, as its design counts them: each block copies W1ᵀ's and W2ᵀ's
+    slabs once a step (`policy_plan`). Beside it, 64-lane blocks that read
+    both every step."""
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    step_bytes = (pr.padded_features(cfg.agent_view_size) * pr.HIDDEN + pr.HIDDEN * pr.HIDDEN) * 2
+    return step_bytes / pr.policy_lane_block(cfg), step_bytes / 64
 
 
 def phase_train_main_path(dev, card):
@@ -1038,15 +1134,64 @@ def phase_train_vs_plain(dev, card, env, ts, warm_carry):
           f"part ({splits} lane splits): {dropped} [{card}]", flush=True)
     if min(min(r.values()) for r in dropped.values()) <= GRAD_TORSO_TOL:
         raise RuntimeError("phase 7 failed: the torso bound would not catch a G2 that left out a part")
+    per_lane_step, _ = policy_weight_traffic(cfg)
     print(f"phase 7: collecting policy kernel B={TRAIN_B} T={TRAIN_T} {collect_ms:.4f} ms/call "
-          f"({TRAIN_B * TRAIN_T / collect_ms * 1e3:.6e} env-steps/s) [{card}]", flush=True)
-    print(f"phase 7: grad kernel B={TRAIN_B} T={TRAIN_T} {grad_ms:.4f} ms/call, plain_grad_pass "
-          f"{grad_plain_ms:.4f} ms; rel-to-max error {rel}, loss sums rel {sums_rel:.3e} "
-          f"(kernel {sums.tolist()}, plain {want_sums.tolist()}), max_abs_err {grad_err}; "
+          f"({TRAIN_B * TRAIN_T / collect_ms * 1e3:.6e} env-steps/s); weight bytes from L2 per lane-step "
+          f"{per_lane_step:.2f} [{card}]", flush=True)
+    g1_ms, g2_ms = grad_split_times(args)
+    g2_library_ms = g2_yardstick(dev)
+    w1 = pr.padded_features(view) * pr.HIDDEN * 2
+    print(f"phase 7: grad kernel B={TRAIN_B} T={TRAIN_T} {grad_ms:.4f} ms/call (profiler: G1 {g1_ms:.4f}, G2 "
+          f"{g2_ms:.4f} ms), plain_grad_pass {grad_plain_ms:.4f} ms, G2's yardstick {g2_library_ms:.4f} ms; "
+          f"G1 weight bytes from L2 per sample {(w1 + 4 * pr.HIDDEN * pr.HIDDEN) / gk.LANE_BLOCK:.2f}, G2 scratch and obs "
+          f"bytes per sample over its tiles {g2_sample_bytes(view):.2f}; rel-to-max error {rel}, loss sums rel "
+          f"{sums_rel:.3e} (kernel {sums.tolist()}, plain {want_sums.tolist()}), max_abs_err {grad_err}; "
           f"two launches bit-identical: {same} [{card}]", flush=True)
     if not _grad_within_bounds(rel, sums_rel, same, sums):
         raise RuntimeError("phase 7 failed: the grad kernel is outside its bounds or does not repeat")
-    return max_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms
+    return max_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms, g2_library_ms
+
+
+def grad_split_times(args):
+    """G1's and G2's device milliseconds in one gradient-kernel call on
+    `run_grad_kernel`'s `args`, from `torch.profiler`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gk.run_grad_kernel(*args)
+        torch.cuda.synchronize()
+    return kernel_device_us(prof, "grad_g1_kernel") / 1e3, kernel_device_us(prof, "grad_g2_kernel") / 1e3
+
+
+def g2_sample_bytes(view: int) -> float:
+    """Bytes G2's tiles read per sample: each dW1ᵀ tile dh1's 256 rows and
+    the obs words, each dW2 tile its 128 rows of dh2 and h1's 256 rows."""
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+
+    _, w1_tiles, w2_tiles = gk.g2_tiles(view)
+    return w1_tiles * (2 * 256 + 4 * view * view) + w2_tiles * (2 * 128 + 2 * 256)
+
+
+def g2_yardstick(dev) -> float:
+    """A yardstick for G2, timed and used nowhere in the port: one cuBLAS
+    bf16 GEMM (f32 accumulation) of dW2's half, dh2 · h1ᵀ, over one time
+    chunk's samples at the train path's shape (operands of the scratch's
+    shape), times the chunks of a call."""
+    import torch
+
+    from minigrid_tpu_torch.ops import grad_kernel as gk
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((pr.HIDDEN, gk.TIME_CHUNK * TRAIN_B), device=dev, generator=g).to(torch.bfloat16)
+    b = torch.randn((pr.HIDDEN, gk.TIME_CHUNK * TRAIN_B), device=dev, generator=g).to(torch.bfloat16)
+    torch.matmul(a, b.T)  # warm
+    ms, _ = time_events(lambda: torch.matmul(a, b.T), TRAIN_TIMED_CALLS)
+    del a, b
+    return ms * (TRAIN_T // gk.TIME_CHUNK)
 
 
 def phase_kc_main_path(dev, card):
@@ -1515,7 +1660,7 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
                                f"reset_overlaps {int(m.reset_overlaps)}")
 
     # The kernels alone under the commit rows, one 96-step pass of the main
-    # path's shape from phase 10's carries: B1 hookless, B2 at BT = 32 under
+    # path's shape from phase 10's carries: B1 hookless, B2 at BT = 64 under
     # dyadic weights; each against its plain version, byte for byte.
     cfg = env.config
     v = cfg.agent_view_size
@@ -1842,8 +1987,8 @@ def phase_regen_policy_vs_plain(dev, card, kc, model, runs):
 
     # The new instantiations alone at the main path's shapes, timed: B2
     # with the hook under the control rows (KeyCorridorS6R3, 16x16, BT =
-    # 32, one 32-step pass; eval and collect) and collecting under the
-    # control rows without a hook (MultiRoom-N4-S5, 25x25, BT = 32, one
+    # 128, one 32-step pass; eval and collect) and collecting under the
+    # control rows without a hook (MultiRoom-N4-S5, 25x25, BT = 64, one
     # 96-step pass), from phase 12's carries, against the twin.
     timed = {}
     for name, (env_id, carry, t, collect, hook) in {
@@ -2353,7 +2498,7 @@ def phase_new_hooks(dev, card):
     del state, eval_carry, carry0, traj, roll, train, eval_step
     torch.cuda.empty_cache()
 
-    # (c) MemoryS17Random regen policy evaluation, 32-lane blocks.
+    # (c) MemoryS17Random regen policy evaluation, 128-lane blocks.
     env = make(MEM_REGEN_ID)
     cfg = env.config
     model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
@@ -2414,6 +2559,9 @@ def main() -> int:
           f"(nvcc {_build.last_build_seconds} s; library {_build.library_path().name})", flush=True)
     if _build.last_build_log:
         print(_build.last_build_log.strip(), flush=True)
+        compiler_report(_build.last_build_log)
+    else:
+        print("phase 1: the library came from the build cache: no compiler report", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain twins' f32 GEMMs in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2428,7 +2576,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     env, ts, warm_carry, train_launches, _, _ = phase_train_main_path(dev, card)
     torch.cuda.empty_cache()
-    collect_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms = phase_train_vs_plain(
+    collect_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms, g2_library_ms = phase_train_vs_plain(
         dev, card, env, ts, warm_carry
     )
     del env, ts, warm_carry
@@ -2575,7 +2723,7 @@ def main() -> int:
             "plain_ms": grad_plain_ms,
             "bound_ms": train_grad_bound[0],
             "bound_by": train_grad_bound[1],
-            "library_ms": None,
+            "library_ms": g2_library_ms,
         },
         {
             "name": "rollout_kernel_hook_ctl",

@@ -118,10 +118,10 @@ def _open() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 11 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
-        lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 14 + [ptr]
+        lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 15 + [ptr]
         lib.mg_policy_launch.restype = ctypes.c_int
         lib.mg_grad_launch.argtypes = (
-            [ptr] * 17 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_int, ptr]
+            [ptr] * 17 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [ctypes.c_int, ptr]
         )
         lib.mg_grad_launch.restype = ctypes.c_int
         lib.mg_connect_launch.argtypes = [ptr] * 8 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4 + [ptr]

@@ -18,26 +18,37 @@
 // them (layer 1 by its 3 * V * V active one-hot rows), a sample takes
 // 480,768 FLOP at V = 7 against about 208 bytes of trajectory, far above
 // the card's 295 FLOP/B balance point; the products are bf16, so the
-// tensor cores' rate is the bound.
+// tensor cores' rate is the bound. The design runs the one-hot products
+// densely (K = 992 at V = 7), on wgmma.
 //
-// Design (right first; what is left for speed is in PERF.md). The TPU
-// kernel keeps the 256 x 980 f32 dW1 accumulator (1 MB) in VMEM across its
-// sequential time grid; no CTA can hold it, and blocks run in no order. So
-// the pass is split in two kernels, run chunk by chunk over the time axis
-// (`tc` steps a chunk) by one host call, on one stream:
-//  * G1, one block of 64 lanes and 256 threads per lane tile: for each step
-//    of the chunk, the forward as in policy_kernel.cu (one-hot features in
-//    shared memory, both torso layers on mma.sync m16n8k16, the f32 head
-//    split over threads), the cotangents per lane, dh2 on CUDA cores, and
-//    dh1 = W2^T . dh2 on mma.sync with W2^T in A-fragment order. It writes
-//    h1, dh2 and dh1 (bf16, (tc, 256, B), lane-contiguous) to scratch, and
-//    keeps dwta, the bias grads and the loss sums (all f32, small) in
-//    registers, added once per chunk into its lane tile's row of partials.
-//  * G2, one block per (128 x 128 output tile, split of the lanes): the two
-//    large weight products dW1 = dh1 . feats^T and dW2 = dh2 . h1^T, with
-//    the samples as the K dimension, on mma.sync. It re-derives the one-hot
-//    features of its 128 feature columns from the obs words instead of
-//    storing them, and adds its tile into its split's f32 partial.
+// Design. The TPU kernel keeps the 256 x 980 f32 dW1 accumulator (1 MB) in
+// VMEM across its sequential time grid; no block can hold it, and blocks
+// run in no order. So the pass is split in two kernels, run chunk by chunk
+// over the time axis (`tc` steps a chunk) by one host call, on one stream:
+//  * G1, one block of 64 lanes per lane tile: one warpgroup, the weights
+//    streamed through the ring of policy_device.cuh (each step: W1^T's
+//    chunks, W2^T's and W2's, in the order they are used). For each
+//    step of the chunk: the forward of policy_kernel.cuh (features built in
+//    registers from the lanes' feature bits, set from the obs words by one
+//    thread a lane; layer 1 and layer 2 on wgmma with h1 kept as layer 2's A
+//    fragments, the f32 head summed over each quad), the cotangents per
+//    lane, dh2 on CUDA cores (thread c owns hidden units c and c + 128),
+//    and dh1 = dh2 . W2 on wgmma with dh2 as A from shared memory and W2 as
+//    B, masked by h1 > 0 from the h1 tile it then overwrites. It writes h1,
+//    dh2 and dh1 (bf16, (tc, 256, B), lane-contiguous) to scratch through
+//    shared-memory tiles, 16 bytes a store, and keeps dwta, the bias grads
+//    and the per-lane loss sums in shared memory (all f32, small), added
+//    once per chunk into its lane tile's row of partials.
+//  * G2, a pipelined wgmma GEMM with the samples as K: one block per (128
+//    x 256 output tile, split of the lanes), two consumer warpgroups of 64
+//    rows. dW1 is taken transposed, dW1^T[f][h] = sum feats[f] dh1[h]: its
+//    A operand, the one-hot features of the tile's 128 feature rows, is
+//    built in registers from the obs words as in the forward (nothing is
+//    stored), its B the dh1 scratch. dW2 = dh2 . h1^T takes both operands
+//    from the scratch. A ring of 4 stages of 64 samples (one step's lanes:
+//    K-contiguous in the scratch) is filled with cp.async, three stages
+//    ahead of the products. Each tile is added into its split's f32
+//    partial.
 // No float atomics: every partial element has one owner per launch, and
 // the chunks run in order on the stream, so a run repeats bit for bit. The
 // wrapper sums the partials over tiles and splits with torch.sum, as the
@@ -57,174 +68,189 @@
 
 namespace {
 
-constexpr int kBT = 64;                   // lanes of a G1 block
-constexpr int kH2Stride = kBT + 8;        // bf16 per hidden row of h2 ([256][kBT + 8])
-constexpr int kPartWidth = 2576;          // G1 partial row: dwta 2048, db1 256, db2 256, dba 8, sums 8
+constexpr int kBT = 64;                 // lanes of a G1 block: one warpgroup's rows
+constexpr int kG1Threads = kWG;
+constexpr int kLaneStride = kBT + 8;    // elements per hidden row of the [256][kBT] tiles
+constexpr int kPartWidth = 2576;        // G1 partial row: dwta 2048, db1 256, db2 256, dba 8, sums 8
 constexpr int kPartDb1 = kHeadRows * kHidden;
 constexpr int kPartDb2 = kPartDb1 + kHidden;
 constexpr int kPartDba = kPartDb2 + kHidden;
 constexpr int kPartSums = kPartDba + kHeadRows;
-constexpr int kTile = 128;                // G2 output tile
-constexpr int kKStep = 32;                // G2 samples per shared-memory step
-constexpr int kTileStride = kKStep + 8;   // bf16 per row of a G2 operand tile
-constexpr int kMaxV2 = 49;                // view cells: V <= 7 (ops/grad_kernel.py checks)
+constexpr int kTile = 128;              // G2 output rows a block (N is all 256 columns)
+constexpr int kG2Threads = 2 * kWG;
+constexpr int kKStep = 64;              // G2 samples a stage: 64 lanes of one step
+constexpr int kG2Stages = 4;
+constexpr int kStageBytes = 48 * 1024;  // B tile 32 KB, then the A tile or the obs words
+constexpr int kWordsStride = kKStep + 8;  // int32 per obs-word row of a stage
+constexpr int kHalfTile = 128 * 128;    // bytes of 128 rows of a 64-deep tile (128-byte swizzle)
 
 struct GradParams {
   const int32_t* obs;      // (T, V*V, B) obs words, t stride obs_tstride
   const int32_t* actions;  // (T, B), t stride act_tstride
   const float* adv;        // (T, B)
   const float* ret;        // (T, B)
-  const uint4* w1frag;     // W1 in A-fragment order (policy_kernel.cu)
+  const void* w1s;         // W1^T in chunks (ops/policy_rollout.py::_b_chunks)
   const __nv_bfloat16* b1;
-  const uint4* w2frag;     // W2 in A-fragment order
+  const void* w2s;         // W2^T chunks: layer 2's B
   const __nv_bfloat16* b2;
-  const uint4* w2tfrag;    // W2^T in A-fragment order
+  const void* w2ts;        // W2 chunks: the B of dh1 = dh2 . W2
   const float* wta;        // (8, 256)
   const float* ba;         // (8,)
   __nv_bfloat16* h1;       // scratch (tc, 256, B)
   __nv_bfloat16* dh1;      // scratch (tc, 256, B)
   __nv_bfloat16* dh2;      // scratch (tc, 256, B)
   float* part1;            // (B / 64, kPartWidth)
-  float* dw1p;             // (splits, 256, nf)
+  float* dw1p;             // (splits, nf, 256): dW1^T
   float* dw2p;             // (splits, 256, 256)
   long long obs_tstride, act_tstride;
-  int B, view, num_actions, nf, splits, split_lanes;
+  int B, view, num_actions, nf, splits, split_lanes, stages;
   float inv_denom, vc2, ec;
 };
 
-__device__ __forceinline__ float bf16_bits_to_float(unsigned short u) {
-  return __bfloat162float(__ushort_as_bfloat16(u));
-}
-
-__device__ __forceinline__ unsigned short float_to_bf16_bits(float x) {
+__device__ __forceinline__ uint32_t float_to_bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ void addto(float* p, float x, bool accumulate) { *p = accumulate ? *p + x : x; }
 
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// G1's shared memory, as ops/grad_kernel.py::grad_smem_bytes counts it:
+// the ring's bookkeeping and `stages` slots, dh2 as wgmma's A ([64][256]
+// bf16: four 64-deep K chunks in the 128-byte swizzle), the head weights
+// ([256][8] f32) and biases, the step's feature bits [K / 32][64] uint32,
+// the [256][72] bf16 tiles of h1 (later dh1) and h2, dhead [8][64], the
+// lane sums [3][64] and the tile's running dwta, db1, db2 and dba in f32.
+struct G1Smem {
+  unsigned char* dh2;  // A operand: 4 chunks of [64 lanes][64 hidden units]
+  float *wta, *b1, *b2, *ba;
+  uint32_t* feat;
+  uint16_t* tile;  // h1, then dh1: [256][kLaneStride]
+  uint16_t* h2;    // [256][kLaneStride]
+  float *dhead, *sums;
+  float* grads;    // the partial row's first kPartSums entries
+
+  __device__ G1Smem(unsigned char* raw, const GradParams& p) {
+    dh2 = raw + kBarBytes + p.stages * kChunkBytes;
+    wta = reinterpret_cast<float*>(dh2 + kBT * kHidden * 2);
+    b1 = wta + kHidden * kHeadRows;
+    b2 = b1 + kHidden;
+    ba = b2 + kHidden;
+    feat = reinterpret_cast<uint32_t*>(ba + kHeadRows);
+    tile = reinterpret_cast<uint16_t*>(feat + padded_features(p.view) / 32 * kBT);
+    h2 = tile + kHidden * kLaneStride;
+    dhead = reinterpret_cast<float*>(h2 + kHidden * kLaneStride);
+    sums = dhead + kHeadRows * kBT;
+    grads = sums + 3 * kBT;
+  }
+};
+
+// Byte offset of element (lane l, hidden unit o) in the dh2 A tile.
+__device__ __forceinline__ int dh2_offset(int l, int o) { return (o >> 6) * 8192 + sw128_offset(l, o & 63); }
+
+// Write a [256][kLaneStride] tile's hidden row o (64 lanes) to scratch at dst.
+__device__ __forceinline__ void row_to_scratch(const uint16_t* tile, int o, __nv_bfloat16* dst) {
+  const uint4* src = reinterpret_cast<const uint4*>(tile + o * kLaneStride);
+  uint4* out = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int q = 0; q < kBT / 8; ++q) out[q] = src[q];
+}
+
 // G1: forward, cotangents and the lane-local backward for steps
 // [t0, t0 + tcc) of one tile of 64 lanes.
-__global__ void __launch_bounds__(kThreads, 1) grad_g1_kernel(const GradParams p, int t0, int tcc,
-                                                               int accumulate) {
-  constexpr int kNTiles = kBT / 8;
+__global__ void __launch_bounds__(kG1Threads, 1) grad_g1_kernel(const GradParams p, int t0, int tcc,
+                                                                 int accumulate) {
   const int v2 = p.view * p.view;
-  const int k_tiles = padded_features(p.view) / 16;
-  const int f_stride = padded_features(p.view) + 8;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* h1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBT][kH1Stride]
-  __nv_bfloat16* h2s = h1s + kBT * kH1Stride;                         // [256][kH2Stride]
-  __nv_bfloat16* dh1s = h2s;                 // [kBT][kH1Stride]: aliases h2 once dh2 is made
-  __nv_bfloat16* feat_s = h2s + kHidden * kH2Stride;  // [kBT][f_stride]; after layer 1:
-  __nv_bfloat16* dh2s = feat_s;                       //   [kBT][kH1Stride]
-  float* part_s = reinterpret_cast<float*>(dh2s + kBT * kH1Stride);  // [4][8][kBT]
-  float* dhead_s = part_s + (kThreads / kBT) * kHeadRows * kBT;       // [8][kBT]
-  const int region = f_stride * kBT * 2 > (kBT * kH1Stride * 2 + (kThreads / kBT + 1) * kHeadRows * kBT * 4)
-                         ? f_stride * kBT * 2
-                         : kBT * kH1Stride * 2 + (kThreads / kBT + 1) * kHeadRows * kBT * 4;
-  float* wta_s = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(feat_s) + region);
-  float* b1_s = wta_s + kHeadRows * kHidden;
-  float* b2_s = b1_s + kHidden;
-  float* ba_s = b2_s + kHidden;
-  float* sums_s = ba_s + kHeadRows;  // [3][kBT]
-
+  const int k_chunks = padded_features(p.view) / 64;
+  const bool tail = padded_features(p.view) % 64 != 0;
+  // Each step: W1^T's chunks, W2^T's (layer 2), W2's (dh1).
+  const int per_step = w1_chunks(p.view) + 2 * kW2Chunks;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const G1Smem sm(smem_raw, p);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  if (tid == 0) {
+    const ChunkSequence sq{{static_cast<const char*>(p.w1s), static_cast<const char*>(p.w2s),
+                            static_cast<const char*>(p.w2ts)},
+                           {w1_chunks(p.view), kW2Chunks, kW2Chunks},
+                           tcc};
+    init_ring(smem_raw, p.stages, sq);
+  }
+  for (int i = tid; i < kHeadRows * kHidden; i += kG1Threads)
+    sm.wta[i] = p.wta[(i % kHeadRows) * kHidden + i / kHeadRows];
+  for (int i = tid; i < kHidden; i += kG1Threads) {
+    sm.b1[i] = __bfloat162float(p.b1[i]);
+    sm.b2[i] = __bfloat162float(p.b2[i]);
+  }
+  if (tid < kHeadRows) sm.ba[tid] = p.ba[tid];
+  for (int i = tid; i < kPartSums; i += kG1Threads) sm.grads[i] = 0.0f;
+  for (int i = tid; i < 3 * kBT; i += kG1Threads) sm.sums[i] = 0.0f;
+  __syncthreads();
+
   const int ln = tid & 31;
   const int g8 = ln >> 2;
   const int t4 = ln & 3;
-  for (int i = tid; i < kHeadRows * kHidden; i += kThreads) wta_s[i] = p.wta[i];
-  b1_s[tid] = __bfloat162float(p.b1[tid]);
-  b2_s[tid] = __bfloat162float(p.b2[tid]);
-  if (tid < kHeadRows) ba_s[tid] = p.ba[tid];
-
+  const int r0 = (tid >> 5) * 16 + g8;  // fragment rows r0 and r0 + 8
+  const int own = r0 + 8 * t4;          // the lane of threads t4 < 2 in the per-lane phase
+  const bool elected = tid == 0;
   const size_t B = static_cast<size_t>(p.B);
   const int lane0 = blockIdx.x * kBT;
-  const int lane = lane0 + tid;  // the lane of threads tid < kBT
-  const int o = tid;             // the hidden unit of thread tid in the column phases
-  uint4* feat_words = reinterpret_cast<uint4*>(feat_s);
-  const int feat_uint4 = kBT * f_stride / 8;
-  unsigned short* frow = reinterpret_cast<unsigned short*>(feat_s + tid * f_stride);
+  Ring ring{smem_raw, p.stages, 1, per_step, tcc * per_step};
+  const uint32_t dh2_tile = smem_addr(sm.dh2);
 
-  float dwta_acc[kHeadRows];
-#pragma unroll
-  for (int a = 0; a < kHeadRows; ++a) dwta_acc[a] = 0.0f;
-  float db1_acc = 0.0f, db2_acc = 0.0f, dba_acc = 0.0f;
-  float pg_sum = 0.0f, v_sum = 0.0f, ent_sum = 0.0f;
-  float wcol[kHeadRows];
-#pragma unroll
-  for (int a = 0; a < kHeadRows; ++a) wcol[a] = p.wta[a * kHidden + o];
+  // Thread tid owns hidden units tid and tid + 128 in the column phases;
+  // their running gradients are in sm.grads.
 
   for (int j = 0; j < tcc; ++j) {
     const int t = t0 + j;
-    // ---- the one-hot features of the step's obs words ----
-    for (int i = tid; i < feat_uint4; i += kThreads) feat_words[i] = make_uint4(0, 0, 0, 0);
-    __syncthreads();
+    // ---- the step's feature bits from its obs words, one thread a lane ----
     if (tid < kBT) {
-      const int32_t* w = p.obs + t * p.obs_tstride + lane;
-      for (int kv = 0; kv < v2; ++kv) set_features(frow, kv, v2, w[kv * B]);
+      const int32_t* w = p.obs + t * p.obs_tstride + lane0 + tid;
+      uint32_t* col = sm.feat + tid;
+      clear_feature_bits(col, kBT, padded_features(p.view) / 32);
+      for (int kv = 0; kv < v2; ++kv) set_feature_bits(col, kBT, kv, v2, w[kv * B]);
     }
-    __syncthreads();
+    bar_sync(1, kWG);
 
-    // ---- layer 1: h1 = relu(bf16(bf16(W1 . feats) + b1)) into h1s[lane][o] ----
+    // ---- the forward: layer 1, layer 2 and the head; h1 and h2 into their tiles ----
+    float head[2][kHeadRows];
     {
-      float c[2][kNTiles][4];
-      warp_product<kBT>(c, p.w1frag, k_tiles, feat_s, f_stride, warp, ln);
-      unsigned short* h = reinterpret_cast<unsigned short*>(h1s);
+      uint32_t h1[kKTiles][4];
+      {
+        float acc[2][64];
+        layer1(acc, ring, sm.feat, kBT, k_chunks, tail, r0, t4, elected);
+        h1_fragments(h1, acc, sm.b1, t4);
+      }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = (warp * 2 + mi) * 16 + g8;
+      for (int kt = 0; kt < kKTiles; ++kt) {
+        const int c0 = (kt / 8) * 128 + 16 * (kt % 8) + 2 * t4;
 #pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const int n = nt * 8 + 2 * t4;
-          h[n * kH1Stride + r] = static_cast<unsigned short>(bias_relu(c[mi][nt][0], b1_s[r]));
-          h[(n + 1) * kH1Stride + r] = static_cast<unsigned short>(bias_relu(c[mi][nt][1], b1_s[r]));
-          h[n * kH1Stride + r + 8] = static_cast<unsigned short>(bias_relu(c[mi][nt][2], b1_s[r + 8]));
-          h[(n + 1) * kH1Stride + r + 8] = static_cast<unsigned short>(bias_relu(c[mi][nt][3], b1_s[r + 8]));
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + (e >> 1) * 8;
+          const int row = r0 + (e & 1) * 8;
+          sm.tile[col * kLaneStride + row] = static_cast<uint16_t>(h1[kt][e] & 0xFFFFu);
+          sm.tile[(col + 1) * kLaneStride + row] = static_cast<uint16_t>(h1[kt][e] >> 16);
         }
       }
+      layer2_head(head, h1, ring, sm.b2, sm.wta, t4, elected, [&](int r, int col, uint32_t bits) {
+        sm.h2[col * kLaneStride + r0 + 8 * r] = static_cast<uint16_t>(bits);
+      });
     }
-    __syncthreads();
-
-    // ---- h1 to scratch (thread o writes hidden row o); layer 2 into h2s[o][lane] ----
-    {
-      const unsigned short* h = reinterpret_cast<const unsigned short*>(h1s);
-      uint4* dst = reinterpret_cast<uint4*>(p.h1 + (static_cast<size_t>(j) * kHidden + o) * B + lane0);
-#pragma unroll
-      for (int q = 0; q < kBT / 8; ++q) {
-        uint32_t w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          w[e] = h[(q * 8 + 2 * e) * kH1Stride + o] | (static_cast<uint32_t>(h[(q * 8 + 2 * e + 1) * kH1Stride + o]) << 16);
-        dst[q] = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-      float c[2][kNTiles][4];
-      warp_product<kBT>(c, p.w2frag, kKTiles, h1s, kH1Stride, warp, ln);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = (warp * 2 + mi) * 16 + g8;
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const int n = nt * 8 + 2 * t4;
-          *reinterpret_cast<uint32_t*>(h2s + r * kH2Stride + n) =
-              bias_relu(c[mi][nt][0], b2_s[r]) | (bias_relu(c[mi][nt][1], b2_s[r]) << 16);
-          *reinterpret_cast<uint32_t*>(h2s + (r + 8) * kH2Stride + n) =
-              bias_relu(c[mi][nt][2], b2_s[r + 8]) | (bias_relu(c[mi][nt][3], b2_s[r + 8]) << 16);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- the f32 head ----
-    head_partials<kBT>(h2s, wta_s, part_s, tid);
-    __syncthreads();
+    quad_sum(head);
 
     // ---- per lane: the loss terms and the head cotangent ----
-    if (tid < kBT) {
+    if (t4 < 2) {
       float logit[kHeadRows];
-      head_logits<kBT>(logit, part_s, ba_s, tid);
-      const size_t i_tb = static_cast<size_t>(t) * B + lane;
-      const int act = p.actions[t * p.act_tstride + lane];
+#pragma unroll
+      for (int a = 0; a < kHeadRows; ++a) logit[a] = __fadd_rn(t4 == 0 ? head[0][a] : head[1][a], sm.ba[a]);
+      const size_t i_tb = static_cast<size_t>(t) * B + lane0 + own;
+      const int act = p.actions[t * p.act_tstride + lane0 + own];
       const float adv = p.adv[i_tb];
       const float ret = p.ret[i_tb];
       const int na = p.num_actions;
@@ -242,6 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1) grad_g1_kernel(const GradParams p
       const float logz = logf(total) + m;
       float dlp[kHeadRows], prob[kHeadRows];
       float s_dlp = 0.0f;
+      float pg_sum = sm.sums[own], v_sum = sm.sums[kBT + own], ent_sum = sm.sums[2 * kBT + own];
 #pragma unroll
       for (int i = 0; i < kHeadRows; ++i) {
         dlp[i] = 0.0f;
@@ -259,241 +286,263 @@ __global__ void __launch_bounds__(kThreads, 1) grad_g1_kernel(const GradParams p
       }
       const float dv = logit[kHeadRows - 1] - ret;
 #pragma unroll
-      for (int i = 0; i < kHeadRows - 1; ++i) dhead_s[i * kBT + tid] = i < na ? dlp[i] - prob[i] * s_dlp : 0.0f;
-      dhead_s[(kHeadRows - 1) * kBT + tid] = p.vc2 * dv * p.inv_denom;
+      for (int i = 0; i < kHeadRows - 1; ++i) sm.dhead[i * kBT + own] = i < na ? dlp[i] - prob[i] * s_dlp : 0.0f;
+      sm.dhead[(kHeadRows - 1) * kBT + own] = p.vc2 * dv * p.inv_denom;
       v_sum += dv * dv;
+      sm.sums[own] = pg_sum;
+      sm.sums[kBT + own] = v_sum;
+      sm.sums[2 * kBT + own] = ent_sum;
     }
-    __syncthreads();
+    bar_sync(1, kWG);
 
-    // ---- thread o: dh2 = bf16(mask * wta^T . dhead) for every lane, dwta
-    //      and db2 into registers, dh2 to scratch and to dh2s[lane][o] ----
-    {
-      unsigned short* d2 = reinterpret_cast<unsigned short*>(dh2s);
-      uint4* dst = reinterpret_cast<uint4*>(p.dh2 + (static_cast<size_t>(j) * kHidden + o) * B + lane0);
-      uint32_t w[4];
-      for (int l = 0; l < kBT; ++l) {
-        const float h2 = __bfloat162float(h2s[o * kH2Stride + l]);
-        float dh2f = 0.0f;
+    // ---- hidden units o: h1 to scratch; dh2 = bf16(mask * wta^T . dhead) for
+    //      every lane, dwta and db2, dh2 to the A tile and scratch ----
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c) {
+      const int o = tid + c * kWG;
+      const size_t row = (static_cast<size_t>(j) * kHidden + o) * B + lane0;
+      row_to_scratch(sm.tile, o, p.h1 + row);
+      const float4 w0 = *reinterpret_cast<const float4*>(sm.wta + o * kHeadRows);
+      const float4 w1 = *reinterpret_cast<const float4*>(sm.wta + o * kHeadRows + 4);
+      const float wcol[kHeadRows] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      float dwta[kHeadRows];
 #pragma unroll
-        for (int a = 0; a < kHeadRows; ++a) {
-          const float dh = dhead_s[a * kBT + l];
-          dh2f += wcol[a] * dh;
-          dwta_acc[a] += dh * h2;
-        }
-        const unsigned short bits = h2 > 0.0f ? float_to_bf16_bits(dh2f) : 0;
-        db2_acc += bf16_bits_to_float(bits);
-        d2[l * kH1Stride + o] = bits;
-        if (l & 1) {
-          w[(l >> 1) & 3] |= static_cast<uint32_t>(bits) << 16;
-        } else {
-          w[(l >> 1) & 3] = bits;
-        }
-        if ((l & 7) == 7) dst[l >> 3] = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-      if (tid < kHeadRows)
-        for (int l = 0; l < kBT; ++l) dba_acc += dhead_s[tid * kBT + l];
-    }
-    __syncthreads();
-
-    // ---- dh1 = bf16(mask * W2^T . dh2) on the tensor cores into dh1s[lane][o] ----
-    {
-      float c[2][kNTiles][4];
-      warp_product<kBT>(c, p.w2tfrag, kKTiles, dh2s, kH1Stride, warp, ln);
-      const unsigned short* h = reinterpret_cast<const unsigned short*>(h1s);
-      unsigned short* d1 = reinterpret_cast<unsigned short*>(dh1s);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = (warp * 2 + mi) * 16 + g8;
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const int n = nt * 8 + 2 * t4;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = r + (e >> 1) * 8;
-            const int nn = n + (e & 1);
-            const bool on = bf16_bits_to_float(h[nn * kH1Stride + rr]) > 0.0f;
-            d1[nn * kH1Stride + rr] = on ? float_to_bf16_bits(c[mi][nt][e]) : 0;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- thread o: db1 and dh1 to scratch ----
-    {
-      const unsigned short* d1 = reinterpret_cast<const unsigned short*>(dh1s);
-      uint4* dst = reinterpret_cast<uint4*>(p.dh1 + (static_cast<size_t>(j) * kHidden + o) * B + lane0);
-#pragma unroll
+      for (int a = 0; a < kHeadRows; ++a) dwta[a] = sm.grads[a * kHidden + o];
+      float db2 = sm.grads[kPartDb2 + o];
+      uint4* dst = reinterpret_cast<uint4*>(p.dh2 + row);
+#pragma unroll 1
       for (int q = 0; q < kBT / 8; ++q) {
-        uint32_t w[4];
+        uint32_t wd[4];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int l = 8 * q + e;
+          const float h2 = bf16_bits_to_float(sm.h2[o * kLaneStride + l]);
+          float dh2f = 0.0f;
+#pragma unroll
+          for (int a = 0; a < kHeadRows; ++a) {
+            const float dh = sm.dhead[a * kBT + l];
+            dh2f += wcol[a] * dh;
+            dwta[a] += dh * h2;
+          }
+          const uint32_t bits = h2 > 0.0f ? float_to_bf16_bits(dh2f) : 0u;
+          db2 += bf16_bits_to_float(bits);
+          *reinterpret_cast<uint16_t*>(sm.dh2 + dh2_offset(l, o)) = static_cast<uint16_t>(bits);
+          wd[e >> 1] = (e & 1) ? wd[e >> 1] | bits << 16 : bits;
+        }
+        dst[q] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      }
+#pragma unroll
+      for (int a = 0; a < kHeadRows; ++a) sm.grads[a * kHidden + o] = dwta[a];
+      sm.grads[kPartDb2 + o] = db2;
+    }
+    if (tid < kHeadRows) {
+      float dba = sm.grads[kPartDba + tid];
+      for (int l = 0; l < kBT; ++l) dba += sm.dhead[tid * kBT + l];
+      sm.grads[kPartDba + tid] = dba;
+    }
+    fence_async_proxy();  // the dh2 tile is read by wgmma next
+    bar_sync(1, kWG);
+
+    // ---- dh1 = bf16(mask * dh2 . W2) on the tensor cores, in place of h1 in the tile ----
+#pragma unroll 1
+    for (int hn = 0; hn < 2; ++hn) {
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      fence_acc(acc);
+      Held held{-1, 0, 0};
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        const uint32_t chunk = ring.acquire();
+        const Held now = ring.advance();
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wgmma_ss(acc, sw128_desc(dh2_tile + kc * 8192 + 32 * j), sw128_desc(chunk + 32 * j), kc + j > 0);
+        wgmma_commit();
+        if (kc > 0) wgmma_wait<1>();
+        ring.release(held, elected);
+        held = now;
+      }
+      wgmma_wait<0>();
+      ring.release(held, elected);
+      fence_acc(acc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const unsigned short lo = d1[(q * 8 + 2 * e) * kH1Stride + o];
-          const unsigned short hi = d1[(q * 8 + 2 * e + 1) * kH1Stride + o];
-          db1_acc += bf16_bits_to_float(lo);
-          db1_acc += bf16_bits_to_float(hi);
-          w[e] = lo | (static_cast<uint32_t>(hi) << 16);
+          uint16_t& x = sm.tile[(hn * 128 + 8 * i + 2 * t4 + (e & 1)) * kLaneStride + r0 + 8 * (e >> 1)];
+          x = static_cast<uint16_t>(bf16_bits_to_float(x) > 0.0f ? float_to_bf16_bits(acc[4 * i + e]) : 0u);
         }
-        dst[q] = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
-    __syncthreads();
+    bar_sync(1, kWG);
+
+    // ---- hidden units o: db1 and dh1 to scratch ----
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int o = tid + c * kWG;
+      float db1 = sm.grads[kPartDb1 + o];
+      for (int l = 0; l < kBT; ++l) db1 += bf16_bits_to_float(sm.tile[o * kLaneStride + l]);
+      sm.grads[kPartDb1 + o] = db1;
+      row_to_scratch(sm.tile, o, p.dh1 + (static_cast<size_t>(j) * kHidden + o) * B + lane0);
+    }
+    bar_sync(1, kWG);  // the tiles and the feature bits are free for the next step
   }
 
   // ---- the chunk's sums into this lane tile's partial row ----
-  if (tid < kBT) {
-    sums_s[tid] = pg_sum;
-    sums_s[kBT + tid] = v_sum;
-    sums_s[2 * kBT + tid] = ent_sum;
-  }
-  __syncthreads();
+  bar_sync(1, kWG);
   float* part = p.part1 + static_cast<size_t>(blockIdx.x) * kPartWidth;
   const bool acc = accumulate != 0;
-#pragma unroll
-  for (int a = 0; a < kHeadRows; ++a) addto(part + a * kHidden + o, dwta_acc[a], acc);
-  addto(part + kPartDb1 + o, db1_acc, acc);
-  addto(part + kPartDb2 + o, db2_acc, acc);
-  if (tid < kHeadRows) addto(part + kPartDba + tid, dba_acc, acc);
+  for (int i = tid; i < kPartSums; i += kG1Threads) addto(part + i, sm.grads[i], acc);
   if (tid < 3) {
     float s = 0.0f;
-    for (int l = 0; l < kBT; ++l) s += sums_s[tid * kBT + l];
+    for (int l = 0; l < kBT; ++l) s += sm.sums[tid * kBT + l];
     addto(part + kPartSums + tid, s, acc);
   }
 }
 
-// G2: one 128 x 128 tile of dW1 = dh1 . feats^T (tiles [0, 2 * nf / 128))
-// or of dW2 = dh2 . h1^T (the next 4), over the lanes of split blockIdx.y
-// and the steps [t0, t0 + tcc), added into the split's f32 partial.
-__global__ void __launch_bounds__(kThreads) grad_g2_kernel(const GradParams p, int t0, int tcc,
-                                                           int accumulate) {
-  __shared__ __align__(16) __nv_bfloat16 as[kTile * kTileStride];
-  __shared__ __align__(16) __nv_bfloat16 bs[kTile * kTileStride];
-  __shared__ int32_t ws[kMaxV2 * kKStep];  // obs words [v2][kKStep]
-
+// G2: one 128 x 256 tile of dW1^T = feats . dh1^T (tiles [0, nf / 128)) or
+// of dW2 = dh2 . h1^T (the next 2), over the lanes of split blockIdx.y and
+// the steps [t0, t0 + tcc), added into the split's f32 partial. Warpgroup
+// wg takes rows [64 wg, 64 wg + 64) of the tile.
+__global__ void __launch_bounds__(kG2Threads, 1) grad_g2_kernel(const GradParams p, int t0, int tcc,
+                                                                 int accumulate) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];  // kG2Stages x kStageBytes
   const int v2 = p.view * p.view;
-  const int w1_tiles = 2 * (p.nf / kTile);
+  const int w1_tiles = p.nf / kTile;
   const bool is_w1 = static_cast<int>(blockIdx.x) < w1_tiles;
-  const int tile = is_w1 ? blockIdx.x : blockIdx.x - w1_tiles;
-  const int n_tiles = is_w1 ? p.nf / kTile : kHidden / kTile;
-  const int mt = tile / n_tiles;
-  const int nt = tile % n_tiles;
-  const __nv_bfloat16* a_src = is_w1 ? p.dh1 : p.dh2;
+  const int mt = is_w1 ? blockIdx.x : blockIdx.x - w1_tiles;
   const size_t B = static_cast<size_t>(p.B);
-  const int s = blockIdx.y;
-  const int l_begin = s * p.split_lanes;
+  const int split = blockIdx.y;
+  const int l_begin = split * p.split_lanes;
   const int l_end = min(l_begin + p.split_lanes, p.B);
+  const int nls = (l_end - l_begin) / kKStep;
+  const int n_st = tcc * nls;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / kWG;
   const int ln = tid & 31;
   const int g8 = ln >> 2;
   const int t4 = ln & 3;
-  const int wm = warp & 1;   // rows [wm * 64, +64) of the tile
-  const int wn = warp >> 1;  // columns [wn * 32, +32)
+  const int row0 = mt * kTile + wg * 64 + ((tid % kWG) >> 5) * 16 + g8;  // output rows row0, row0 + 8
+  const int code0 = is_w1 ? feature_code(row0, v2) : 0;
+  const int code1 = is_w1 ? feature_code(row0 + 8, v2) : 0;
+  const uint32_t smem0 = smem_addr(smem_raw);
 
-  // The feature column this thread builds (W1 tiles): value-major row
-  // off_ch + val * V * V + kv; f >= V * V * 20 is a zero column.
-  const int bn = tid >> 1;
-  const int bk = (tid & 1) * 16;
-  const int f = nt * kTile + bn;
-  int f_kv = 0, f_shift = 0, f_val = -1;
-  if (is_w1 && f < v2 * 20) {
-    int off = f;
-    if (off < kWidthType * v2) {
-      f_shift = 0;
-    } else if (off < (kWidthType + kWidthColor) * v2) {
-      off -= kWidthType * v2;
-      f_shift = 4;
+  // Stage st: step j = st / nls, lanes [l0, l0 + 64). The B tile (dh1 or h1,
+  // all 256 hidden rows) in the 128-byte swizzle at 0; then the obs words
+  // [V*V][kWordsStride] (dW1 tiles) or the A tile (dh2, the tile's 128 rows),
+  // each 16-byte group one cp.async, 8 threads a row.
+  auto load_stage = [&](int st, int slot) {
+    const int j = st / nls;
+    const int l0 = l_begin + (st - j * nls) * kKStep;
+    const uint32_t base = smem0 + slot * kStageBytes;
+    const __nv_bfloat16* brows = (is_w1 ? p.dh1 : p.h1) + static_cast<size_t>(j) * kHidden * B + l0;
+    for (int c = tid; c < kHidden * 8; c += kG2Threads) {
+      const int row = c >> 3;
+      const int g = c & 7;
+      cp_async16(base + sw128_offset(row, 8 * g), brows + row * B + g * 8);
+    }
+    if (is_w1) {
+      const int32_t* w = p.obs + (t0 + j) * p.obs_tstride + l0;
+      for (int c = tid; c < v2 * 16; c += kG2Threads) {
+        const int kv = c >> 4;
+        const int q = c & 15;
+        cp_async16(base + 32768 + (kv * kWordsStride + q * 4) * 4, w + kv * B + q * 4);
+      }
     } else {
-      off -= (kWidthType + kWidthColor) * v2;
-      f_shift = 8;
+      const __nv_bfloat16* arows = p.dh2 + (static_cast<size_t>(j) * kHidden + mt * kTile) * B + l0;
+      for (int c = tid; c < kTile * 8; c += kG2Threads) {
+        const int row = c >> 3;
+        const int g = c & 7;
+        cp_async16(base + 32768 + sw128_offset(row, 8 * g), arows + row * B + g * 8);
+      }
     }
-    f_val = off / v2;
-    f_kv = off % v2;
+  };
+
+  float acc[2][64];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kG2Stages - 1; ++i) {
+    if (i < n_st) load_stage(i, i);
+    cp_async_commit();
   }
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<kG2Stages - 2>();
+    fence_async_proxy();
+    __syncthreads();  // stage st is in place everywhere; slot (st - 1) % kG2Stages is free
+    const int nx = st + kG2Stages - 1;
+    if (nx < n_st) load_stage(nx, nx % kG2Stages);
+    cp_async_commit();
 
-  float acc[4][4][4];
+    const int slot = st % kG2Stages;
+    const uint32_t bt = smem0 + slot * kStageBytes;
+    if (is_w1) {
+      const int32_t* ws = reinterpret_cast<const int32_t*>(smem_raw + slot * kStageBytes + 32768);
+      const int32_t* x0 = ws + (code0 & 0x3FF) * kWordsStride + 2 * t4;
+      const int32_t* x1 = ws + (code1 & 0x3FF) * kWordsStride + 2 * t4;
+      uint32_t a[kKStep / 16][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  for (int j = 0; j < tcc; ++j) {
-    const int t = t0 + j;
-    const __nv_bfloat16* a_rows = a_src + (static_cast<size_t>(j) * kHidden + mt * kTile) * B;
-    const __nv_bfloat16* b_rows = p.h1 + (static_cast<size_t>(j) * kHidden + nt * kTile) * B;
-    for (int l0 = l_begin; l0 < l_end; l0 += kKStep) {
-      // A: 128 rows x 32 lanes; B: h1 rows, or the obs words of 32 lanes.
-      for (int idx = tid; idx < kTile * 4; idx += kThreads) {
-        const int r = idx >> 2;
-        const int q = idx & 3;
-        *reinterpret_cast<uint4*>(as + r * kTileStride + q * 8) =
-            *reinterpret_cast<const uint4*>(a_rows + r * B + l0 + q * 8);
-        if (!is_w1)
-          *reinterpret_cast<uint4*>(bs + r * kTileStride + q * 8) =
-              *reinterpret_cast<const uint4*>(b_rows + r * B + l0 + q * 8);
+      for (int kk = 0; kk < kKStep / 16; ++kk) {
+        const int2 p0 = *reinterpret_cast<const int2*>(x0 + kk * 16);
+        const int2 p1 = *reinterpret_cast<const int2*>(x1 + kk * 16);
+        const int2 q0 = *reinterpret_cast<const int2*>(x0 + kk * 16 + 8);
+        const int2 q1 = *reinterpret_cast<const int2*>(x1 + kk * 16 + 8);
+        a[kk][0] = one_hot(p0.x, code0) | one_hot(p0.y, code0) << 16;
+        a[kk][1] = one_hot(p1.x, code1) | one_hot(p1.y, code1) << 16;
+        a[kk][2] = one_hot(q0.x, code0) | one_hot(q0.y, code0) << 16;
+        a[kk][3] = one_hot(q1.x, code1) | one_hot(q1.y, code1) << 16;
       }
-      if (is_w1) {
-        const int32_t* w = p.obs + t * p.obs_tstride + l0;
-        for (int idx = tid; idx < v2 * kKStep; idx += kThreads) {
-          const int kv = idx / kKStep;
-          ws[idx] = w[kv * B + (idx - kv * kKStep)];
-        }
-        __syncthreads();
-        uint32_t wv[8];
+      fence_frags(a);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          uint32_t pair = 0;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int word = ws[f_kv * kKStep + bk + 2 * e + h];
-            const bool one = ((word >> f_shift) & 15) == f_val;
-            pair |= (one ? 0x3F80u : 0u) << (16 * h);
-          }
-          wv[e] = pair;
-        }
-        uint4* dst = reinterpret_cast<uint4*>(bs + bn * kTileStride + bk);
-        dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-        dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+      for (int kk = 0; kk < kKStep / 16; ++kk) {
+        wgmma_rs(acc[0], a[kk], sw128_desc(bt + kk * 32), 1);
+        wgmma_rs(acc[1], a[kk], sw128_desc(bt + kHalfTile + kk * 32), 1);
       }
-      __syncthreads();
+      wgmma_commit();
+    } else {
+      const uint32_t at = bt + 32768 + wg * 64 * 128;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKStep; kk += 16) {
-        uint4 af[4];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const __nv_bfloat16* r0 = as + (wm * 64 + mi * 16 + g8) * kTileStride + kk + 2 * t4;
-          const __nv_bfloat16* r1 = r0 + 8 * kTileStride;
-          af[mi] = make_uint4(*reinterpret_cast<const uint32_t*>(r0), *reinterpret_cast<const uint32_t*>(r1),
-                              *reinterpret_cast<const uint32_t*>(r0 + 8), *reinterpret_cast<const uint32_t*>(r1 + 8));
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const __nv_bfloat16* c0 = bs + (wn * 32 + ni * 8 + g8) * kTileStride + kk + 2 * t4;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(c0);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(c0 + 8);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
-        }
+      for (int kk = 0; kk < kKStep / 16; ++kk) {
+        const uint64_t da = sw128_desc(at + kk * 32);
+        wgmma_ss(acc[0], da, sw128_desc(bt + kk * 32), 1);
+        wgmma_ss(acc[1], da, sw128_desc(bt + kHalfTile + kk * 32), 1);
       }
-      __syncthreads();
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
   }
+  cp_async_wait<0>();
 
-  const int ld = is_w1 ? p.nf : kHidden;
-  float* out = (is_w1 ? p.dw1p : p.dw2p) + static_cast<size_t>(s) * kHidden * ld;
+  const size_t ld = kHidden;
+  float* out = (is_w1 ? p.dw1p + static_cast<size_t>(split) * p.nf * ld : p.dw2p + static_cast<size_t>(split) * kHidden * ld);
   const bool accum = accumulate != 0;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int hn = 0; hn < 2; ++hn)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt * kTile + wm * 64 + mi * 16 + g8 + (e >> 1) * 8;
-        const int col = nt * kTile + wn * 32 + ni * 8 + 2 * t4 + (e & 1);
-        addto(out + static_cast<size_t>(row) * ld + col, acc[mi][ni][e], accum);
+      for (int r = 0; r < 2; ++r) {
+        float2* dst = reinterpret_cast<float2*>(out + static_cast<size_t>(row0 + 8 * r) * ld + hn * 128 + 8 * i + 2 * t4);
+        const float2 x = make_float2(acc[hn][4 * i + 2 * r], acc[hn][4 * i + 2 * r + 1]);
+        if (accum) {
+          const float2 y = *dst;
+          *dst = make_float2(y.x + x.x, y.y + x.y);
+        } else {
+          *dst = x;
+        }
       }
 }
 
@@ -502,27 +551,27 @@ __global__ void __launch_bounds__(kThreads) grad_g2_kernel(const GradParams p, i
 extern "C" {
 
 // Run the gradient pass on `stream`: for each chunk of `tc` steps, G1 on
-// B / 64 lane tiles with `smem_bytes` of dynamic shared memory
-// (ops/grad_kernel.py::grad_smem_bytes), then G2 on (2 * nf / 128 + 4,
-// splits) tiles. The first chunk writes the partials, later ones add to
-// them. Returns the first cudaError_t of a launch, or 0.
+// B / 64 lane tiles with `smem_bytes` of dynamic shared memory and `stages`
+// ring slots (ops/grad_kernel.py::grad_plan), then
+// G2 on (nf / 128 + 2, splits) tiles. The first chunk writes the partials,
+// later ones add to them. Returns the first cudaError_t of a launch, or 0.
 int mg_grad_launch(const void* obs, const void* actions, const void* adv, const void* ret,
-                   const void* w1frag, const void* b1, const void* w2frag, const void* b2,
-                   const void* w2tfrag, const void* wta, const void* ba, void* h1, void* dh1,
+                   const void* w1s, const void* b1, const void* w2s, const void* b2,
+                   const void* w2ts, const void* wta, const void* ba, void* h1, void* dh1,
                    void* dh2, void* part1, void* dw1p, void* dw2p, long long obs_tstride,
                    long long act_tstride, int B, int T, int view, int num_actions, int tc, int nf,
-                   int splits, int split_lanes, float inv_denom, float vc2, float ec,
+                   int splits, int split_lanes, int stages, float inv_denom, float vc2, float ec,
                    int smem_bytes, void* stream) {
   GradParams p;
   p.obs = static_cast<const int32_t*>(obs);
   p.actions = static_cast<const int32_t*>(actions);
   p.adv = static_cast<const float*>(adv);
   p.ret = static_cast<const float*>(ret);
-  p.w1frag = static_cast<const uint4*>(w1frag);
+  p.w1s = w1s;
   p.b1 = static_cast<const __nv_bfloat16*>(b1);
-  p.w2frag = static_cast<const uint4*>(w2frag);
+  p.w2s = w2s;
   p.b2 = static_cast<const __nv_bfloat16*>(b2);
-  p.w2tfrag = static_cast<const uint4*>(w2tfrag);
+  p.w2ts = w2ts;
   p.wta = static_cast<const float*>(wta);
   p.ba = static_cast<const float*>(ba);
   p.h1 = static_cast<__nv_bfloat16*>(h1);
@@ -539,19 +588,22 @@ int mg_grad_launch(const void* obs, const void* actions, const void* adv, const 
   p.nf = nf;
   p.splits = splits;
   p.split_lanes = split_lanes;
+  p.stages = stages;
   p.inv_denom = inv_denom;
   p.vc2 = vc2;
   p.ec = ec;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(grad_g1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 g2_grid(2 * (nf / kTile) + 4, splits);
+  err = cudaFuncSetAttribute(grad_g2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kG2Stages * kStageBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g2_grid(nf / kTile + 2, splits);
   for (int t0 = 0; t0 < T; t0 += tc) {
     const int tcc = T - t0 < tc ? T - t0 : tc;
-    grad_g1_kernel<<<B / kBT, kThreads, smem_bytes, s>>>(p, t0, tcc, t0 > 0);
+    grad_g1_kernel<<<B / kBT, kG1Threads, smem_bytes, s>>>(p, t0, tcc, t0 > 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    grad_g2_kernel<<<g2_grid, kThreads, 0, s>>>(p, t0, tcc, t0 > 0);
+    grad_g2_kernel<<<g2_grid, kG2Threads, kG2Stages * kStageBytes, s>>>(p, t0, tcc, t0 > 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

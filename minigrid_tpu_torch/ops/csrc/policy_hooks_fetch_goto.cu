@@ -1,6 +1,6 @@
 // The policy kernel's instantiations under the family hooks of
-// Fetch, GoToDoor and GoToObject: every family of these hooks fits 64-lane
-// blocks. Replaces, with policy_kernel.cu, the TPU kernel
+// Fetch, GoToDoor and GoToObject: every family of these hooks fits
+// 128-lane blocks. Replaces, with policy_kernel.cu, the TPU kernel
 // minigrid_tpu/ops/policy_rollout.py::_policy_kernel.
 
 #include "policy_kernel.cuh"

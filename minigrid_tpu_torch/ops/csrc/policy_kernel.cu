@@ -31,36 +31,42 @@
 // runs inside step_lane_ex, which reloads the aux rows it reads from the
 // template on every reset, in cached mode too.
 //
-// What bounds it on the card: arithmetic. At Empty-8x8 a lane-step needs
-// 147 W1 rows of 256 (37,632 adds, counted as the input needs them), a
-// 256 x 256 product (131,072 FLOP) and the head (4,096 FLOP): about 173k
-// FLOP against about 9 B of state and seed traffic, far above the card's
-// 295 FLOP/B balance point. Collect mode adds 4 * spill_rows bytes of
-// writes per lane-step (224 B at V = 7), still below that point.
+// What bounds it on the card: arithmetic and the weights' trips from L2.
+// Counted as the input needs them, an Empty-8x8 lane-step takes 147 W1
+// rows of 256 (37,632 adds), a 256 x 256 product (131,072 FLOP) and the
+// head (4,096 FLOP): about 173k FLOP against about 9 B of state and seed
+// traffic, far above the card's 295 FLOP/B balance point. Collect mode adds
+// 4 * spill_rows bytes of writes per lane-step (224 B at V = 7). The dense
+// products the design runs take 643k FLOP a lane-step, and every block
+// copies the 638,976 B of W1 and W2 from L2 each step, so the bytes from
+// L2 per lane-step fall as the block's lane count grows (4,992 at 128).
 //
-// Design (simple and right first; what is left for speed is in PERF.md):
-//  * One block of BT lanes (64, or 32 on large grids) and 256 threads, the
-//    T loop inside. Env work is one thread per lane on the first BT
-//    threads, as in the rollout kernel; the network spreads over all 256.
-//  * Both torso layers run on the tensor cores with mma.sync m16n8k16 (bf16
-//    in, f32 accumulate); each warp owns 32 rows of the 256 hidden units
-//    and all BT lanes. A is the weight matrix, stored once on the host in
-//    A-fragment order so that each thread loads its fragment as one
-//    16-byte read from L2, one k tile ahead (three ahead measured slower,
-//    PERF.md). B sits in shared memory as [lane][k] bf16, each row padded
-//    by 8 so that the fragments load without bank conflicts.
-//  * Layer 1 multiplies the dense one-hot features: the lane's thread
-//    writes a bf16 1.0 for each (cell, channel) of the view into its
-//    zeroed row of V*V*20 (padded to whole k tiles), and a channel value at
-//    or above its width writes nothing. This does 980 / 147 times the adds
-//    a gather of W1 rows would, but on the tensor cores: a gather on CUDA
-//    cores, issue-bound on one 16-byte load, 8 unpacks and 8 adds per row,
-//    took 2.4 times as long at the main path's shape (PERF.md). Bf16 ones
-//    and weights multiply exactly, so only the order of the f32 sums
-//    differs from the reference.
-//  * The head stays f32, as the reference computes it (no TF32): each lane's
-//    256-term dot is split over 256 / BT threads, then summed in a fixed
-//    order by the lane's thread.
+// Design (policy_device.cuh holds the forward's building blocks):
+//  * One block of BT lanes (128, or 64 on grids whose 128 lanes do not fit
+//    shared memory): BT / 64 warpgroups, each the wgmma M of its 64 lanes.
+//    Every step streams W1^T, then W2^T, in 16 KB chunks of 64 (K) x 128
+//    (N) through a ring of shared-memory slots (policy_device.cuh), each
+//    chunk copied once per block and step by one bulk copy and read by
+//    every warpgroup. The T loop runs inside the block.
+//  * Layer 1: the A operand is built in registers from each lane's one-hot
+//    features, kept as a bitset in shared memory ([K / 32][BT] uint32,
+//    bit k the value-major feature row k of
+//    ops/policy_rollout.py::_feature_permutation): the lane's thread sets
+//    one bit per channel of each view cell as it reads the view (a channel
+//    value at or above its width sets none), and a 16-deep k slab of the A
+//    fragment is two shifts and masks of one word per row. Bf16 ones and
+//    weights multiply exactly, so only the order of the f32 sums differs
+//    from the reference. The fragments of slab kt + 1 are built while slab
+//    kt's products run (wgmma is asynchronous).
+//  * Layer 2 takes h1 straight from the accumulators: the epilogue rounds
+//    them (bias + relu in bf16) into A fragments that stay in registers;
+//    each N half of h2 is rounded in its epilogue and enters the f32 head
+//    at once, as partial dots over the thread's columns, summed over the
+//    quad in a fixed order.
+//  * The env step, the draw and the view read run on two threads of each
+//    quad (one lane each: 64 a warpgroup) between two warpgroup barriers;
+//    the warpgroups of a block run their env phases apart from each other,
+//    and only the ring binds their products together.
 //  * Casts follow the reference: h = bf16(acc); bf16 + bf16 is an f32 add
 //    rounded once to bf16 (as torch and XLA:CPU add two bf16); relu. The
 //    sampling uses the round-to-nearest intrinsics and the accurate expf
@@ -70,26 +76,24 @@
 //    a time: a slab's obs rows while the view is read (at the load for
 //    step 0, after step t - 1 for step t), its scalar rows after the draw
 //    and the env step. Nothing is written after the last step.
-//  * Instantiated: every kCollect and kCtl, under each hook at the lane
-//    blocks its families reach: no hook, pickup-target, RedBlueDoors,
-//    Memory and DynamicObstacles at BT 64 and 32, Fetch, GoToDoor,
-//    GoToObject, PutNear and Unlock at BT 64 (60 kernels). The template is
-//    in policy_kernel.cuh; the family hooks are instantiated in
+//  * Instantiated: every kCollect and kCtl, under each hook at 128 lanes,
+//    and without a hook at 64 lanes too (25 x 25 grids): 44 kernels. The
+//    template is in policy_kernel.cuh; the family hooks are instantiated in
 //    policy_hooks_fetch_goto.cu, policy_hooks_putnear_rbd.cu,
 //    policy_hooks_memory_unlock.cu and policy_hooks_dynobst.cu, so that
 //    the five files compile in parallel. A combination not built returns
 //    cudaErrorInvalidValue.
-//  * The DynamicObstacles obstacles' coordinates sit after the offset
-//    tables, [4n][BT] int32 (committed and new), not in registers: 4 KB
-//    at 16x16, BT = 32.
+//  * The DynamicObstacles obstacles' coordinates sit after the grids,
+//    [4n][BT] int32 (committed and new), not in registers.
 //  * Under kCtl a lane that can no longer commit stays in the T loop,
-//    since all 256 threads take part in the products and the barriers: it
+//    since its warpgroup's products and barriers need every thread: it
 //    draws no action, takes no step, adds nothing to its sums, reads no
-//    view (its feature row stays zero) and writes nothing until the end.
-//    step_lane_ex decides the commit before it writes the grid, so the
-//    step that freezes a lane leaves no trace.
-//  * Shared memory at 8x8, BT = 64: features 125 KB, h1 33 KB, h2 36 KB,
-//    head weights 10 KB, grids 16 KB: 221 KB, one block per SM.
+//    view (its stale words feed rows nobody reads) and writes nothing until
+//    the end. step_lane_ex decides the commit before it writes the grid, so
+//    the step that freezes a lane leaves no trace. Lanes past B in the last
+//    block do the same.
+//  * Shared memory at 8x8, BT = 128: 10 ring slots of 16 KB, grids 32 KB,
+//    feature bits 16 KB, head weights 10 KB.
 
 #include "policy_kernel.cuh"
 
@@ -97,7 +101,8 @@ extern "C" {
 
 // Launch the policy rollout on `stream` with `smem_bytes` of dynamic shared
 // memory per block (ops/policy_rollout.py::policy_smem_bytes, the layout
-// policy_kernel carves), family hook `hook` (an id of step_device.cuh,
+// policy_kernel carves), `stages` ring slots (ops/policy_rollout.py::
+// policy_plan), family hook `hook` (an id of step_device.cuh,
 // kHookNone to kHookDynamicObstacles) and `n_obst` DynamicObstacles
 // obstacles (0 under any other hook); returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for an unknown hook, or a lane block the hook is
@@ -106,13 +111,14 @@ extern "C" {
 // trajectory slabs there. A non-null `ctl_in` runs the chunked-regen
 // commit protocol and writes `ctl_out`, in either mode.
 int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
-                     const void* tmpl_regs, const void* seeds, const void* tables, const void* w1frag,
-                     const void* b1, const void* w2frag, const void* b2, const void* wta,
+                     const void* tmpl_regs, const void* seeds, const void* tables, const void* w1s,
+                     const void* b1, const void* w2s, const void* b2, const void* wta,
                      const void* ba, void* words_out, void* regs_out, void* rsum_out,
                      void* counts_out, void* spill, const void* ctl_in, void* ctl_out, int B, int T,
                      int width, int height, int view,
                      int max_steps, int see_through_walls, int num_regs, int num_actions,
-                     int spill_rows, int hook, int n_obst, int lane_block, int smem_bytes, void* stream) {
+                     int spill_rows, int hook, int n_obst, int lane_block, int stages,
+                     int smem_bytes, void* stream) {
   mg_policy::Params p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -120,9 +126,9 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.tmpl_regs = static_cast<const int32_t*>(tmpl_regs);
   p.seeds = static_cast<const int32_t*>(seeds);
   p.tables = static_cast<const int32_t*>(tables);
-  p.w1frag = static_cast<const uint4*>(w1frag);
+  p.w1s = w1s;
   p.b1 = static_cast<const __nv_bfloat16*>(b1);
-  p.w2frag = static_cast<const uint4*>(w2frag);
+  p.w2s = w2s;
   p.b2 = static_cast<const __nv_bfloat16*>(b2);
   p.wta = static_cast<const float*>(wta);
   p.ba = static_cast<const float*>(ba);
@@ -144,13 +150,14 @@ int mg_policy_launch(const void* words_in, const void* regs_in, const void* tmpl
   p.num_actions = num_actions;
   p.spill_rows = spill_rows;
   p.n_obst = n_obst;
+  p.stages = stages;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool collect = spill != nullptr;
   const bool ctl = ctl_in != nullptr;
   switch (hook) {
     case kHookNone: return launch_hook<kHookNone, true>(p, lane_block, collect, ctl, smem_bytes, s);
     case kHookPickupTarget:
-      return launch_hook<kHookPickupTarget, true>(p, lane_block, collect, ctl, smem_bytes, s);
+      return launch_hook<kHookPickupTarget, false>(p, lane_block, collect, ctl, smem_bytes, s);
     case kHookFetch:
     case kHookGoToDoor:
     case kHookGoToObject:

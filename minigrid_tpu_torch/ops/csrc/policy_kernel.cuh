@@ -27,9 +27,9 @@ struct Params {
   const int32_t* tmpl_regs;   // (num_regs, B)
   const int32_t* seeds;       // (T, B)
   const int32_t* tables;      // [off_fwd (4); off_view (4 * V * V)]
-  const uint4* w1frag;        // (16, K/16, 32) x 8 bf16: W1 (K = V*V*20 padded to 16) in A-fragment order
+  const void* w1s;            // W1^T in 16 KB chunks (ops/policy_rollout.py::_b_chunks)
   const __nv_bfloat16* b1;    // (256,)
-  const uint4* w2frag;        // (16, 16, 32) x 8 bf16: W2 in mma A-fragment order
+  const void* w2s;            // W2^T in kW2Chunks chunks, (N half, K chunk)
   const __nv_bfloat16* b2;    // (256,)
   const float* wta;           // (8, 256)
   const float* ba;            // (8,)
@@ -42,6 +42,7 @@ struct Params {
   int32_t* ctl_out;       // kCtl: (3, B)
   int B, T, width, height, view, max_steps, see_through_walls, num_regs, num_actions, spill_rows;
   int n_obst;  // DynamicObstacles obstacles (0 under any other hook)
+  int stages;  // ring slots (3..kMaxStages)
 };
 
 // Launchers of the family-hook instantiations, one per translation unit:
@@ -96,53 +97,80 @@ __device__ __forceinline__ int sample_action(const float (&logit)[kHeadRows], in
   return action;
 }
 
+// Shared memory as ops/policy_rollout.py::policy_smem_bytes counts it: the
+// ring's bookkeeping (policy_device.cuh), `stages` slots of a 16 KB weight
+// chunk, the head weights ([256][8] f32) and biases, the offset
+// tables, the grids [HW][BT], the DynamicObstacles rows [4n][BT] and the
+// lanes' feature bits [K / 32][BT] (uint32).
+template <int BT>
+struct PolicySmem {
+  float *wta, *b1, *b2, *ba;
+  int32_t *tab, *grid, *obst;
+  uint32_t* feat;
+
+  __device__ PolicySmem(unsigned char* raw, const mg_policy::Params& p) {
+    const int v2 = p.view * p.view;
+    wta = reinterpret_cast<float*>(raw + kBarBytes + p.stages * kChunkBytes);
+    b1 = wta + kHidden * kHeadRows;
+    b2 = b1 + kHidden;
+    ba = b2 + kHidden;
+    tab = reinterpret_cast<int32_t*>(ba + kHeadRows);
+    grid = tab + ((4 + 4 * v2 + 3) & ~3);
+    obst = grid + p.width * p.height * BT;
+    feat = reinterpret_cast<uint32_t*>(obst + 4 * p.n_obst * BT);
+  }
+};
+
+// One block: BT lanes, 64 per warpgroup.
 template <int BT, bool kCollect, bool kCtl, int kHook>
-__global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Params p) {
-  constexpr int kNTiles = BT / 8;  // n8 tiles of the products
-  constexpr int kH2Stride = BT + 8;
+__global__ void __launch_bounds__(BT * 2, 1) policy_kernel(const mg_policy::Params p) {
+  constexpr int kGroups = BT / 64;
   const int v = p.view;
   const int v2 = v * v;
-  const int k_tiles = padded_features(v) / 16;
-  const int f_stride = padded_features(v) + 8;  // bf16 per lane row of the features
+  const int k_chunks = padded_features(v) / 64;
+  const bool tail = padded_features(v) % 64 != 0;
+  const int feat_words = padded_features(v) / 32;
+  const int per_step = w1_chunks(v) + kW2Chunks;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* h1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BT][kH1Stride]
-  float* part_s = reinterpret_cast<float*>(smem_raw);  // [kParts][8][BT]: aliases h1
-  __nv_bfloat16* feat_s = h1s + BT * kH1Stride;        // [BT][f_stride]
-  __nv_bfloat16* h2s = feat_s + BT * f_stride;         // [256][kH2Stride]
-  float* wta_s = reinterpret_cast<float*>(h2s + kHidden * kH2Stride);
-  float* b1_s = wta_s + kHeadRows * kHidden;
-  float* b2_s = b1_s + kHidden;
-  float* ba_s = b2_s + kHidden;
-  const StepShape sh{p.width,     p.height,           p.width * p.height, v,
-                     p.max_steps, p.see_through_walls, p.n_obst,           p.num_regs - 2};
-  int32_t* grid_s = reinterpret_cast<int32_t*>(ba_s + kHeadRows);
-  int32_t* tab = grid_s + sh.hw * BT;
-  int32_t* obst = tab + 4 + 4 * v2;  // [4n][BT]: the DynamicObstacles rows
-
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const PolicySmem<BT> sm(smem_raw, p);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  if (tid == 0) {
+    // Each step: W1^T's chunks, then W2^T's.
+    const ChunkSequence sq{{static_cast<const char*>(p.w1s), static_cast<const char*>(p.w2s), nullptr},
+                           {w1_chunks(v), kW2Chunks, 0},
+                           p.T};
+    init_ring(smem_raw, p.stages, sq);
+  }
+  for (int i = tid; i < 4 + 4 * v2; i += blockDim.x) sm.tab[i] = p.tables[i];
+  for (int i = tid; i < kHeadRows * kHidden; i += blockDim.x)
+    sm.wta[i] = p.wta[(i % kHeadRows) * kHidden + i / kHeadRows];
+  for (int i = tid; i < kHidden; i += blockDim.x) {
+    sm.b1[i] = __bfloat162float(p.b1[i]);
+    sm.b2[i] = __bfloat162float(p.b2[i]);
+  }
+  if (tid < kHeadRows) sm.ba[tid] = p.ba[tid];
+  __syncthreads();
+
+  // ---- warpgroup wg owns block lanes [64 wg, 64 wg + 64) ----
+  const int wg = tid / kWG;
   const int ln = tid & 31;
   const int g8 = ln >> 2;
   const int t4 = ln & 3;
-  for (int i = tid; i < 4 + 4 * v2; i += kThreads) tab[i] = p.tables[i];
-  for (int i = tid; i < kHeadRows * kHidden; i += kThreads) wta_s[i] = p.wta[i];
-  for (int i = tid; i < kHidden; i += kThreads) {
-    b1_s[i] = __bfloat162float(p.b1[i]);
-    b2_s[i] = __bfloat162float(p.b2[i]);
-  }
-  if (tid < kHeadRows) ba_s[tid] = p.ba[tid];
-  // Features start at zero; f_stride * 2 bytes is a multiple of 16.
-  uint4* feat_words = reinterpret_cast<uint4*>(feat_s);
-  const int feat_uint4 = BT * f_stride / 8;
-  for (int i = tid; i < feat_uint4; i += kThreads) feat_words[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-
+  const int r0 = wg * 64 + ((tid % kWG) >> 5) * 16 + g8;  // rows r0 and r0 + 8 of the fragments
+  const bool elected = tid % kWG == 0;
+  const int group_bar = 1 + wg;
+  // Env work: threads t4 = 0 and 1 of each quad own lanes r0 and r0 + 8.
+  const int bl = r0 + 8 * t4;
   const size_t B = static_cast<size_t>(p.B);
-  const int lane = blockIdx.x * BT + tid;  // the env lane of threads tid < BT
-  const bool live = tid < BT && lane < p.B;
-  int32_t* g = grid_s + tid;
-  unsigned short* frow = reinterpret_cast<unsigned short*>(feat_s + tid * f_stride);
+  const int lane = blockIdx.x * BT + bl;
+  const bool live = t4 < 2 && lane < p.B;
+  const StepShape sh{p.width,     p.height,           p.width * p.height, v,
+                     p.max_steps, p.see_through_walls, p.n_obst,           p.num_regs - 2};
+  int32_t* g = sm.grid + bl;
+  uint32_t* fcol = sm.feat + bl;
+  Ring ring{smem_raw, p.stages, kGroups, per_step, p.T * per_step};
+
   // Collect mode: slab t of the spill holds step t's pre-step obs words in
   // rows 0..V*V-1, then the action, logp, value, reward and done rows,
   // then zero rows; each row is lane-contiguous.
@@ -155,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Pa
   int episodes = 0;
   int checksum = 0;
   if (live) {
-    s.ob = obst + tid;
+    s.ob = sm.obst + bl;
     load_lane<kHook>(g, BT, p.words_in, p.regs_in, B, lane, sh, s);
     if (kCtl) {
       ctl.consumed = p.ctl_in[lane];
@@ -163,70 +191,47 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Pa
       ctl.frozen = p.ctl_in[2 * B + lane];
     }
     const bool spills = kCollect && (!kCtl || (ctl.steps_done < p.T && ctl.frozen == 0));
-    read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
-      set_features(frow, kv, v2, w & 0xFFF);
+    clear_feature_bits(fcol, BT, feat_words);
+    read_view<true>(g, BT, sm.tab, sh, s, [&](int kv, int w) {
+      set_feature_bits(fcol, BT, kv, v2, w & 0xFFF);
       if (spills) spill_lane[kv * B] = w & 0xFFF;
     });
   }
-  __syncthreads();
+  bar_sync(group_bar, kWG);
 
+  // Each step's seed is loaded a step ahead, so that its latency hides
+  // behind the products (lanes past B read lane B - 1's, unused).
+  const size_t seed_lane = static_cast<size_t>(min(lane, p.B - 1));
+  int32_t seed_next = p.seeds[seed_lane];
   for (int t = 0; t < p.T; ++t) {
-    // ---- layer 1 on the tensor cores: h1 = relu(bf16(bf16(W1 . feats) + b1)) ----
+    const int32_t seed = seed_next;
+    seed_next = p.seeds[static_cast<size_t>(min(t + 1, p.T - 1)) * B + seed_lane];
+    // ---- the actor on the tensor cores: layer 1, layer 2, the head ----
+    float head[2][kHeadRows];
     {
-      float c[2][kNTiles][4];
-      warp_product<BT>(c, p.w1frag, k_tiles, feat_s, f_stride, warp, ln);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int o = (warp * 2 + mi) * 16 + g8;
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const int n = nt * 8 + 2 * t4;
-          unsigned short* h = reinterpret_cast<unsigned short*>(h1s);
-          h[n * kH1Stride + o] = static_cast<unsigned short>(bias_relu(c[mi][nt][0], b1_s[o]));
-          h[(n + 1) * kH1Stride + o] = static_cast<unsigned short>(bias_relu(c[mi][nt][1], b1_s[o]));
-          h[n * kH1Stride + o + 8] = static_cast<unsigned short>(bias_relu(c[mi][nt][2], b1_s[o + 8]));
-          h[(n + 1) * kH1Stride + o + 8] = static_cast<unsigned short>(bias_relu(c[mi][nt][3], b1_s[o + 8]));
-        }
+      uint32_t h1[kKTiles][4];
+      {
+        float acc[2][64];
+        layer1(acc, ring, sm.feat, BT, k_chunks, tail, r0, t4, elected);
+        h1_fragments(h1, acc, sm.b1, t4);
       }
+      layer2_head(head, h1, ring, sm.b2, sm.wta, t4, elected, [](int, int, uint32_t) {});
     }
-    __syncthreads();
-
-    // ---- layer 2 on the tensor cores: h2 = relu(bf16(bf16(W2 . h1) + b2)) ----
-    {
-      float c[2][kNTiles][4];
-      warp_product<BT>(c, p.w2frag, kKTiles, h1s, kH1Stride, warp, ln);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int o = (warp * 2 + mi) * 16 + g8;
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const int n = nt * 8 + 2 * t4;
-          *reinterpret_cast<uint32_t*>(h2s + o * kH2Stride + n) =
-              bias_relu(c[mi][nt][0], b2_s[o]) | (bias_relu(c[mi][nt][1], b2_s[o]) << 16);
-          *reinterpret_cast<uint32_t*>(h2s + (o + 8) * kH2Stride + n) =
-              bias_relu(c[mi][nt][2], b2_s[o + 8]) | (bias_relu(c[mi][nt][3], b2_s[o + 8]) << 16);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- the f32 head, each lane's dot split over kThreads / BT threads;
-    //      the features are cleared for the next view meanwhile ----
-    for (int i = tid; i < feat_uint4; i += kThreads) feat_words[i] = make_uint4(0, 0, 0, 0);
-    head_partials<BT>(h2s, wta_s, part_s, tid);
-    __syncthreads();
+    quad_sum(head);
+    bar_sync(group_bar, kWG);  // the group's feature reads of this step are done
 
     // ---- per lane: logits, the draw, the env step, the next view ----
     if (live && (!kCtl || (ctl.steps_done < p.T && ctl.frozen == 0))) {
       float logit[kHeadRows];
-      head_logits<BT>(logit, part_s, ba_s, tid);
+#pragma unroll
+      for (int a = 0; a < kHeadRows; ++a) logit[a] = __fadd_rn(t4 == 0 ? head[0][a] : head[1][a], sm.ba[a]);
       float logp = 0.0f;
-      const int a = sample_action<kCollect>(logit, p.num_actions, p.seeds[t * B + lane], logp);
+      const int a = sample_action<kCollect>(logit, p.num_actions, seed, logp);
       bool done;
       float reward;
       // Under kCtl a step that would reuse the consumed template freezes
       // the lane instead and leaves nothing behind.
-      if (step_lane_ex<kHook, kCtl>(g, BT, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s, ctl,
+      if (step_lane_ex<kHook, kCtl>(g, BT, sm.tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s, ctl,
                                     reward, done)) {
         if (done) {
           reset_any = true;
@@ -247,16 +252,17 @@ __global__ void __launch_bounds__(kThreads, 1) policy_kernel(const mg_policy::Pa
         const bool more = t + 1 < p.T && (!kCtl || ctl.steps_done < p.T);
         int32_t* next_obs = kCollect && more ? spill_lane + (t + 1) * slab : nullptr;
         int obs_sum = 0;
-        read_view<true>(g, BT, tab, sh, s, [&](int kv, int w) {
+        clear_feature_bits(fcol, BT, feat_words);
+        read_view<true>(g, BT, sm.tab, sh, s, [&](int kv, int w) {
           const int m = w & 0xFFF;
-          set_features(frow, kv, v2, m);
+          set_feature_bits(fcol, BT, kv, v2, m);
           obs_sum += tcs(m);
           if (kCollect && next_obs != nullptr) next_obs[kv * B] = m;
         });
         checksum += obs_sum;
       }
     }
-    __syncthreads();
+    bar_sync(group_bar, kWG);  // the next view is in place
   }
 
   if (live) {
@@ -279,7 +285,7 @@ int launch_one(const mg_policy::Params& p, int smem, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (p.B + BT - 1) / BT;
-  policy_kernel<BT, kCollect, kCtl, kHook><<<blocks, kThreads, smem, stream>>>(p);
+  policy_kernel<BT, kCollect, kCtl, kHook><<<blocks, BT * 2, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,15 +299,15 @@ int launch_modes(const mg_policy::Params& p, bool collect, bool ctl, int smem, c
              : launch_one<BT, false, false, kHook>(p, smem, stream);
 }
 
-// Every mode of hook kHook in 64-lane blocks, and in 32-lane blocks if
-// kWith32 (a family with a grid whose 64 lanes do not fit one block's
+// Every mode of hook kHook in 128-lane blocks, and in 64-lane blocks if
+// kWith64 (a family with a grid whose 128 lanes do not fit one block's
 // shared memory, ops/policy_rollout.py::policy_lane_block).
-template <int kHook, bool kWith32>
+template <int kHook, bool kWith64>
 int launch_hook(const mg_policy::Params& p, int lane_block, bool collect, bool ctl, int smem,
                 cudaStream_t stream) {
-  if (lane_block == 64) return launch_modes<64, kHook>(p, collect, ctl, smem, stream);
-  if constexpr (kWith32) {
-    if (lane_block == 32) return launch_modes<32, kHook>(p, collect, ctl, smem, stream);
+  if (lane_block == 128) return launch_modes<128, kHook>(p, collect, ctl, smem, stream);
+  if constexpr (kWith64) {
+    if (lane_block == 64) return launch_modes<64, kHook>(p, collect, ctl, smem, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,22 +22,29 @@ import ctypes
 import numpy as np
 import torch
 
+from minigrid_tpu_torch.ops.fused_rollout import _SMEM_LIMIT
 from minigrid_tpu_torch.ops.policy_rollout import (
+    CHUNK_BYTES,
     HEAD_ROWS,
     HIDDEN,
+    _BAR_BYTES,
     EvalWeights,
-    _a_fragments,
+    _b_chunks,
     _check_operands,
     features,
+    padded_features,
+    ring_stages,
     torso,
 )
 
-LANE_BLOCK = 64  # lanes of a G1 block; the kernel takes B in whole blocks
+LANE_BLOCK = 64  # lanes of a G1 block (one warpgroup); the kernel takes B in whole blocks
 TIME_CHUNK = 8  # steps whose scratch G1 writes and G2 reads per launch pair
 MAX_SPLITS = 64  # G2's splits of the lanes
-G2_TILE = 128
+G2_TILE = 128  # G2 output rows a block; its N is all 256 hidden units
+G2_KSTEP = 64  # G2 samples a pipeline stage: 64 lanes of one step
 PART_WIDTH = HEAD_ROWS * HIDDEN + 2 * HIDDEN + 2 * HEAD_ROWS  # G1 partial row
-MAX_VIEW = 7  # G2 stages one step's obs words of 32 lanes, V² ≤ 49
+MAX_VIEW = 7  # a G2 stage holds one step's obs words of 64 lanes, V² ≤ 49
+_TILE_STRIDE = LANE_BLOCK + 8  # elements per hidden row of G1's [256][64] tiles
 
 # Launches of the CUDA gradient kernel in this process (plain integer; the
 # wrapper adds one per launch of the G1/G2 pass and nowhere else).
@@ -122,27 +129,50 @@ def plain_grad_pass(w: EvalWeights, obs_w, actions, adv, ret, num_actions: int, 
 # --------------------------------------------------------------------------
 
 
-def grad_smem_bytes(view: int) -> int:
-    """Dynamic shared memory of one G1 block, as `csrc/grad_kernel.cu`
-    lays it out: h1 `[64][264]` and h2 `[256][72]` in bf16, the features
-    `[64][K + 8]` bf16 (after layer 1 the same bytes hold dh2 `[64][264]`
-    bf16, the head's partial sums and dhead in f32), the head weights and
-    biases and the lane sums in f32."""
+def _g1_smem_without_ring(view: int) -> int:
+    """G1's shared memory besides its ring, as `csrc/grad_kernel.cu::G1Smem`
+    carves it: the ring's bookkeeping, dh2 as wgmma's A operand `[64][256]`
+    in bf16, the head weights and biases in f32, the step's feature bits
+    `[K/32][64]` in uint32, the `[256][72]` bf16 tiles of h1 (later dh1)
+    and h2, dhead `[8][64]`, the lane sums `[3][64]` and the tile's running
+    dwta, db1, db2 and dba in f32."""
     bt = LANE_BLOCK
-    k = -(-view * view * 20 // 16) * 16
-    region = max((k + 8) * bt * 2, bt * (HIDDEN + 8) * 2 + (256 // bt + 1) * HEAD_ROWS * bt * 4)
+    head = HEAD_ROWS * HIDDEN + 2 * HIDDEN + HEAD_ROWS
     return (
-        bt * (HIDDEN + 8) * 2 + HIDDEN * (bt + 8) * 2 + region
-        + (HEAD_ROWS * HIDDEN + 2 * HIDDEN + HEAD_ROWS + 3 * bt) * 4
+        _BAR_BYTES + bt * HIDDEN * 2 + head * 4 + padded_features(view) // 32 * bt * 4
+        + 2 * HIDDEN * _TILE_STRIDE * 2 + (HEAD_ROWS + 3) * bt * 4 + head * 4
     )
+
+
+def grad_plan(view: int):
+    """`(stages, smem_bytes)` of a G1 block: its weight ring
+    (`policy_rollout.ring_stages`) takes the shared memory left."""
+    base = _g1_smem_without_ring(view)
+    stages = ring_stages(_SMEM_LIMIT - base)
+    if stages is None:
+        raise ValueError(f"grad kernel: view {view} leaves no room for the weight ring")
+    return stages, base + stages * CHUNK_BYTES
+
+
+def grad_smem_bytes(view: int) -> int:
+    """Dynamic shared memory of one G1 block (`grad_plan`)."""
+    return grad_plan(view)[1]
 
 
 def grad_splits(b: int):
     """(splits, lanes per split) of G2's K dimension: at most MAX_SPLITS,
-    each a whole number of 32-lane steps."""
+    each a whole number of G2_KSTEP-lane stages."""
     splits = min(MAX_SPLITS, b // LANE_BLOCK)
-    lanes = -(-b // splits // 32) * 32
+    lanes = -(-b // splits // G2_KSTEP) * G2_KSTEP
     return -(-b // lanes), lanes
+
+
+def g2_tiles(view: int):
+    """(nf, dW1 tiles, dW2 tiles) of G2's grid: dW1ᵀ's V²·20 feature rows
+    padded to `nf`, a whole number of G2_TILE-row tiles, then dW2's 256
+    rows; every tile spans all 256 columns."""
+    nf = -(-view * view * 20 // G2_TILE) * G2_TILE
+    return nf, nf // G2_TILE, HIDDEN // G2_TILE
 
 
 def _check_strided(name, t, shape, dtype, device):
@@ -179,6 +209,8 @@ def run_grad_kernel(w: EvalWeights, obs_w, actions, adv, ret, num_actions: int, 
         raise ValueError(f"grad kernel: the batch ({b}) must be a positive multiple of {LANE_BLOCK}, T ({t}) positive")
     _check_strided("obs_w", obs_w, (t, v2, b), torch.int32, dev)
     _check_strided("actions", actions, (t, b), torch.int32, dev)
+    if obs_w.data_ptr() % 16 or obs_w.stride(0) % 4:
+        raise ValueError("grad kernel: obs_w must start on 16 bytes with a time stride of whole 16-byte words")
     f_total = v2 * 20
     _check_operands((
         ("adv", adv, (t, b), torch.float32),
@@ -195,25 +227,28 @@ def run_grad_kernel(w: EvalWeights, obs_w, actions, adv, ret, num_actions: int, 
     from minigrid_tpu_torch.ops import _build
 
     lib = _build.load_library(dev)
-    w1frag, w2frag = _a_fragments(w.wt1), _a_fragments(w.wt2)
-    w2tfrag = _a_fragments(w.wt2.T.contiguous())
+    # The weights in the ring's chunks (`policy_rollout._b_chunks`), made on
+    # every call: W1ᵀ, W2ᵀ (layer 2's B) and W2 (the B of dh1).
+    w1s = _b_chunks(w.wt1, True)
+    w2s, w2ts = _b_chunks(w.wt2, False), _b_chunks(w.wt2.T, False)
+    stages, smem = grad_plan(view)
     tc = min(TIME_CHUNK, t)
-    nf = -(-f_total // G2_TILE) * G2_TILE
+    nf, _, _ = g2_tiles(view)
     splits, split_lanes = grad_splits(b)
     scratch = torch.empty((3, tc, HIDDEN, b), dtype=torch.bfloat16, device=dev)  # h1, dh1, dh2
     part1 = torch.empty((b // LANE_BLOCK, PART_WIDTH), dtype=torch.float32, device=dev)
-    dw1p = torch.empty((splits, HIDDEN, nf), dtype=torch.float32, device=dev)
+    dw1p = torch.empty((splits, nf, HIDDEN), dtype=torch.float32, device=dev)  # dW1ᵀ
     dw2p = torch.empty((splits, HIDDEN, HIDDEN), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mg_grad_launch(
             *(ctypes.c_void_p(x.data_ptr()) for x in (
-                obs_w, actions, adv, ret, w1frag, w.b1, w2frag, w.b2, w2tfrag, w.wta, w.ba,
+                obs_w, actions, adv, ret, w1s, w.b1, w2s, w.b2, w2ts, w.wta, w.ba,
                 scratch[0], scratch[1], scratch[2], part1, dw1p, dw2p,
             )),
-            obs_w.stride(0), actions.stride(0), b, t, view, num_actions, tc, nf, splits, split_lanes,
+            obs_w.stride(0), actions.stride(0), b, t, view, num_actions, tc, nf, splits, split_lanes, stages,
             float(np.float32(1.0 / denom)), float(np.float32(2.0 * value_coef)), float(np.float32(entropy_coef)),
-            grad_smem_bytes(view), ctypes.c_void_p(stream),
+            smem, ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"grad kernel launch failed: CUDA error {err} ({lib.mg_error_string(err).decode()})")
@@ -222,7 +257,7 @@ def run_grad_kernel(w: EvalWeights, obs_w, actions, adv, ret, num_actions: int, 
     g1 = part1.sum(0)
     hw = HEAD_ROWS * HIDDEN
     gw = EvalWeights(
-        wt1=dw1p.sum(0)[:, :f_total].contiguous(),
+        wt1=dw1p.sum(0)[:f_total].T.contiguous(),
         b1=g1[hw : hw + HIDDEN, None],
         wt2=dw2p.sum(0),
         b2=g1[hw + HIDDEN : hw + 2 * HIDDEN, None],

@@ -362,40 +362,72 @@ def plain_policy_rollout(
 
 
 def padded_features(view: int) -> int:
-    """V²·20 features rounded up to whole 16-wide k tiles of `mma.sync`."""
+    """V²·20 features rounded up to whole 16-deep k slabs of `wgmma` (a
+    multiple of 32 for an odd view)."""
     return -(-view * view * _F // 16) * 16
 
 
-def policy_smem_bytes(config: EnvConfig, bt: int) -> int:
-    """Shared memory of one block of `bt` lanes, as `csrc/policy_kernel.cu`
-    lays it out: h1 `[bt][256 + 8]`, the features `[bt][K + 8]` and h2
-    `[256][bt + 8]` in bf16, the head weights and biases in f32, the grids
-    `[HW][bt]`, the offset tables and the obstacle rows `[4n][bt]`
-    (`obstacle_rows`) in int32. The launch takes this count."""
+CHUNK_BYTES = 16384  # one slot of the kernels' weight ring: a 64 (K) x 128 (N) bf16 chunk
+MAX_STAGES = 16  # ring slots the kernels' bookkeeping provides for
+MIN_STAGES = 3
+_BAR_BYTES = 1024  # the ring's bookkeeping; keeps the slots 1024-aligned for the swizzle
+
+
+def _smem_without_ring(config: EnvConfig, bt: int) -> int:
+    """Shared memory of one block of `bt` lanes besides the weights, as
+    `csrc/policy_kernel.cuh::PolicySmem` carves it: the ring's bookkeeping,
+    the head weights and biases in f32, the offset tables in int32 (padded
+    to 16 bytes), the grids `[HW][bt]` and the obstacle rows `[4n][bt]`
+    (`obstacle_rows`) in int32, and the lanes' feature bits `[K/32][bt]`
+    in uint32."""
     v = config.agent_view_size
+    v2 = v * v
     hw = config.width * config.height
     return (
-        bt * (HIDDEN + 8) * 2 + bt * (padded_features(v) + 8) * 2 + HIDDEN * (bt + 8) * 2
-        + (HEAD_ROWS * HIDDEN + 2 * HIDDEN + HEAD_ROWS) * 4
-        + hw * bt * 4 + (4 + 4 * v * v) * 4 + obstacle_rows(config) * bt * 4
+        _BAR_BYTES + (HEAD_ROWS * HIDDEN + 2 * HIDDEN + HEAD_ROWS) * 4 + -(-(4 + 4 * v2) // 4) * 16
+        + hw * bt * 4 + obstacle_rows(config) * bt * 4 + padded_features(v) // 32 * bt * 4
     )
 
 
+def ring_stages(free_bytes: int):
+    """Slots of a weight ring in `free_bytes` of shared memory, up to
+    MAX_STAGES; None below MIN_STAGES."""
+    stages = min(MAX_STAGES, free_bytes // CHUNK_BYTES)
+    return stages if stages >= MIN_STAGES else None
+
+
+def policy_plan(config: EnvConfig, bt: int):
+    """`(stages, smem_bytes)` of a block of `bt` lanes: the weight ring
+    takes the shared memory the block's other buffers leave; None where
+    not even MIN_STAGES slots fit."""
+    base = _smem_without_ring(config, bt)
+    stages = ring_stages(_SMEM_LIMIT - base)
+    return None if stages is None else (stages, base + stages * CHUNK_BYTES)
+
+
+def policy_smem_bytes(config: EnvConfig, bt: int) -> int:
+    """Shared memory of one block of `bt` lanes as `policy_plan` lays it
+    out (the launch takes this count), or, where that plan does not fit,
+    what its smallest ring would need."""
+    plan = policy_plan(config, bt)
+    return plan[1] if plan is not None else _smem_without_ring(config, bt) + MIN_STAGES * CHUNK_BYTES
+
+
 def policy_lane_block(config: EnvConfig) -> int:
-    """Lanes per CUDA block: 64, or 32 where 64 lanes' grids do not fit one
-    block's shared memory. Raises on a configuration the kernel does not
-    take."""
+    """Lanes per CUDA block: 128 (two warpgroups of 64), or 64 where 128
+    lanes' grids do not fit one block's shared memory. Raises on a
+    configuration the kernel does not take."""
     v = config.agent_view_size
     if v < 3 or v % 2 == 0 or v > _MAX_VIEW:
         raise ValueError(f"policy kernel: view size {v} must be odd and in [3, {_MAX_VIEW}]")
     if not 1 <= config.num_actions <= HEAD_ROWS:
         raise ValueError(f"policy kernel: {config.num_actions} actions; the head has {HEAD_ROWS} rows")
-    for bt in (64, 32):
-        if policy_smem_bytes(config, bt) <= _SMEM_LIMIT:
+    for bt in (128, 64):
+        if policy_plan(config, bt) is not None:
             return bt
     raise ValueError(
         f"policy kernel: a {config.width}x{config.height} grid needs "
-        f"{policy_smem_bytes(config, 32)} B of shared memory for 32 lanes; the limit is {_SMEM_LIMIT}"
+        f"{policy_smem_bytes(config, 64)} B of shared memory for 64 lanes; the limit is {_SMEM_LIMIT}"
     )
 
 
@@ -416,22 +448,31 @@ def policy_rollout_supported(env: Env, mode: str = "cached", collect: bool = Fal
     return True
 
 
-def _a_fragments(w: torch.Tensor) -> torch.Tensor:
-    """A `(256, K)` bf16 matrix, its columns zero-padded to whole 16-wide
-    tiles, in mma.sync m16n8k16 A-fragment order: `(16, K/16, 32, 8)` over
-    (row tile, k tile, thread, element). Thread `l` (group `g = l // 4`,
-    `t = l % 4`) holds rows g, g+8, g, g+8 at columns 2t, 2t, 2t+8, 2t+8
-    (each two consecutive columns) of the 16x16 tile."""
-    m, k = w.shape
+def _b_chunks(w: torch.Tensor, k_outer: bool) -> torch.Tensor:
+    """A `(256, K)` matrix as the B operand `wᵀ` of `wgmma`, flat, in the
+    16 KB chunks the kernels' weight ring streams: K zero-padded to whole
+    16-deep k slabs; each 64-deep K chunk `kc` of each N half `h` (rows
+    128·h ..) as 128 rows of 64 bf16 in the 128-byte swizzle (element
+    `(n, k)` at byte `sw128_offset(n % 128, k % 64)` of its chunk: row·128
+    + 16·((k/8 % 8) ^ (row % 8)) + 2·(k % 8)), chunks in (kc, h) order if
+    `k_outer` (W1ᵀ, both halves of a K chunk together) else (h, kc) (W2ᵀ,
+    one half at a time); then, where 32 of K are left, a tail chunk of two
+    16 x 256 k slabs in 8 x 8 core matrices without swizzle (slab `s` at
+    8192·s, element `(n, k)` at 256·(n/8) + 128·(k/8 % 2) + 16·(n % 8) +
+    2·(k % 8))."""
+    n, k = w.shape
     kp = -(-k // 16) * 16
     if kp != k:
-        w = torch.cat([w, w.new_zeros((m, kp - k))], dim=1)
-    w = w.reshape(m // 16, 16, kp // 16, 16).permute(0, 2, 1, 3)  # (mt, kt, r, c)
-    lanes = torch.arange(32, device=w.device)
-    g, t = lanes // 4, lanes % 4
-    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], dim=1)  # (32, 8)
-    cols = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9, 2 * t + 8, 2 * t + 9], dim=1)
-    return w[:, :, rows, cols].contiguous()
+        w = torch.cat([w, w.new_zeros((n, kp - k))], dim=1)
+    full = kp // 64 * 64
+    x = w[:, :full].reshape(2, n // 2, full // 64, 8, 8).permute(0, 2, 1, 3, 4)  # (h, kc, row, group, e)
+    rows = torch.arange(n // 2, device=w.device)
+    src = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)[:, None]  # group at each swizzled position
+    x = torch.gather(x, 3, src[None, None, :, :, None].expand(x.shape))
+    parts = [(x.transpose(0, 1) if k_outer else x).reshape(-1)]
+    if full < kp:
+        parts.append(w[:, full:].reshape(n // 8, 8, (kp - full) // 16, 2, 8).permute(2, 0, 3, 1, 4).reshape(-1))
+    return torch.cat(parts)
 
 
 def _check_operands(operands, device) -> None:
@@ -495,12 +536,13 @@ def run_policy_kernel(
     if b == 0 or t == 0:
         raise ValueError(f"policy kernel: empty batch or step count ({b}, {t})")
     bt = policy_lane_block(config)
+    stages, smem = policy_plan(config, bt)
     from minigrid_tpu_torch.ops import _build
 
     lib = _build.load_library(dev)
-    # W1 and W2 in fragment order: one gather each, made on every call so
-    # that the kernel always reads the weights it was given.
-    w1frag, w2frag = _a_fragments(weights.wt1), _a_fragments(weights.wt2)
+    # W1ᵀ and W2ᵀ in the ring's chunks: one gather each, made on every call
+    # so that the kernel always reads the weights it was given.
+    w1s, w2s = _b_chunks(weights.wt1, True), _b_chunks(weights.wt2, False)
     words_out = torch.empty_like(words)
     regs_out = torch.empty_like(regs)
     rsum = torch.empty((1, b), dtype=torch.float32, device=dev)
@@ -514,13 +556,13 @@ def run_policy_kernel(
         err = lib.mg_policy_launch(
             *(ctypes.c_void_p(x.data_ptr()) for x in (
                 words, regs, tmpl_words, tmpl_regs, seeds, tables,
-                w1frag, weights.b1, w2frag, weights.b2, weights.wta, weights.ba,
+                w1s, weights.b1, w2s, weights.b2, weights.wta, weights.ba,
                 words_out, regs_out, rsum, counts,
             )),
             *(ctypes.c_void_p(x.data_ptr() if x is not None else None) for x in (spill, ctl, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size, config.max_steps,
             int(config.see_through_walls), NUM_REGS, config.num_actions, rows, hook_id,
-            config.n_obstacles or 0, bt, policy_smem_bytes(config, bt), ctypes.c_void_p(stream),
+            config.n_obstacles or 0, bt, stages, smem, ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(

@@ -128,12 +128,37 @@ def test_wrapper_takes_plain_pass_on_cpu():
 @pytest.mark.parametrize("b,splits,lanes", [(64, 1, 64), (1024, 16, 64), (131_072, 64, 2048), (64 * 100, 50, 128)])
 def test_splits_cover_the_batch_in_whole_steps(b, splits, lanes):
     assert tgk.grad_splits(b) == (splits, lanes)
-    assert lanes % 32 == 0 and (splits - 1) * lanes < b <= splits * lanes
+    assert lanes % tgk.G2_KSTEP == 0 and (splits - 1) * lanes < b <= splits * lanes
 
 
-def test_g1_shared_memory_fits_one_block():
-    assert tgk.grad_smem_bytes(7) == 209_696
-    assert tgk.grad_smem_bytes(7) <= tpr._SMEM_LIMIT
+@pytest.mark.parametrize("b", [64, 1024, 64 * 67, 131_072])
+@pytest.mark.parametrize("view", [3, 5, 7])
+def test_g2_grid_covers_every_output_and_sample_once(b, view):
+    """G2's grid as the kernel walks it: each split's lanes [s·lanes,
+    min((s+1)·lanes, B)) in whole 64-lane stages cover every lane once, and
+    the dW1ᵀ tiles (128 feature rows each, padded past V²·20) and the two
+    dW2 tiles cover every output row once."""
+    splits, lanes = tgk.grad_splits(b)
+    seen = np.zeros(b, dtype=np.int64)
+    for s in range(splits):
+        lo, hi = s * lanes, min((s + 1) * lanes, b)
+        assert hi > lo and (hi - lo) % tgk.G2_KSTEP == 0
+        for l0 in range(lo, hi, tgk.G2_KSTEP):
+            seen[l0 : l0 + tgk.G2_KSTEP] += 1
+    assert (seen == 1).all()
+    nf, w1_tiles, w2_tiles = tgk.g2_tiles(view)
+    assert w1_tiles * tgk.G2_TILE == nf >= view * view * 20 > nf - tgk.G2_TILE
+    assert w2_tiles * tgk.G2_TILE == tpr.HIDDEN
+
+
+@pytest.mark.parametrize("view", [3, 5, 7])
+def test_g1_shared_memory_fits_one_block(view):
+    stages, smem = tgk.grad_plan(view)
+    assert smem == tgk.grad_smem_bytes(view) <= tpr._SMEM_LIMIT
+    assert tpr.MIN_STAGES <= stages <= tpr.MAX_STAGES
+    assert smem + tpr.CHUNK_BYTES > tpr._SMEM_LIMIT  # the ring takes what is left
+    if view == 7:
+        assert stages == 5
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,11 +185,14 @@ def test_torso_bound_catches_a_dropped_g2_part(part):
 
 
 @pytest.mark.gpu
-def test_cuda_grad_kernel_matches_plain_pass():
+@pytest.mark.parametrize("b,t", [(1024, 16), (64 * 67, 12)])
+def test_cuda_grad_kernel_matches_plain_pass(b, t):
+    """At B = 64·67 the last of G2's 34 splits holds one 64-lane stage of
+    its 128, and T = 12 leaves a ragged last time chunk."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    w, obs_w, actions, adv, ret = _traj(1024, 16, dev, seed=3)
-    denom = float(1024 * 16)
+    w, obs_w, actions, adv, ret = _traj(b, t, dev, seed=3)
+    denom = float(b * t)
     before = tgk.grad_kernel_launches
     gw, sums = tgk.run_grad_kernel(w, obs_w, actions, adv, ret, 7, denom, *COEFS)
     want_gw, want_sums = tgk.plain_grad_pass(w, obs_w, actions, adv, ret, 7, denom, *COEFS)

@@ -9,10 +9,10 @@ versions, byte for byte (reward sums bit for bit):
     front of each agent; DynamicObstacles' obstacle in the forward cell)
     at each family's grid, the first action the one that fires the hook,
     then actions from -1 to 7; B1 with and without commit rows, B2 in eval
-    and collect mode with and without them (RedBlueDoors at 6x6 in 64-lane
-    blocks and at 16x8 in 32-lane blocks, Memory at S7 and S17 and
-    DynamicObstacles at 8x8 and 16x16 likewise); the hook must change the
-    plain version's outcome against the base step;
+    and collect mode with and without them (RedBlueDoors at 6x6 and 16x8,
+    Memory at S7 and S17 and DynamicObstacles at 8x8 and 16x16, all in
+    128-lane blocks); the hook must change the plain version's outcome
+    against the base step;
   * from each family's `packed_init` carry on the card, regen mode (the
     template refresh packs the batched `generate`): the random-policy and
     policy-evaluation rollouts and the collecting rollouts of DoorKey-5x5

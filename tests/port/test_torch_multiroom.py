@@ -292,7 +292,7 @@ def test_policy_rollouts_take_random_layouts_in_both_modes():
     rollout, policy evaluation and the collecting twin under the commit
     rows."""
     env = make(N4)
-    assert tpr.policy_lane_block(env.config) == 32
+    assert tpr.policy_lane_block(env.config) == 64  # 25x25: 128 lanes of grids do not fit
     for mode in ("regen", "cached"):
         for collect in (False, True):
             assert tpr.policy_rollout_supported(env, mode, collect=collect)
@@ -359,7 +359,7 @@ def _ctl_case(cfg, b, t, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("env_id", ["MiniGrid-Empty-8x8-v0", N4])
 def test_cuda_kernels_under_commit_rows_match_plain(env_id):
-    """B1 `<kHookNone, kCtl>` and B2 with `kCtl` (BT = 64 at 8x8, 32 at
+    """B1 `<kHookNone, kCtl>` and B2 with `kCtl` (BT = 128 at 8x8, 64 at
     25x25) against their twins on random states and commit rows; `max_steps`
     cut to 12 so that lanes reset, freeze and finish the chunk."""
     dev = _cuda()

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from minigrid_tpu_torch import make
+from minigrid_tpu_torch import env_list, make
 from minigrid_tpu_torch.core.prng import key
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.models.policy import ActorCritic
@@ -96,9 +96,7 @@ def test_wrapper_takes_plain_twin_on_cpu():
     assert got[3].dtype == torch.int32 and int(got[3].sum()) > 0  # episodes ended
 
 
-@pytest.mark.parametrize(
-    "size,lanes", [((8, 8), 64), ((9, 9), 64), ((16, 16), 32), ((25, 25), 32), ((40, 40), None)]
-)
+@pytest.mark.parametrize("size,lanes", [((8, 8), 128), ((9, 9), 128), ((16, 16), 128), ((25, 25), 64), ((40, 40), None)])
 def test_lane_block_fits_shared_memory(size, lanes):
     cfg = _cfg(*size, False)
     if lanes is None:
@@ -107,6 +105,26 @@ def test_lane_block_fits_shared_memory(size, lanes):
     else:
         assert tpr.policy_lane_block(cfg) == lanes
         assert tpr.policy_smem_bytes(cfg, lanes) <= tpr._SMEM_LIMIT
+        stages, smem = tpr.policy_plan(cfg, lanes)
+        assert tpr.MIN_STAGES <= stages <= tpr.MAX_STAGES and smem == tpr.policy_smem_bytes(cfg, lanes)
+        assert smem + tpr.CHUNK_BYTES > tpr._SMEM_LIMIT or stages == tpr.MAX_STAGES  # the ring takes what is left
+        assert tpr.policy_plan(cfg, 2 * lanes) is None or lanes == 128
+
+
+@pytest.mark.parametrize("env_id", env_list)
+def test_every_ported_id_has_a_lane_block_and_plan_that_fit(env_id):
+    """Every registered family (the support matrix's `FAMILY_REPS` cells
+    among them): the block plan fits one block's shared memory, 128 lanes
+    wherever the grids allow (all but MultiRoom's 25x25), at least
+    MIN_STAGES ring slots, and Empty-8x8 takes 10."""
+    cfg = make(env_id).config
+    bt = tpr.policy_lane_block(cfg)
+    stages, smem = tpr.policy_plan(cfg, bt)
+    assert smem <= tpr._SMEM_LIMIT == 232_448
+    assert bt == (64 if cfg.width * cfg.height > 361 else 128)
+    assert tpr.MIN_STAGES <= stages <= tpr.MAX_STAGES
+    if env_id == "MiniGrid-Empty-8x8-v0":
+        assert (bt, stages) == (128, 10)
 
 
 def test_padded_features_are_whole_k_tiles():
@@ -143,18 +161,40 @@ def test_supported_envs_and_modes():
                                       dyadic_flax_params(0), 8)
 
 
-@pytest.mark.parametrize("k", [256, 980])
-def test_a_fragments_hold_each_weight_once(k):
+def _sw128(row, k):
+    """Byte of element (row, k < 64) in a 128-byte-swizzled chunk, as
+    `csrc/policy_device.cuh::sw128_offset` computes it."""
+    return row * 128 + 16 * (((k // 8) ^ row) % 8) + 2 * (k % 8)
+
+
+@pytest.mark.parametrize("k,k_outer", [(980, True), (256, False), (500, True)])
+def test_b_chunks_hold_each_weight_once(k, k_outer):
+    """Each weight once, zeros only in the padding, and each at the byte
+    the kernels' descriptors read: 16 KB chunks of 128 rows of one N half
+    in the 128-byte swizzle, (K chunk, half) or (half, K chunk) ordered,
+    then the tail of two 16 x 256 k slabs in 8 x 8 core matrices where 32
+    of K are left (980 -> 992)."""
     w = torch.arange(1, 256 * k + 1, dtype=torch.float32).reshape(256, k)
-    frag = tpr._a_fragments(w)
+    flat = tpr._b_chunks(w, k_outer)
     kp = -(-k // 16) * 16
-    assert tuple(frag.shape) == (16, kp // 16, 32, 8)
-    values = frag.reshape(-1).sort().values
+    full = kp // 64 * 64
+    nk = full // 64
+    assert flat.numel() == 256 * kp and flat.is_contiguous()
+    assert flat.numel() * 2 == (2 * nk + (1 if full < kp else 0)) * tpr.CHUNK_BYTES
+    values = flat.sort().values
     assert torch.equal(values[values > 0], w.reshape(-1)) and int((values == 0).sum()) == 256 * (kp - k)
-    # Thread 5 (group 1, column pair 1) of tile (2, 3): rows 1, 9; columns 2, 10.
-    tile = w[32:48, 48:64]
-    assert frag[2, 3, 5].tolist() == [tile[1, 2], tile[1, 3], tile[9, 2], tile[9, 3],
-                                      tile[1, 10], tile[1, 11], tile[9, 10], tile[9, 11]]
+    for n, kk in [(0, 0), (9, 3), (130, 17), (255, k - 1), (37, k // 2), (200, k - 1), (7, 70), (131, 975)]:
+        if kk >= k:
+            continue
+        h, row = divmod(n, 128)
+        if kk < full:
+            kc = kk // 64
+            chunk = kc * 2 + h if k_outer else h * nk + kc
+            byte = chunk * tpr.CHUNK_BYTES + _sw128(row, kk % 64)
+        else:
+            s, kr = divmod(kk - full, 16)
+            byte = 2 * nk * tpr.CHUNK_BYTES + 8192 * s + 256 * (n // 8) + 128 * (kr // 8) + 16 * (n % 8) + 2 * (kr % 8)
+        assert flat[byte // 2] == w[n, kk], (n, kk)
 
 
 def test_actor_critic_init_is_seeded_and_round_trips():
@@ -211,11 +251,12 @@ def test_eval_rollout_sees_in_place_weight_updates():
 )
 def test_cuda_kernel_matches_plain_twin(width, height, see_through_walls):
     """Under dyadic weights: words, registers, episodes and checksum
-    byte-exact; per-lane reward sums bit-identical."""
+    byte-exact; per-lane reward sums bit-identical. The batch is ragged for
+    both lane blocks (16 blocks of 128 or 32 of 64, plus 32 lanes)."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _cfg(width, height, see_through_walls)
-    args, seeds = _case(cfg, 2048, 32, dev, seed=width * height)
+    args, seeds = _case(cfg, 2048 + 32, 32, dev, seed=width * height)
     w = tpr.eval_weights_from_params(dyadic_flax_params(5), cfg.agent_view_size, device=dev)
     before = tpr.policy_kernel_launches
     got = tpr.run_policy_kernel(*args, seeds, w, cfg)
@@ -288,11 +329,11 @@ def test_collect_needs_head_row_7_for_the_critic():
 def test_cuda_collect_spill_matches_plain_twin(width, height, see_through_walls):
     """Under dyadic weights: the collect-mode spill byte-exact (every field,
     f32 rows as bits) and the carry outputs equal to the twin's and to the
-    kernel's own eval mode."""
+    kernel's own eval mode, on a ragged batch (16 blocks of 128 + 32)."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _cfg(width, height, see_through_walls)
-    args, seeds = _case(cfg, 2048, 32, dev, seed=width * height + see_through_walls)
+    args, seeds = _case(cfg, 2048 + 32, 32, dev, seed=width * height + see_through_walls)
     w = tpr.train_weights_from_params(dyadic_flax_params(5), cfg.agent_view_size, device=dev)
     before = tpr.policy_kernel_launches
     got = tpr.run_policy_kernel(*args, seeds, w, cfg, collect=True)

@@ -374,15 +374,16 @@ POLICY_CONFIGS = [(8, 8, True), (16, 16, True), (25, 25, False)]
 @pytest.mark.parametrize("collect", [False, True])
 @pytest.mark.parametrize("config", POLICY_CONFIGS)
 def test_cuda_policy_kernel_hook_and_collect_match_twin(config, collect, ctl):
-    """B2 with the pickup-target hook (8x8 at BT = 64, 16x16 at BT = 32) and
-    hookless at 25x25, in eval and collect mode, with and without random
-    commit rows, against `plain_policy_rollout`: byte for byte, reward sums
-    bit for bit, the spill on each lane's committed rows under `ctl`."""
+    """B2 with the pickup-target hook (8x8 and 16x16 at BT = 128) and
+    hookless at 25x25 (BT = 64), in eval and collect mode, with and without
+    random commit rows, on a ragged batch (a lane block's multiple + 32)
+    against `plain_policy_rollout`: byte for byte, reward sums bit for bit,
+    the spill on each lane's committed rows under `ctl`."""
     dev = _cuda()
     w_, h_, hook = config
     cfg = dataclasses.replace(make("MiniGrid-Empty-8x8-v0").config, width=w_, height=h_, max_steps=12)
     transition = "pickup_target" if hook else "base"
-    b, t = 512, 24
+    b, t = 512 + 32, 24
     case = hooked_case(cfg, b, 21, hook)
     args = [torch.from_numpy(case[k]).to(dev) for k in ("words", "regs", "tmpl_words", "tmpl_regs")]
     rng = np.random.default_rng(22)
