@@ -7,8 +7,10 @@ Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. The card's name and power limit (nvidia-smi), then the build of the
      CUDA kernels from the sources in this checkout, timed, and `ptxas
-     -v`'s registers and spills of every policy-kernel and gradient-kernel
-     instantiation (a spill fails).
+     -v`'s registers and spills of every instantiation of the policy
+     kernel, the gradient kernel, the rollout kernel and the Mosaic
+     probe's kernels (a spill fails). Every phase prints its wall seconds,
+     and the script its total.
   2. The main path at full size: Empty-8x8, `reset_batch(key(0), 2**21)`,
      `packed_init(..., "regen")`, one warm-up and three timed
      `step(generator, carry)` calls at T=256, `packed_finish`. Every
@@ -26,8 +28,13 @@ result line):
      and 25x25 without. Words, registers, episodes and checksum must be
      byte-exact and per-lane reward sums bit-identical (tolerance 0). The
      probe kernel on a random (8, 128) int32 block against `x + 1`,
-     exact; timed through its wrapper, as raw launches, and as the
-     kernel's own device time (`torch.profiler`).
+     exact; timed through its wrapper, and like with like against
+     `torch.add(x, 1)`: raw launches against its calls (CUDA events), and
+     the kernel's device time against its (`torch.profiler`). Phase 2 and
+     every phase that times the rollout kernel print its launch plan
+     (lanes a block, threads a lane, cell width, resident blocks and warps
+     an SM from the card's occupancy) and the row's time under the
+     kernel's previous design.
   4. The policy-in-the-loop main path at full width: Empty-8x8 regen,
      B=2**21, T=256, the `ActorCritic` (980 -> 256 -> 256, bf16 torso, f32
      heads) drawn from a seeded generator on the card,
@@ -170,7 +177,9 @@ result line):
      dyadic inputs and within 1e-2 of the largest |acc| under the probe's
      normal draws, two runs bit for bit, the variants of one formula bit
      for bit, the others within their bound of base_where, timed with
-     CUDA events.
+     CUDA events through the wrapper and as device time (`torch.profiler`:
+     the forward and product kernels, and the whole call), beside its
+     time under the previous design.
  15. DoorKey-8x8 on random layouts, which have no packed generator:
      chunked regen refreshes the templates through the batched `generate`,
      packed. From `reset_batch(key(0))`, one warm-up and 3 timed calls with
@@ -238,7 +247,9 @@ largest difference from the plain version, its time and the plain
 version's, its bound on this card (`bound_ms`: the larger of its bytes
 over the memory rate and its operations over the peak rate for their
 type, counted from this run's shapes) and, where one PyTorch call
-computes the same function, that call's time (`library_ms`).
+computes the same function, that call's time (`library_ms`). The
+capability probe's row gives device times (the kernel's and
+`torch.add`'s), the rest times through the wrappers.
 """
 
 from __future__ import annotations
@@ -387,6 +398,32 @@ NEW_FAMILY_IDS = ("MiniGrid-Unlock-v0", "MiniGrid-UnlockPickup-v0", "MiniGrid-Bl
                   "MiniGrid-Dynamic-Obstacles-Random-6x6-v0")
 NEW_FAMILY_T = 64
 
+# Times under the previous design of the rollout kernel (one thread a lane,
+# int32 grids) and of the Mosaic probe (the forward recomputed by every
+# block), from PERF.md §6's kernel table (NVIDIA H100 80GB HBM3, 700 W):
+# the rollout kernel's rows by (family, width, height, B, T), and the
+# probe's base_where. Printed beside this run's.
+PREVIOUS_B1_MS = {
+    ("empty", 8, 8, 2_097_152, 256): 39.835052,
+    ("keycorridor", 16, 16, 32_768, 128): 3.279093,
+    ("multiroom", 25, 25, 32_768, 96): 4.695392,
+    ("fetch", 8, 8, 32_768, 32): 0.249173,
+    ("gotodoor", 8, 8, 32_768, 32): 0.231733,
+    ("gotoobject", 8, 8, 32_768, 32): 0.206656,
+    ("putnear", 8, 8, 32_768, 32): 0.257472,
+    ("redbluedoors", 16, 8, 32_768, 32): 0.464939,
+    ("doorkey", 8, 8, 262_144, 32): 1.664171,
+    ("fetch", 5, 5, 262_144, 256): 5.397579,
+    ("dynamicobstacles", 16, 16, 262_144, 32): 12.875488,
+    ("unlock", 11, 6, 32_768, 32): 0.402933,
+    ("unlockpickup", 11, 6, 32_768, 32): 0.412491,
+    ("blockedunlockpickup", 11, 6, 32_768, 32): 0.400363,
+    ("memory", 7, 7, 32_768, 32): 0.423296,
+    ("dynamicobstacles", 5, 5, 32_768, 32): 0.427808,
+    ("dynamicobstacles", 6, 6, 32_768, 32): 0.503264,
+}
+PREVIOUS_MOSAIC_BASE_WHERE_MS = 11.130352
+
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -442,9 +479,33 @@ def card_line() -> str:
     return nvidia_smi("name,power.limit")
 
 
+# Kernel names in `ptxas -v`'s log whose registers and spills phase 1
+# reports: the policy kernel (B2), the gradient kernel (B3), the rollout
+# kernel (B1) and the Mosaic probe's kernels.
+REPORTED_KERNELS = ("policy_kernel", "grad_g", "rollout_generic", "rollout_cells16", "probe_forward_kernel",
+                    "probe_product")
+
+
+def kernel_label(name: str) -> str:
+    """A readable label of a mangled kernel name from `ptxas -v`."""
+    import re
+
+    for pattern, fmt in (
+        (r"policy_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)E", "policy_kernel<BT={}, collect={}, ctl={}, hook={}>"),
+        (r"rollout_cells16ILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", "rollout_cells16<hook={}, ctl={}, threads={}, view={}>"),
+        (r"rollout_genericILi(\d+)ELb(\d)E", "rollout_generic<hook={}, ctl={}>"),
+        (r"probe_forward_kernelILi(\d+)E", "probe_forward_kernel<variant={}>"),
+    ):
+        m = re.search(pattern, name)
+        if m:
+            return fmt.format(*m.groups())
+    return re.sub(r".*?((?:grad_g\d|probe_product_f32|probe_product)_kernel).*", r"\1", name)
+
+
 def compiler_report(log: str) -> None:
-    """`ptxas -v`'s registers and spills of every policy-kernel (B2) and
-    gradient-kernel (B3) instantiation, one line each; any spill fails."""
+    """`ptxas -v`'s registers and spills of every instantiation of the
+    policy kernel (B2), the gradient kernel (B3), the rollout kernel (B1)
+    and the Mosaic probe, one line each; any spill fails."""
     import re
 
     current, rows = None, {}
@@ -452,7 +513,7 @@ def compiler_report(log: str) -> None:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if m:
             current = m.group(1)
-        if current is None or not ("policy_kernel" in current or "grad_g" in current):
+        if current is None or not any(k in current for k in REPORTED_KERNELS):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -462,15 +523,14 @@ def compiler_report(log: str) -> None:
             rows.setdefault(current, {})["registers"] = int(m.group(1))
     spilled = []
     for name, row in sorted(rows.items()):
-        m = re.search(r"policy_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)E", name)
-        label = (f"policy_kernel<BT={m.group(1)}, collect={m.group(2)}, ctl={m.group(3)}, hook={m.group(4)}>" if m
-                 else re.sub(r".*(grad_g\d_kernel).*", r"\1", name))
+        label = kernel_label(name)
         spills = row.get("spills", (0, 0))
         print(f"phase 1: {label}: {row.get('registers')} registers, spill stores {spills[0]} B, "
               f"spill loads {spills[1]} B", flush=True)
         if any(spills):
             spilled.append(label)
-    print(f"phase 1: {len(rows)} policy and gradient kernel instantiations, {len(spilled)} with a spill", flush=True)
+    counts = {k: sum(k in name for name in rows) for k in REPORTED_KERNELS}
+    print(f"phase 1: {len(rows)} kernel instantiations ({counts}), {len(spilled)} with a spill", flush=True)
     if spilled:
         raise RuntimeError(f"phase 1: register spills in {spilled}")
 
@@ -564,6 +624,21 @@ def b2_bound(cfg, b, t, collect, ctl=True, dev=None):
     return out
 
 
+def b1_plan(cfg, b, t) -> str:
+    """The last rollout-kernel launch's plan (`fused_rollout.rollout_plan`
+    with the card's occupancy) and the row's time under the previous
+    design, for a print."""
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+
+    p = fr.last_rollout_plan
+    old = PREVIOUS_B1_MS.get((cfg.family, cfg.width, cfg.height, b, t))
+    resident = p.blocks_per_sm * p.lanes * p.threads_per_lane // 32
+    return (f"plan: {p.lanes} lanes a block, {p.threads_per_lane} threads a lane, {p.cell_bits}-bit cells, "
+            f"{p.smem} B of shared memory a block; {p.blocks_per_sm} blocks ({resident} warps) resident an SM, "
+            f"{p.warps_per_sm:.2f} warps an SM on average; the previous design's time "
+            f"{old if old is not None else 'not measured'} ms")
+
+
 def compare(got, want):
     """(mismatch count per output, max abs difference over all outputs);
     f32 outputs are compared as bit patterns."""
@@ -610,7 +685,12 @@ def phase_kernel_vs_plain(dev, card):
 
 def phase_probe(dev, card):
     """The probe kernel against `x + 1` on a random (8, 128) int32 block,
-    exact; both, and `torch.add(x, 1)`, timed with CUDA events."""
+    exact; both, and `torch.add(x, 1)`, timed with CUDA events; then like
+    with like: raw `mg_probe_launch` calls against `torch.add` calls
+    (events), and the kernel's device time against `torch.add`'s
+    (`torch.profiler`). Returns (error, the kernel's device ms, the plain
+    version's ms, `torch.add`'s device ms); a time the profiler did not see
+    falls back to its events reading."""
     import numpy as np
     import torch
 
@@ -625,13 +705,34 @@ def phase_probe(dev, card):
     mismatches = int((got != want).sum())
     err = float((got.double() - want.double()).abs().max())
     raw_ms, device_ms = probe_device_time(dev, x)
+    add_device_ms = torch_add_device_time(x)
+    slower = ("not measured" if device_ms is None or add_device_ms is None
+              else "the kernel" if device_ms > add_device_ms else "its wrapper (the kernel is not)")
     print(f"phase 3: probe kernel {tuple(x.shape)} {ms:.6f} ms/call through its wrapper, plain x+1 {plain_ms:.6f} "
-          f"ms/call, torch.add {library_ms:.6f} ms/call; raw launches {raw_ms:.6f} ms/call, the kernel's device "
-          f"time {device_ms if device_ms is not None else 'not measured'} ms/launch (it runs once per process, "
-          f"in load_library); mismatches={mismatches} max_abs_err={err} [{card}]", flush=True)
+          f"ms/call; like with like: raw launches {raw_ms:.6f} ms/call against torch.add {library_ms:.6f} ms/call "
+          f"(events), the kernel's device time {device_ms if device_ms is not None else 'not measured'} ms/launch "
+          f"against torch.add's {add_device_ms if add_device_ms is not None else 'not measured'} ms (profiler); "
+          f"the slower against torch.add: {slower} (it runs once per process, in load_library); "
+          f"mismatches={mismatches} max_abs_err={err} [{card}]", flush=True)
     if mismatches:
         raise RuntimeError("phase 3 failed: the probe kernel differs from x + 1")
-    return err, ms, plain_ms, library_ms
+    return (err, device_ms if device_ms is not None else raw_ms, plain_ms,
+            add_device_ms if add_device_ms is not None else library_ms)
+
+
+def torch_add_device_time(x):
+    """`torch.add(x, 1)`'s device time per call from `torch.profiler` over
+    PROBE_REPS calls, or None if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROBE_REPS):
+            torch.add(x, 1)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / PROBE_REPS / 1e3 if us else None
 
 
 def probe_device_time(dev, x):
@@ -765,7 +866,7 @@ def phase_main_path(dev, card):
     counts, max_err = compare(got, want)
     print(f"phase 2: rollout kernel {kernel_ms:.4f} ms/call ({MAIN_B * MAIN_T / kernel_ms * 1e3:.6e} "
           f"env-steps/s), plain twin {plain_ms:.4f} ms/call ({MAIN_B * MAIN_T / plain_ms * 1e3:.6e} "
-          f"env-steps/s), mismatches={counts} [{card}]", flush=True)
+          f"env-steps/s), mismatches={counts} [{card}]; {b1_plan(cfg, MAIN_B, MAIN_T)}", flush=True)
     if any(counts.values()):
         raise RuntimeError("kernel and plain twin differ on fixed actions at full size")
     return launches, max_err, kernel_ms, plain_ms
@@ -1416,7 +1517,7 @@ def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
     print(f"phase 9: rollout kernel with the hook and the control rows, {KC_ENV_ID} B={KC_B} "
           f"T={KC_CHUNKS[0]}: {b1_ms:.6f} ms/call (mean of {KC_TIMED}), plain {b1_plain_ms:.4f} ms, "
           f"mismatches {counts}; bound {b1_bnd} ({rollout_instr(cfg, True)} instructions per lane-step) "
-          f"[{card}]", flush=True)
+          f"[{card}]; {b1_plan(cfg, KC_B, KC_CHUNKS[0])}", flush=True)
     if any(counts.values()):
         raise RuntimeError("phase 9: the rollout kernel with the hook differs from its plain version")
     return (max_err, timing[0], timing[1], b4_bound), (b1_err, b1_ms, b1_plain_ms, b1_bnd)
@@ -1677,7 +1778,8 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
     b1_bnd = b1_bound(cfg, MR_B, MR_CHUNK, dev)
     print(f"phase 11: rollout kernel with the control rows, {MR_ENV_ID} B={MR_B} T={MR_CHUNK}: {b1_ms:.6f} "
           f"ms/call (mean of {MR_TIMED}), plain {b1_plain_ms:.4f} ms, mismatches {counts}; bound {b1_bnd} "
-          f"({rollout_instr(cfg, True)} instructions per lane-step) [{card}]", flush=True)
+          f"({rollout_instr(cfg, True)} instructions per lane-step) [{card}]; {b1_plan(cfg, MR_B, MR_CHUNK)}",
+          flush=True)
     if any(counts.values()):
         raise RuntimeError("phase 11: the rollout kernel with the control rows differs from its plain version")
 
@@ -2035,7 +2137,10 @@ def phase_mosaic_probe(dev, card):
     bnd = bound(nbytes, ops, BF16_FLOP_PER_S)
     base = rows["base_where"]
     print(f"phase 14: Mosaic probe kernel, {len(rows)} variants, {launches} launches; base_where {base['ms']:.6f} "
-          f"ms/call, plain {base['plain_ms']:.6f} ms; bound {bnd} [{card}]", flush=True)
+          f"ms/call through its wrapper (the previous design: {PREVIOUS_MOSAIC_BASE_WHERE_MS} ms), device time "
+          f"of its kernels {base['device_ms']} ms, of the whole call {base['call_device_ms']} ms; plain "
+          f"{base['plain_ms']:.6f} ms; "
+          f"bound {bnd} [{card}]", flush=True)
     err = max(r["max_abs_err"] for r in rows.values())
     return launches, err, base["ms"], base["plain_ms"], bnd
 
@@ -2084,7 +2189,8 @@ def _time_pass(name, cfg, carry, t, dev, card, transition, surface, weights=None
     print(f"phase {name}: {surface} pass under {transition!r}, commit rows {ctl}, {cfg.width}x{cfg.height} B={b} "
           f"T={t}: kernel "
           f"{ms:.6f} ms/call (mean of {reps}), plain {plain_ms:.4f} ms; episodes {int(want[3].sum())}; mismatches "
-          f"{bad or 'none'}; bound {bnd} [{card}]", flush=True)
+          f"{bad or 'none'}; bound {bnd} [{card}]" + (f"; {b1_plan(cfg, b, t)}" if surface == "random" else ""),
+          flush=True)
     if bad:
         raise RuntimeError(f"phase {name}: the {surface} kernel under {transition!r} differs from its plain version")
     return err, ms, plain_ms, bnd
@@ -2540,6 +2646,14 @@ def phase_new_hooks(dev, card):
     return rows
 
 
+def run_phase(label, fn, *args):
+    """`fn(*args)`, then the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2548,6 +2662,7 @@ def main() -> int:
         return 2
     from minigrid_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     card = card_line()
     print(card, flush=True)
@@ -2565,53 +2680,55 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain twins' f32 GEMMs in full f32
     torch.backends.cudnn.allow_tf32 = False
-    launches, err2, kernel_ms, plain_ms = phase_main_path(dev, card)
+    launches, err2, kernel_ms, plain_ms = run_phase("2", phase_main_path, dev, card)
     torch.cuda.empty_cache()
-    err3 = phase_kernel_vs_plain(dev, card)
-    probe_err, probe_ms, probe_plain_ms, probe_library_ms = phase_probe(dev, card)
+    err3 = run_phase("3 (rollout kernel)", phase_kernel_vs_plain, dev, card)
+    probe_err, probe_ms, probe_plain_ms, probe_library_ms = run_phase("3 (probe)", phase_probe, dev, card)
     torch.cuda.empty_cache()
-    env, model, warm_carry, policy_launches, _, _ = phase_policy_main_path(dev, card)
-    policy_err, policy_ms, policy_plain_ms, _ = phase_policy_vs_plain(dev, card, env, model, warm_carry)
+    env, model, warm_carry, policy_launches, _, _ = run_phase("4", phase_policy_main_path, dev, card)
+    policy_err, policy_ms, policy_plain_ms, _ = run_phase("5", phase_policy_vs_plain, dev, card, env, model,
+                                                           warm_carry)
     del env, model, warm_carry
     torch.cuda.empty_cache()
-    env, ts, warm_carry, train_launches, _, _ = phase_train_main_path(dev, card)
+    env, ts, warm_carry, train_launches, _, _ = run_phase("6", phase_train_main_path, dev, card)
     torch.cuda.empty_cache()
-    collect_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms, g2_library_ms = phase_train_vs_plain(
-        dev, card, env, ts, warm_carry
+    collect_err, collect_ms, collect_plain_ms, grad_err, grad_ms, grad_plain_ms, g2_library_ms = run_phase(
+        "7", phase_train_vs_plain, dev, card, env, ts, warm_carry
     )
     del env, ts, warm_carry
     torch.cuda.empty_cache()
-    env, warm_carry, reset_carry, kc_launches, _, _ = phase_kc_main_path(dev, card)
-    (b4_err, b4_ms, b4_plain_ms, b4_bound), (b1h_err, b1h_ms, b1h_plain_ms, b1h_bound) = phase_kc_vs_plain(
-        dev, card, env, warm_carry, reset_carry
+    env, warm_carry, reset_carry, kc_launches, _, _ = run_phase("8", phase_kc_main_path, dev, card)
+    (b4_err, b4_ms, b4_plain_ms, b4_bound), (b1h_err, b1h_ms, b1h_plain_ms, b1h_bound) = run_phase(
+        "9", phase_kc_vs_plain, dev, card, env, warm_carry, reset_carry
     )
     del env, warm_carry, reset_carry
     torch.cuda.empty_cache()
-    env, _, rand, policy = phase_mr_main_path(dev, card)
+    env, _, rand, policy = run_phase("10", phase_mr_main_path, dev, card)
     mr_launches = {"a": rand[2], "b": policy[2]}
     (b5_err, b5_ms, b5_plain_ms, b5_bound), (b1c_err, b1c_ms, b1c_plain_ms, b1c_bound), (
-        b2c_err, b2c_ms, b2c_plain_ms, b2c_bound) = phase_mr_vs_plain(dev, card, env, rand, policy)
+        b2c_err, b2c_ms, b2c_plain_ms, b2c_bound) = run_phase("11", phase_mr_vs_plain, dev, card, env, rand, policy)
     del env, rand, policy
     torch.cuda.empty_cache()
-    kc, kc_model, rt_runs = phase_regen_policy_main_path(dev, card)
-    rt = phase_regen_policy_vs_plain(dev, card, kc, kc_model, rt_runs)
+    kc, kc_model, rt_runs = run_phase("12", phase_regen_policy_main_path, dev, card)
+    rt = run_phase("13", phase_regen_policy_vs_plain, dev, card, kc, kc_model, rt_runs)
     rt_launches = {
         "hook": rt_runs["kc_eval"][2]["policy_kernel"],
         "collect_ctl": rt_runs["train_b"][3]["policy_kernel"] + rt_runs["train_c"][3]["policy_kernel"],
     }
     del kc, kc_model, rt_runs
     torch.cuda.empty_cache()
-    mosaic_launches, mosaic_err, mosaic_ms, mosaic_plain_ms, mosaic_bound = phase_mosaic_probe(dev, card)
+    mosaic_launches, mosaic_err, mosaic_ms, mosaic_plain_ms, mosaic_bound = run_phase("14", phase_mosaic_probe, dev,
+                                                                                       card)
     torch.cuda.empty_cache()
-    dk_runs = phase_doorkey_main_path(dev, card)
-    (dk_err, dk_ms, dk_plain_ms, dk_bound), dk_rand = phase_doorkey_vs_plain(dev, card, dk_runs)
+    dk_runs = run_phase("15 (a, b)", phase_doorkey_main_path, dev, card)
+    (dk_err, dk_ms, dk_plain_ms, dk_bound), dk_rand = run_phase("15 (c-e)", phase_doorkey_vs_plain, dev, card, dk_runs)
     dk_launches = dk_runs["train"][2]["policy_kernel"]
     dk_rand_launches = dk_runs["rand"][2]["rollout_kernel"]
     del dk_runs
     torch.cuda.empty_cache()
-    hook_rows = phase_hooks(dev, card)
+    hook_rows = run_phase("16", phase_hooks, dev, card)
     torch.cuda.empty_cache()
-    new_rows = phase_new_hooks(dev, card)
+    new_rows = run_phase("17", phase_new_hooks, dev, card)
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():
@@ -2871,6 +2988,7 @@ def main() -> int:
             "library_ms": None,
         },
     ]}), flush=True)
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the build included [{card}]", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

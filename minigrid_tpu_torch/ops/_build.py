@@ -116,8 +116,10 @@ def _open() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr = ctypes.c_void_p
-        lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 11 + [ptr]
+        lib.mg_rollout_launch.argtypes = [ptr] * 12 + [ctypes.c_int] * 14 + [ptr]
         lib.mg_rollout_launch.restype = ctypes.c_int
+        lib.mg_rollout_occupancy.argtypes = [ctypes.c_int] * 7
+        lib.mg_rollout_occupancy.restype = ctypes.c_int
         lib.mg_policy_launch.argtypes = [ptr] * 19 + [ctypes.c_int] * 15 + [ptr]
         lib.mg_policy_launch.restype = ctypes.c_int
         lib.mg_grad_launch.argtypes = (
@@ -128,7 +130,7 @@ def _open() -> ctypes.CDLL:
         lib.mg_connect_launch.restype = ctypes.c_int
         lib.mg_mr_chain_launch.argtypes = [ptr] * 6 + [ctypes.c_int] * 6 + [ptr]
         lib.mg_mr_chain_launch.restype = ctypes.c_int
-        lib.mg_mosaic_probe_launch.argtypes = [ptr] * 7 + [ctypes.c_int, ptr]
+        lib.mg_mosaic_probe_launch.argtypes = [ptr] * 9 + [ctypes.c_int, ptr]
         lib.mg_mosaic_probe_launch.restype = ctypes.c_int
         lib.mg_probe_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]
         lib.mg_probe_launch.restype = ctypes.c_int
@@ -148,7 +150,9 @@ def probe(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"probe kernel: x is on {x.device}, expected a CUDA device")
     if x.dtype != torch.int32 or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(f"probe kernel: x must be non-empty contiguous int32, got {x.dtype}{tuple(x.shape)}")
-    _check_capability(x.device)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if index not in _checked_devices:  # a device that passed load_library is a Hopper card
+        _check_capability(x.device)
     lib = _open()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -25,124 +25,62 @@
 // by lanes that reset. Under the DynamicObstacles pre-hook each lane-step
 // adds n Threefry-20 evaluations and the walk's coordinate tests.
 //
-// Design:
-//  * One thread per lane. A block of `bt` lanes keeps its grids in shared
-//    memory as [HW][bt] int32, so neighbouring threads touch neighbouring
-//    banks whatever row each reads, and the global (HW, B) layout loads and
-//    stores coalesced.
-//  * The per-lane step, its row-offset re-centring, the reward's rounding,
-//    the hooks, the commit protocol and the view read are in
-//    step_device.cuh, which the policy kernel shares. The hook id and the
-//    control rows are template parameters, so the base step compiles as
-//    it did without them.
-//  * The DynamicObstacles obstacles' coordinates live in shared memory
-//    after the offset tables, [4n][bt] int32 (committed and new), not in
-//    registers.
+// Design (rollout_kernel.cuh). In-kernel cycle counts (tools/
+// b1_cycle_split.py) put 89-95 % of a lane-step in the view read where
+// there is no walk, and the kernel at 2-4 resident warps an SM on 16x16
+// and 25x25 grids, whose int32 grids filled shared memory. So:
+//  * 16-bit cells: the lane's grid lives in shared memory as 16-bit cells
+//    (a word's 20 bits without the unused high bits of colour and state),
+//    packed at load and store and unpacked by the step; a word that does
+//    not fit traps the launch. Half the bytes, so twice the lanes an SM
+//    holds. The cells sit at their absolute rows, so an in-bounds view
+//    cell is read at its world position without a modulo.
+//  * Several threads a lane where one thread a lane leaves the card short
+//    of warps (B = 32,768, or large grids): four threads run the lane's
+//    step alike and split the view rows and the flood's row masks (gathered
+//    with shuffles in a fixed order), the grid loads and stores and a
+//    reset's rows; the checksum is an int32 sum.
+//  * The view unrolled for the registry's view size (7): per step the
+//    physical row steps by a constant along a view row, and the in-bounds
+//    cells are a run of columns; the flood runs on unrolled row masks.
+//  * The plan (ops/fused_rollout.py::rollout_plan): lanes a block, threads
+//    a lane and cell width chosen for resident warps, from
+//    `mg_rollout_occupancy` (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+//    on the card.
+//  The generic kernel keeps the first design (one thread a lane, int32
+//  cells, the view through offset tables) for any other view size and for
+//  families whose words the configuration does not let into 16 bits.
+//  Instantiations: rollout_generic here, rollout_cells16 in
+//  rollout_cells16_t1.cu and rollout_cells16_t4.cu (compiled in parallel).
+//  The DynamicObstacles obstacles' coordinates live in shared memory after
+//  the offset tables, [4n][bt] int32 (committed and new).
 
 #include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "step_device.cuh"
+#include "rollout_kernel.cuh"
+
+namespace mg_rollout {
+
+int launch_generic(const Params& p, int hook, bool ctl, int lane_block, int smem, cudaStream_t stream,
+                   int* blocks_per_sm) {
+  return launch_variant<1, 0>(p, hook, ctl, lane_block, smem, stream, blocks_per_sm);
+}
+
+}  // namespace mg_rollout
 
 namespace {
 
-struct Params {
-  const int32_t* words_in;    // (HW, B), agent-centred
-  const int32_t* regs_in;     // (num_regs, B)
-  const int32_t* tmpl_words;  // (HW, B), centred on the template agent
-  const int32_t* tmpl_regs;   // (num_regs, B)
-  const int32_t* actions;     // (T, B)
-  const int32_t* tables;      // [off_fwd (4); off_view (4 * V * V)]
-  const int32_t* ctl_in;      // (3, B) commit rows, or null
-  int32_t* words_out;
-  int32_t* regs_out;
-  float* rsum_out;     // (B,)
-  int32_t* counts_out;  // (2, B): episodes; obs checksum
-  int32_t* ctl_out;     // (3, B), when ctl_in is not null
-  int B, T, width, height, view, max_steps, see_through_walls, num_regs, n_obst;
-};
+// The plan variant of (threads a lane, cell bits), or null.
+using LaunchFn = int (*)(const Params&, int, bool, int, int, cudaStream_t, int*);
 
-template <int kHook, bool kCtl>
-__global__ void rollout_kernel(const Params p) {
-  extern __shared__ int32_t smem[];
-  const int bt = blockDim.x;
-  const int tid = threadIdx.x;
-  const StepShape sh{p.width,     p.height,           p.width * p.height, p.view,
-                     p.max_steps, p.see_through_walls, p.n_obst,           p.num_regs - 2};
-  int32_t* tab = smem + static_cast<size_t>(sh.hw) * bt;  // after the grids
-  int32_t* obst = tab + 4 + 4 * p.view * p.view;           // after the tables
-
-  for (int i = tid; i < 4 + 4 * p.view * p.view; i += bt) tab[i] = p.tables[i];
-  __syncthreads();  // the only block-wide step; each thread owns its column
-
-  const int lane = blockIdx.x * bt + tid;
-  if (lane >= p.B) return;
-  const size_t B = static_cast<size_t>(p.B);
-  int32_t* g = smem + tid;  // this lane's grid: row r at g[r * bt]
-
-  Lane s;
-  s.ob = obst + tid;  // this lane's obstacle rows, if any
-  load_lane<kHook>(g, bt, p.words_in, p.regs_in, B, lane, sh, s);
-  Ctl ctl{};
-  if (kCtl) {
-    ctl.consumed = p.ctl_in[lane];
-    ctl.steps_done = p.ctl_in[B + lane];
-    ctl.frozen = p.ctl_in[2 * B + lane];
-  }
-  bool reset_any = false;
-  float rsum = 0.0f;
-  int episodes = 0;
-  int checksum = 0;
-
-  for (int t = 0; t < p.T; ++t) {
-    const int a = p.actions[t * B + lane];
-    bool done;
-    float reward;
-    // Only under kCtl can a step go uncommitted, and the lane then stays
-    // frozen or finished for the rest of the launch.
-    if (!step_lane_ex<kHook, kCtl>(g, bt, tab, p.tmpl_words, p.tmpl_regs, B, lane, sh, a, p.T, s,
-                                   ctl, reward, done))
-      break;
-    if (done) {
-      reset_any = true;
-      episodes += 1;
-    }
-    rsum = __fadd_rn(rsum, reward);
-    // The post-step observation's checksum; hidden cells count 0.
-    int obs_sum = 0;
-    read_view<false>(g, bt, tab, sh, s, [&](int, int w) { obs_sum += tcs(w); });
-    checksum += obs_sum;
-  }
-
-  store_lane<kHook>(g, bt, p.words_out, p.regs_out, p.regs_in, p.tmpl_regs, reset_any, B, lane, sh,
-                    p.num_regs, s);
-  p.rsum_out[lane] = rsum;
-  p.counts_out[lane] = episodes;
-  p.counts_out[B + lane] = checksum;
-  if (kCtl) {
-    p.ctl_out[lane] = ctl.consumed;
-    p.ctl_out[B + lane] = ctl.steps_done;
-    p.ctl_out[2 * B + lane] = ctl.frozen;
-  }
-}
-
-template <int kHook, bool kCtl>
-int launch_one(const Params& p, int lane_block, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rollout_kernel<kHook, kCtl>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p.B + lane_block - 1) / lane_block;
-  rollout_kernel<kHook, kCtl><<<blocks, lane_block, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kHook>
-int launch(const Params& p, bool ctl, int lane_block, size_t smem, cudaStream_t stream) {
-  return ctl ? launch_one<kHook, true>(p, lane_block, smem, stream)
-             : launch_one<kHook, false>(p, lane_block, smem, stream);
+LaunchFn variant_for(int threads_per_lane, int cell_bits, int view) {
+  if (cell_bits == 32 && threads_per_lane == 1) return mg_rollout::launch_generic;
+  if (cell_bits == 16 && view == 7 && threads_per_lane == 1) return mg_rollout::launch_cells16_t1;
+  if (cell_bits == 16 && view == 7 && threads_per_lane == 4) return mg_rollout::launch_cells16_t4;
+  return nullptr;
 }
 
 // The launch check (replaces the TPU capability probe
@@ -168,15 +106,22 @@ int mg_probe_launch(const void* in, void* out, int n, void* stream) {
 
 // Launch the rollout on `stream` with family hook `hook` (an id of
 // step_device.cuh, kHookNone to kHookDynamicObstacles) and `n_obst`
-// DynamicObstacles obstacles (0 for any other hook); a non-null `ctl_in`
-// runs the chunked-regen commit protocol and writes `ctl_out`. Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for an unknown hook).
+// DynamicObstacles obstacles (0 for any other hook), under the plan
+// (`lane_block` lanes a block, `threads_per_lane`, `cell_bits` 16 or 32,
+// `smem` bytes of shared memory: ops/fused_rollout.py::rollout_plan); a
+// non-null `ctl_in` runs the chunked-regen commit protocol and writes
+// `ctl_out`; a word that does not fit a 16-bit cell traps the launch.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for an
+// unknown hook or plan).
 int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmpl_words,
                       const void* tmpl_regs, const void* actions, const void* tables,
                       const void* ctl_in, void* words_out, void* regs_out, void* rsum_out,
-                      void* counts_out, void* ctl_out, int B, int T, int width, int height,
-                      int view, int max_steps, int see_through_walls, int num_regs, int hook,
-                      int n_obst, int lane_block, void* stream) {
+                      void* counts_out, void* ctl_out, int B, int T, int width,
+                      int height, int view, int max_steps, int see_through_walls, int num_regs,
+                      int hook, int n_obst, int lane_block, int threads_per_lane, int cell_bits,
+                      int smem, void* stream) {
+  const LaunchFn fn = variant_for(threads_per_lane, cell_bits, view);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.words_in = static_cast<const int32_t*>(words_in);
   p.regs_in = static_cast<const int32_t*>(regs_in);
@@ -199,25 +144,21 @@ int mg_rollout_launch(const void* words_in, const void* regs_in, const void* tmp
   p.see_through_walls = see_through_walls;
   p.num_regs = num_regs;
   p.n_obst = n_obst;
+  return fn(p, hook, ctl_in != nullptr, lane_block, smem, static_cast<cudaStream_t>(stream), nullptr);
+}
 
-  const size_t smem =
-      ((static_cast<size_t>(width) * height + 4 * n_obst) * lane_block + 4 + 4 * view * view) *
-      sizeof(int32_t);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ctl = ctl_in != nullptr;
-  switch (hook) {
-    case kHookNone: return launch<kHookNone>(p, ctl, lane_block, smem, st);
-    case kHookPickupTarget: return launch<kHookPickupTarget>(p, ctl, lane_block, smem, st);
-    case kHookFetch: return launch<kHookFetch>(p, ctl, lane_block, smem, st);
-    case kHookGoToDoor: return launch<kHookGoToDoor>(p, ctl, lane_block, smem, st);
-    case kHookGoToObject: return launch<kHookGoToObject>(p, ctl, lane_block, smem, st);
-    case kHookPutNear: return launch<kHookPutNear>(p, ctl, lane_block, smem, st);
-    case kHookRedBlueDoors: return launch<kHookRedBlueDoors>(p, ctl, lane_block, smem, st);
-    case kHookMemory: return launch<kHookMemory>(p, ctl, lane_block, smem, st);
-    case kHookUnlock: return launch<kHookUnlock>(p, ctl, lane_block, smem, st);
-    case kHookDynamicObstacles: return launch<kHookDynamicObstacles>(p, ctl, lane_block, smem, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Blocks of the plan's kernel (`lane_block` lanes, `threads_per_lane`,
+// `cell_bits`, at `view`, `smem` bytes) that one SM holds at once,
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative value is
+// the negated cudaError_t.
+int mg_rollout_occupancy(int hook, int ctl, int view, int lane_block, int threads_per_lane, int cell_bits,
+                         int smem) {
+  const LaunchFn fn = variant_for(threads_per_lane, cell_bits, view);
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  int blocks = 0;
+  const int err = fn(p, hook, ctl != 0, lane_block, smem, nullptr, &blocks);
+  return err != 0 ? -err : blocks;
 }
 
 const char* mg_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -71,6 +71,25 @@ struct Lane {
 
 __device__ __forceinline__ int wrap_row(int p, int hw) { return p >= hw ? p - hw : p; }
 
+// A lane's grid column in shared memory as int32 words, row r at g[r * bt]
+// (the policy kernel's layout, and the rollout kernel's generic one). The
+// step reads and writes the grid only through these members; the rollout
+// kernel's 16-bit cells (rollout_kernel.cuh::Grid16) have the same ones.
+struct GridI32 {
+  int32_t* g;
+  int bt;
+  __device__ __forceinline__ int load(int r) const { return g[r * bt]; }
+  __device__ __forceinline__ void store(int r, int w) { g[r * bt] = w; }
+  // The physical row of the agent's cell (x, y) as loaded: the words are
+  // kept as they come, centred on the agent.
+  __device__ __forceinline__ int agent_row(int, int, const StepShape&) const { return 0; }
+  // The rows of a template reset that this thread writes: all of them.
+  __device__ __forceinline__ int first_row() const { return 0; }
+  __device__ __forceinline__ int row_step() const { return 1; }
+  // Between the step's reads and its first write (one thread a lane: none).
+  __device__ __forceinline__ void sync() const {}
+};
+
 // Type + colour + state of a packed cell word: what the checksum counts.
 __device__ __forceinline__ int tcs(int w) { return (w & 15) + ((w >> 4) & 15) + ((w >> 8) & 15); }
 
@@ -107,14 +126,12 @@ __device__ __forceinline__ void load_obstacles(const int32_t* regs, size_t B, in
   for (int r = 0; r < 2 * sh.n_obst; ++r) s.ob[r * bt] = regs[(kNumScalars + r) * B + lane];
 }
 
-// Load lane `lane`'s grid column (g) and scalars from the (HW, B) words and
-// (num_regs, B) registers. Under the DynamicObstacles hook `s.ob` must
-// point at the lane's obstacle column already.
+// Load lane `lane`'s scalars, aux rows and (under the DynamicObstacles hook,
+// into the lane's obstacle column `s.ob`) obstacles from the (num_regs, B)
+// registers.
 template <int kHook>
-__device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* words,
-                                          const int32_t* regs, size_t B, int lane,
-                                          const StepShape& sh, Lane& s) {
-  for (int r = 0; r < sh.hw; ++r) g[r * bt] = words[r * B + lane];
+__device__ __forceinline__ void load_regs(const int32_t* regs, size_t B, int lane, int bt, const StepShape& sh,
+                                          Lane& s) {
   s.x = regs[0 * B + lane];
   s.y = regs[1 * B + lane];
   s.d = regs[2 * B + lane];
@@ -131,6 +148,17 @@ __device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* wor
     s.aux3 = regs[(kNumScalars + 3) * B + lane];
   }
   if constexpr (kHook == kHookDynamicObstacles) load_obstacles(regs, B, lane, bt, sh, s);
+}
+
+// Load lane `lane`'s grid column (g) and scalars from the (HW, B) words and
+// (num_regs, B) registers. Under the DynamicObstacles hook `s.ob` must
+// point at the lane's obstacle column already.
+template <int kHook>
+__device__ __forceinline__ void load_lane(int32_t* g, int bt, const int32_t* words,
+                                          const int32_t* regs, size_t B, int lane,
+                                          const StepShape& sh, Lane& s) {
+  for (int r = 0; r < sh.hw; ++r) g[r * bt] = words[r * B + lane];
+  load_regs<kHook>(regs, B, lane, bt, sh, s);
 }
 
 // int32 arithmetic that wraps as the reference's does (aux rows may hold
@@ -220,13 +248,14 @@ __device__ __forceinline__ int obstacle_walk(const Lane& s, const StepShape& sh,
 // The walk's writes, once the step commits, in the reference's order: each
 // obstacle empties its old cell and fills its new one; the new cells become
 // the committed ones.
-__device__ __forceinline__ void commit_walk(int32_t* g, int bt, const StepShape& sh, Lane& s) {
+template <class Grid>
+__device__ __forceinline__ void commit_walk(Grid& grid, int bt, const StepShape& sh, Lane& s) {
   const int n = sh.n_obst;
   for (int i = 0; i < n; ++i) {
     const int nx = s.ob[(2 * n + 2 * i) * bt];
     const int ny = s.ob[(2 * n + 2 * i + 1) * bt];
-    g[abs_row(s, sh, s.ob[2 * i * bt], s.ob[(2 * i + 1) * bt]) * bt] = kEmptyWord;
-    g[abs_row(s, sh, nx, ny) * bt] = kBallWord;
+    grid.store(abs_row(s, sh, s.ob[2 * i * bt], s.ob[(2 * i + 1) * bt]), kEmptyWord);
+    grid.store(abs_row(s, sh, nx, ny), kBallWord);
     s.ob[2 * i * bt] = nx;
     s.ob[(2 * i + 1) * bt] = ny;
   }
@@ -239,12 +268,16 @@ struct Ctl {
   int consumed, steps_done, frozen;
 };
 
-// One transition under action `a`, the family hooks `kHook` (the action
+// One transition under action `a` on the lane's grid `grid` (GridI32, or
+// the rollout kernel's Grid16), the family hooks `kHook` (the action
 // remap and the pre-hook before the base transition, the post-hook after
-// it, which sees the original action), then template auto-reset. `tab`
-// holds off_fwd (4 entries) then off_view (4 * V * V). Sets `reward` and
-// `done` (terminated or truncated, so the lane was reset) and returns true
-// if the step was committed.
+// it, which sees the original action), then template auto-reset; `bt` is
+// the stride of the lane's obstacle rows. `tab` holds off_fwd (4 entries)
+// then off_view (4 * V * V). Sets `reward` and `done` (terminated or
+// truncated, so the lane was reset) and returns true if the step was
+// committed. Every thread that runs a lane runs this step alike; the
+// grid's writes come after `grid.sync()`, and a reset's rows are split
+// over the lane's threads (`first_row`, `row_step`).
 //
 // With kCtl the step runs under the commit protocol: it is skipped once
 // the lane has committed `chunk_len` steps or is frozen, and a step that
@@ -253,18 +286,18 @@ struct Ctl {
 // grid is written: nothing of a step that is not committed is left behind,
 // and it adds 0 to reward, episodes and checksum. The pre-hook's walk is
 // computed first and written only on commit, so it too leaves no trace.
-template <int kHook, bool kCtl>
-__device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* tab,
-                                             const int32_t* tmpl_words, const int32_t* tmpl_regs,
-                                             size_t B, int lane, const StepShape& sh, int a,
-                                             int chunk_len, Lane& s, Ctl& ctl, float& reward,
-                                             bool& done) {
+template <int kHook, bool kCtl, class Grid>
+__device__ __forceinline__ bool step_lane_grid(Grid& grid, int bt, const int32_t* tab,
+                                               const int32_t* tmpl_words, const int32_t* tmpl_regs,
+                                               size_t B, int lane, const StepShape& sh, int a,
+                                               int chunk_len, Lane& s, Ctl& ctl, float& reward,
+                                               bool& done) {
   reward = 0.0f;
   done = false;
   if (kCtl && (ctl.steps_done >= chunk_len || ctl.frozen != 0)) return false;
   const int hw = sh.hw;
   const int fp = wrap_row(s.shift + tab[s.d], hw);  // forward cell, physical row
-  int fw = g[fp * bt];
+  int fw = grid.load(fp);
   bool not_clear = false;  // the forward cell before the walk is blocked
   if constexpr (kHook == kHookDynamicObstacles) {
     not_clear = (fw & 15) != kEmpty && (fw & 15) != kGoal;
@@ -363,8 +396,8 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     // cell, else its stored word.
     const int red_row = abs_row(s, sh, s.aux0, s.aux1);
     const int blue_row = abs_row(s, sh, s.aux2, s.aux3);
-    const int red_w = g[red_row * bt];
-    const int blue_w = g[blue_row * bt];
+    const int red_w = grid.load(red_row);
+    const int blue_w = grid.load(blue_row);
     const bool red_before = door_open(red_w);
     const bool blue_before = door_open(blue_w);
     const bool red_after = door_open(red_row == fp ? static_cast<int>(new_fwd) : red_w);
@@ -391,7 +424,7 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     // is read after this step's forward-cell write, which has not
     // happened yet.
     const int row = abs_row(s, sh, s.aux0, s.aux1);
-    if (a_orig == 5 && door_open(row == fp ? static_cast<int>(new_fwd) : g[row * bt])) {
+    if (a_orig == 5 && door_open(row == fp ? static_cast<int>(new_fwd) : grid.load(row))) {
       r = success;
       terminated = true;
     }
@@ -415,14 +448,18 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     if (d) ctl.consumed = 1;
   }
 
-  if constexpr (kHook == kHookDynamicObstacles) commit_walk(g, bt, sh, s);
-  g[fp * bt] = static_cast<int32_t>(new_fwd);
-  if (moves) s.shift = fp;  // re-centre: the forward cell becomes row 0
+  // A reset overwrites every row and the obstacles, so the step's own
+  // writes (the walk, the forward cell) are made only when there is none:
+  // no row is written twice in one step.
+  grid.sync();
   if (d) {
-    for (int row = 0; row < hw; ++row) g[row * bt] = tmpl_words[row * B + lane];
-    s.shift = 0;
     s.x = tmpl_regs[0 * B + lane];
     s.y = tmpl_regs[1 * B + lane];
+    // The template's words are centred on its agent; the grid puts row 0 at
+    // the physical row it keeps for the agent (GridI32: row 0).
+    s.shift = grid.agent_row(s.x, s.y, sh);
+    for (int row = grid.first_row(); row < hw; row += grid.row_step())
+      grid.store(wrap_row(row + s.shift, hw), tmpl_words[row * B + lane]);
     s.d = tmpl_regs[2 * B + lane];
     s.ct = tmpl_regs[3 * B + lane];
     s.cc = tmpl_regs[4 * B + lane];
@@ -437,6 +474,9 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
     }
     if constexpr (kHook == kHookDynamicObstacles) load_obstacles(tmpl_regs, B, lane, bt, sh, s);
   } else {
+    if constexpr (kHook == kHookDynamicObstacles) commit_walk(grid, bt, sh, s);
+    grid.store(fp, static_cast<int32_t>(new_fwd));
+    if (moves) s.shift = fp;  // re-centre: the forward cell becomes row 0
     s.x = moves ? s.x + dirx : s.x;
     s.y = moves ? s.y + diry : s.y;
     s.d = d1;
@@ -449,6 +489,18 @@ __device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* 
   reward = r;
   done = d;
   return true;
+}
+
+// step_lane_grid on a GridI32 column (g, stride bt).
+template <int kHook, bool kCtl>
+__device__ __forceinline__ bool step_lane_ex(int32_t* g, int bt, const int32_t* tab,
+                                             const int32_t* tmpl_words, const int32_t* tmpl_regs,
+                                             size_t B, int lane, const StepShape& sh, int a,
+                                             int chunk_len, Lane& s, Ctl& ctl, float& reward,
+                                             bool& done) {
+  GridI32 grid{g, bt};
+  return step_lane_grid<kHook, kCtl>(grid, bt, tab, tmpl_words, tmpl_regs, B, lane, sh, a, chunk_len, s, ctl,
+                                     reward, done);
 }
 
 // The lane's egocentric view: calls visit(kv, word) with kv = j * V + i for
@@ -508,22 +560,29 @@ __device__ __forceinline__ void read_view(const int32_t* g, int bt, const int32_
   }
 }
 
-// Store the lane's grid (undoing the row offset) and registers. The aux,
-// mission and rng rows change only on reset, to the template's, except the
+// Store the lane's registers. The aux, mission and rng rows change only on reset, to the template's, except the
 // DynamicObstacles obstacle rows, which the walk moves: those are stored
 // from the lane's obstacle column.
 template <int kHook>
-__device__ __forceinline__ void store_lane(const int32_t* g, int bt, int32_t* words_out,
-                                           int32_t* regs_out, const int32_t* regs_in,
-                                           const int32_t* tmpl_regs, bool reset_any, size_t B,
-                                           int lane, const StepShape& sh, int num_regs, const Lane& s) {
-  for (int r = 0; r < sh.hw; ++r) words_out[r * B + lane] = g[wrap_row(r + s.shift, sh.hw) * bt];
+__device__ __forceinline__ void store_regs(int bt, int32_t* regs_out, const int32_t* regs_in,
+                                           const int32_t* tmpl_regs, bool reset_any, size_t B, int lane,
+                                           const StepShape& sh, int num_regs, const Lane& s) {
   const int scalars[kNumScalars] = {s.x, s.y, s.d, s.ct, s.cc, s.cct, s.ccc, s.sc};
   for (int r = 0; r < kNumScalars; ++r) regs_out[r * B + lane] = scalars[r];
   const int32_t* tail = reset_any ? tmpl_regs : regs_in;
   const int live = kHook == kHookDynamicObstacles ? 2 * sh.n_obst : 0;
   for (int r = 0; r < live; ++r) regs_out[(kNumScalars + r) * B + lane] = s.ob[r * bt];
   for (int r = kNumScalars + live; r < num_regs; ++r) regs_out[r * B + lane] = tail[r * B + lane];
+}
+
+// Store the lane's grid (undoing the row offset) and registers.
+template <int kHook>
+__device__ __forceinline__ void store_lane(const int32_t* g, int bt, int32_t* words_out,
+                                           int32_t* regs_out, const int32_t* regs_in,
+                                           const int32_t* tmpl_regs, bool reset_any, size_t B,
+                                           int lane, const StepShape& sh, int num_regs, const Lane& s) {
+  for (int r = 0; r < sh.hw; ++r) words_out[r * B + lane] = g[wrap_row(r + s.shift, sh.hw) * bt];
+  store_regs<kHook>(bt, regs_out, regs_in, tmpl_regs, reset_any, B, lane, sh, num_regs, s);
 }
 
 }  // namespace

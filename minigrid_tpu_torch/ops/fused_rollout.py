@@ -384,7 +384,39 @@ def plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config: EnvConfig
 # --------------------------------------------------------------------------
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
+_SMEM_PER_SM = 233_472  # an SM's shared memory; each resident block also takes _SMEM_RESERVED
+_SMEM_RESERVED = 1024
 _MAX_VIEW = 31  # the flood keeps one view row in the bits of a uint32
+SM_COUNT = 132  # an H100 SXM's SMs: the plan's mirror on a machine without the card
+
+# The rollout kernel's 16-bit cells (csrc/rollout_kernel.cuh) are built for
+# this view size, and taken by the families whose every word fits them
+# (`fits_cell16`; tests/port/test_torch_rollout_plan.py checks each ported
+# family's words). Any other configuration runs the generic kernel on
+# int32 cells.
+CELL16_VIEW = 7
+CELL16_FAMILIES = frozenset({
+    "blockedunlockpickup", "distshift", "doorkey", "dynamicobstacles", "empty", "fetch", "gotodoor", "gotoobject",
+    "keycorridor", "memory", "multiroom", "putnear", "redbluedoors", "unlock", "unlockpickup",
+})
+# Threads a lane of the 16-bit kernel, and the warps an SM one thread a
+# lane must reach for the plan to take it (it does the least work) over
+# four threads a lane. Measured (tools/b1_plan_sweep.py, PERF.md §6): four
+# threads a lane won only where one held under 4 warps an SM
+# (MultiRoom-N4-S5, 25x25, B = 32,768), and lost by a third at 7.8
+# (KeyCorridorS6R3, B = 32,768).
+THREADS_PER_LANE = (1, 4)
+ENOUGH_WARPS = 6
+_MIRROR_REGISTERS = 80  # registers a thread, for the plan's mirror: the 16-bit kernel's cap
+# Lanes a block by (cell bits, threads a lane). With one thread a lane the
+# 16-bit cells interleave the columns of two warps (whole 64-lane pairs).
+# The blocks stay within the kernels' launch bounds: 128 threads, 256 with
+# four threads a lane (csrc/rollout_kernel.cuh::kCells16MaxThreads).
+LANE_BLOCKS = {(16, 1): (128, 64), (16, 4): (64, 32), (32, 1): (128, 64, 32)}
+
+# The plan of the last launch of the rollout kernel in this process (for
+# the chip run's report).
+last_rollout_plan = None
 
 
 def obstacle_rows(config: EnvConfig) -> int:
@@ -394,23 +426,124 @@ def obstacle_rows(config: EnvConfig) -> int:
     return 4 * (config.n_obstacles or 0)
 
 
-def kernel_lane_block(config: EnvConfig) -> int:
-    """Lanes per CUDA block: the largest of 128, 64, 32 whose `[HW][bt]`
-    int32 grid (plus the obstacle rows and the offset tables) fits one
-    block's shared memory. Raises on a configuration the kernel does not
-    take."""
-    rows = config.width * config.height + obstacle_rows(config)
+def _check_view(config: EnvConfig) -> None:
     v = config.agent_view_size
     if v < 3 or v % 2 == 0 or v > _MAX_VIEW:
         raise ValueError(f"rollout kernel: view size {v} must be odd and in [3, {_MAX_VIEW}]")
-    tables = (4 + 4 * v * v) * 4
+
+
+def kernel_lane_block(config: EnvConfig) -> int:
+    """The most lanes a block of the generic (int32-cell) rollout kernel
+    takes: the largest of 128, 64, 32 whose `[HW][bt]` int32 grid (plus the
+    obstacle rows and the offset tables) fits one block's shared memory.
+    Raises on a configuration the kernel does not take."""
+    _check_view(config)
     for bt in (128, 64, 32):
-        if rows * bt * 4 + tables <= _SMEM_LIMIT:
+        if rollout_smem_bytes(config, bt, 1, 32) <= _SMEM_LIMIT:
             return bt
     raise ValueError(
         f"rollout kernel: a {config.width}x{config.height} grid needs "
-        f"{rows * 32 * 4 + tables} B of shared memory for 32 lanes; the limit is {_SMEM_LIMIT}"
+        f"{rollout_smem_bytes(config, 32, 1, 32)} B of shared memory for 32 lanes; the limit is {_SMEM_LIMIT}"
     )
+
+
+def rollout_cell_bits(config: EnvConfig) -> int:
+    """The rollout kernel's cell width for `config`: 16 at view 7 for the
+    families in `CELL16_FAMILIES`, else 32."""
+    return 16 if config.agent_view_size == CELL16_VIEW and config.family in CELL16_FAMILIES else 32
+
+
+def rollout_smem_bytes(config: EnvConfig, lanes: int, threads_per_lane: int, cell_bits: int) -> int:
+    """Shared memory of a rollout-kernel block of `lanes` lanes, as
+    `csrc/rollout_kernel.cuh` carves it: the offset tables `4 + 4·V²` int32,
+    the obstacle rows `[4n][lanes]` int32, then the cells: `[HW][lanes]`
+    int32, or `[HW][stride]` 16-bit with `stride = lanes` (one thread a
+    lane) or `lanes + 2` (several), rounded up to 4 bytes."""
+    v = config.agent_view_size
+    hw = config.width * config.height
+    fixed = 4 * (4 + 4 * v * v) + 4 * obstacle_rows(config) * lanes
+    if cell_bits == 32:
+        return fixed + 4 * hw * lanes
+    stride = lanes if threads_per_lane == 1 else lanes + 2
+    return fixed + -(-2 * hw * stride // 4) * 4
+
+
+def mirror_blocks_per_sm(threads: int, smem: int, registers: int = _MIRROR_REGISTERS) -> int:
+    """Blocks of `threads` threads and `smem` bytes one SM of an H100 holds,
+    as `cudaOccupancyMaxActiveBlocksPerMultiprocessor` counts them (2,048
+    threads, 32 blocks, 65,536 registers in 256-register units a warp, 228
+    KB of shared memory with 1 KB reserved a block), at `registers` a
+    thread."""
+    warps = -(-threads // 32)
+    regs_per_warp = -(-registers * 32 // 256) * 256
+    return min(2048 // threads, 32, 65536 // (regs_per_warp * warps), _SMEM_PER_SM // (smem + _SMEM_RESERVED))
+
+
+class RolloutPlan(NamedTuple):
+    """A launch plan of the rollout kernel: lanes a block, threads a lane,
+    cell bits, shared memory a block, blocks an SM holds, and the warps an
+    SM runs on average over the launch's waves."""
+
+    lanes: int
+    threads_per_lane: int
+    cell_bits: int
+    smem: int
+    blocks_per_sm: int
+    warps_per_sm: float
+
+
+def rollout_plan(config: EnvConfig, b: int, blocks_per_sm=None, sms: int = SM_COUNT) -> RolloutPlan:
+    """The rollout kernel's plan for `b` lanes of `config`: of the threads a
+    lane that the cell width allows and their lane blocks (`LANE_BLOCKS`, at
+    most `_SMEM_LIMIT` bytes a block), the plan with the most warps an SM
+    runs on average over the launch's waves (`ceil(blocks / (blocks an SM
+    holds * sms))`); one thread a lane wherever that reaches `ENOUGH_WARPS`
+    (it does the least work), ties to fewer threads a lane and larger
+    blocks. `blocks_per_sm(lanes, threads_per_lane, cell_bits, smem)` is the
+    card's occupancy (the wrapper's), by default `mirror_blocks_per_sm`.
+    Raises where no block fits."""
+    _check_view(config)
+    cell_bits = rollout_cell_bits(config)
+    if blocks_per_sm is None:
+        def blocks_per_sm(lanes, tpl, _bits, smem):
+            return mirror_blocks_per_sm(lanes * tpl, smem)
+    plans = []
+    for tpl in THREADS_PER_LANE if cell_bits == 16 else (1,):
+        for lanes in LANE_BLOCKS[cell_bits, tpl]:
+            smem = rollout_smem_bytes(config, lanes, tpl, cell_bits)
+            if smem > _SMEM_LIMIT:
+                continue
+            held = blocks_per_sm(lanes, tpl, cell_bits, smem)
+            if held <= 0:
+                continue
+            blocks = -(-b // lanes)
+            warps = blocks * lanes * tpl / 32 / (sms * -(-blocks // (held * sms)))
+            plans.append(RolloutPlan(lanes, tpl, cell_bits, smem, held, warps))
+    if not plans:
+        raise ValueError(
+            f"rollout kernel: a {config.width}x{config.height} grid needs "
+            f"{rollout_smem_bytes(config, 32, 1, cell_bits)} B of shared memory for 32 lanes; the limit is "
+            f"{_SMEM_LIMIT}"
+        )
+    one = [p for p in plans if p.threads_per_lane == 1]
+    if one and max(p.warps_per_sm for p in one) >= ENOUGH_WARPS:
+        plans = one
+    return max(plans, key=lambda p: (p.warps_per_sm, -p.threads_per_lane, p.lanes))
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(lib, device: torch.device, config: EnvConfig, hook_id: int, ctl: bool, b: int) -> RolloutPlan:
+    """`rollout_plan` with the card's occupancy (`mg_rollout_occupancy`)
+    and SM count, once per shape."""
+
+    def held(lanes, tpl, bits, smem):
+        n = lib.mg_rollout_occupancy(hook_id, int(ctl), config.agent_view_size, lanes, tpl, bits, smem)
+        if n < 0:
+            raise RuntimeError(f"rollout kernel occupancy failed: CUDA error {-n} "
+                               f"({lib.mg_error_string(-n).decode()})")
+        return n
+
+    return rollout_plan(config, b, held, torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 @functools.lru_cache(maxsize=None)
@@ -438,8 +571,11 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
     `plain_rollout`.
 
     CPU tensors run `plain_rollout`; CUDA tensors launch the kernel on the
-    current stream, and any other device, a transition whose hook the
-    kernel lacks, a failed build or a failed launch raises."""
+    current stream under `rollout_plan`, and any other device, a
+    transition whose hook the kernel lacks, a failed build or a failed
+    launch raises. On 16-bit cells a word that does not fit them (colour
+    or contained colour 8 or more, state 4 or more, bits above 19) traps
+    the launch: the caller's next synchronization raises."""
     if words.device.type == "cpu":
         return plain_rollout(words, regs, tmpl_words, tmpl_regs, actions, config, transition, ctl)
     from minigrid_tpu_torch.ops import _build
@@ -463,9 +599,9 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
             raise ValueError(f"rollout kernel: {name} is on {x.device}, words on {words.device}")
     if b == 0 or t == 0:
         raise ValueError(f"rollout kernel: empty batch or step count ({b}, {t})")
-    bt = kernel_lane_block(config)
     dev = words.device
     lib = _build.load_library(dev)
+    plan = _card_plan(lib, dev, config, hook_id, ctl is not None, b)
 
     words_out = torch.empty_like(words)
     regs_out = torch.empty_like(regs)
@@ -484,14 +620,16 @@ def run_rollout_kernel(words, regs, tmpl_words, tmpl_regs, actions, config: EnvC
                        words_out, regs_out, rsum, counts, ctl_out)),
             b, t, config.width, config.height, config.agent_view_size,
             config.max_steps, int(config.see_through_walls), NUM_REGS, hook_id,
-            config.n_obstacles or 0, bt, ctypes.c_void_p(stream),
+            config.n_obstacles or 0, plan.lanes, plan.threads_per_lane, plan.cell_bits, plan.smem,
+            ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
             f"rollout kernel launch failed: CUDA error {err} "
             f"({lib.mg_error_string(err).decode()})"
         )
-    global rollout_kernel_launches
+    global rollout_kernel_launches, last_rollout_plan
+    last_rollout_plan = plan
     rollout_kernel_launches += 1
     if ctl is not None:
         return words_out, regs_out, rsum, counts[0:1], counts[1:2], ctl_out

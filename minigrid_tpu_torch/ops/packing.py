@@ -28,6 +28,26 @@ NUM_REGS = R_RNG + 2  # 42
 WALL_WORD = C.WALL | (C.GREY << 4)  # out-of-bounds view cells read as grey walls
 EMPTY_WORD = C.EMPTY
 
+# The rollout kernel's 16-bit cells (csrc/rollout_kernel.cuh), the plain
+# codec: a word keeps type (4 bits), colour (3), state (2), contained type
+# (4) and contained colour (3); it fits where no other bit is set.
+CELL16_BITS = 0x7F37F
+
+
+def fits_cell16(words: torch.Tensor) -> torch.Tensor:
+    """True where a packed word fits a 16-bit cell."""
+    return (words & ~CELL16_BITS) == 0
+
+
+def pack_cell16(words: torch.Tensor) -> torch.Tensor:
+    """Packed words (that fit) -> their 16-bit cells, as int32."""
+    return (words & 0x7F) | ((words >> 1) & 0x180) | ((words >> 3) & 0xFE00)
+
+
+def unpack_cell16(cells: torch.Tensor) -> torch.Tensor:
+    """16-bit cells (int32) -> the packed words."""
+    return (cells & 0x7F) | ((cells & 0x180) << 1) | ((cells & 0xFE00) << 3)
+
 
 def pack_states(states: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched `EnvState` -> (`(H·W, B)` grid words, `(NUM_REGS, B)` regs)."""

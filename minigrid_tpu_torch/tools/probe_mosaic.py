@@ -6,9 +6,10 @@ actor's forward on one-hot features, a relu-masked cotangent in nine
 formulations, and an f32 `(256, 256)` accumulator `acc = Σ dh·h1ᵀ` over
 two 512-lane blocks. On the TPU it bisected a compiler crash, one
 subprocess per variant. That crash is the TPU compiler's, so here every
-variant runs in one process, in one CUDA kernel templated on the variant
-(`ops/csrc/probe_mosaic.cu`), beside its plain version `plain_probe`; the
-probe checks G2's masked product instead:
+variant runs in one process, in CUDA kernels templated on the variant
+(`ops/csrc/probe_mosaic.cu`: the forward once per lane, then the product,
+both on `wgmma`), beside its plain version `plain_probe`; the probe checks
+G2's masked product instead:
 
   * the variants whose formula is the same (`SAME_FORMULA`: they all mask
     the bf16 `h2p` at `> 0` and cast `g` to bf16) agree bit for bit;
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.ops.grad_kernel import _feats
-from minigrid_tpu_torch.ops.policy_rollout import _bf16_bias
+from minigrid_tpu_torch.ops.policy_rollout import _b_chunks, _bf16_bias
 
 F = 980  # feature rows (V²·20 at V = 7)
 H = 256
@@ -185,12 +186,22 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"probe kernel: {name} is on {t.device}, obs on {device}")
 
 
+def probe_weight_chunks(wt1, wt2) -> tuple:
+    """`wt1` `(256, 980)` and `wt2` `(256, 256)` as the probe kernel's
+    weight ring streams them (`_b_chunks`: W1ᵀ's K chunks outer, both N
+    halves of a chunk together; W2ᵀ one N half at a time), on their
+    device."""
+    return _b_chunks(wt1, True), _b_chunks(wt2, False)
+
+
 def run_probe_kernel(variant: str, obs, g, wt1, b1, wt2, b2) -> torch.Tensor:
     """The probe kernel's wrapper: same arguments and result as
     `plain_probe`, at the probe's shapes (obs `(2, 49, 512)` int32, g
     `(256, 512)` f32, wt1 `(256, 980)`, b1 `(256, 1)`, wt2 `(256, 256)`,
     b2 `(256, 1)` bf16). CPU tensors run `plain_probe`; CUDA tensors
-    launch the kernel on the current stream, and anything else raises."""
+    launch the kernels on the current stream (the forward, then the
+    product), and anything else raises. The weights' chunk layout
+    (`probe_weight_chunks`) is made on the card in every call."""
     if obs.device.type == "cpu":
         return plain_probe(variant, obs, g, wt1, b1, wt2, b2)
     if obs.device.type != "cuda":
@@ -206,11 +217,15 @@ def run_probe_kernel(variant: str, obs, g, wt1, b1, wt2, b2) -> torch.Tensor:
     from minigrid_tpu_torch.ops import _build
 
     lib = _build.load_library(dev)
+    w1s, w2s = probe_weight_chunks(wt1, wt2)
+    h1 = torch.empty((H, STEPS * BT), dtype=torch.bfloat16, device=dev)
+    dh = torch.empty((H, STEPS * BT), dtype=torch.float32 if variant == "f32_dot" else torch.bfloat16, device=dev)
     out = torch.empty((H, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mg_mosaic_probe_launch(
-            *(ctypes.c_void_p(x.data_ptr()) for x in (obs, g, wt1, b1, wt2, b2, out)), vid, ctypes.c_void_p(stream)
+            *(ctypes.c_void_p(x.data_ptr()) for x in (obs, g, w1s, b1, w2s, b2, h1, dh, out)), vid,
+            ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"probe kernel launch failed: CUDA error {err} ({lib.mg_error_string(err).decode()})")
@@ -240,12 +255,40 @@ def _time_ms(fn, reps: int) -> tuple:
     return start.elapsed_time(end) / reps, out
 
 
+def device_ms(variant: str, args: tuple, reps: int) -> tuple:
+    """Device time per call of `run_probe_kernel(variant, *args)` over
+    `reps` calls under `torch.profiler`: (the probe's own kernels, the
+    forward and the product; every kernel of the call, the weights' chunk
+    layout included), or (None, None) where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run_probe_kernel(variant, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run_probe_kernel(variant, *args)
+        torch.cuda.synchronize()
+    probe_us = call_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        call_us += us
+        if "probe_" in e.key:
+            probe_us += us
+    if not probe_us:
+        return None, None
+    return probe_us / reps / 1e3, call_us / reps / 1e3
+
+
 def table(device="cuda", seed: int = 0, reps: int = 20) -> dict:
     """Every variant on the card, under dyadic inputs and under the probe's
     normal draws: the kernel against `plain_probe` (bit for bit under
     dyadic inputs; under normal draws the largest difference over the
     largest `|acc|`), two kernel runs bit for bit, the kernel's and the
     plain version's time (CUDA events, mean of `reps` after a warm-up),
+    the kernels' and the whole call's device time (`device_ms`),
     the agreement of `SAME_FORMULA` and each other variant's deviation
     from `base_where`. That deviation's bound on the card is
     `deviation_bound` (between the plain results) plus twice
@@ -263,8 +306,9 @@ def table(device="cuda", seed: int = 0, reps: int = 20) -> dict:
         again = run_probe_kernel(v, *normal)
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
+        kernels_ms, call_ms = device_ms(v, normal, reps)
         rows[v] = {
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "device_ms": kernels_ms, "call_device_ms": call_ms,
             "dyadic_equal": bool(torch.equal(exact, exact_plain)),
             "max_abs_err": err, "rel_err": err / float(want.abs().max()),
             "repeat_bitwise": bool(torch.equal(out.view(torch.int32), again.view(torch.int32))),
@@ -282,7 +326,9 @@ def table(device="cuda", seed: int = 0, reps: int = 20) -> dict:
             rows[v]["deviation_from_base_where"] = float(dev_v.max())
             rows[v]["deviation_over_bound"] = float((dev_v / torch.clamp(bnd, min=1e-30)).max())
     for v, r in rows.items():
-        print(f"{v:20s} kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms; dyadic equal {r['dyadic_equal']}; "
+        print(f"{v:20s} kernel {r['ms']:.6f} ms through its wrapper (device time: its kernels {r['device_ms']} ms, "
+              f"the whole call {r['call_device_ms']} ms), plain {r['plain_ms']:.6f} ms; "
+              f"dyadic equal {r['dyadic_equal']}; "
               f"normal max err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}); repeat bitwise "
               f"{r['repeat_bitwise']}; " + (f"same as base_where {r['same_as_base_where']}" if v in SAME_FORMULA
                                             else f"deviation from base_where {r['deviation_from_base_where']:.6e} "

@@ -18,7 +18,7 @@ from minigrid_tpu_torch.core.prng import key
 from minigrid_tpu_torch.core.state import EnvConfig
 from minigrid_tpu_torch.ops import _build
 from minigrid_tpu_torch.ops import fused_rollout as tfr
-from minigrid_tpu_torch.testing import random_packed_case
+from minigrid_tpu_torch.testing import hooked_packed_case, random_packed_case
 
 OPERANDS = ("words", "regs", "tmpl_words", "tmpl_regs")
 
@@ -138,3 +138,103 @@ def test_cuda_probe_kernel_matches_plain_and_runs_once_per_device():
     y = _build.probe(x)
     assert _build.probe_launches == before + 1
     assert torch.equal(y, x + 1)
+
+
+# The rollout kernel's plans, forced: one and four threads a lane on
+# 16-bit cells, and the generic kernel on int32 cells.
+PLANS = {
+    "cells16_t1": dict(THREADS_PER_LANE=(1,)),
+    "cells16_t4": dict(THREADS_PER_LANE=(4,)),
+    "generic_int32": dict(CELL16_FAMILIES=frozenset()),
+}
+# Transition -> (an id of its family at 8x8 or the nearest, at 16x16).
+PLAN_CASES = {
+    "base": ("MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0"),
+    "pickup_target": ("MiniGrid-KeyCorridorS3R1-v0", "MiniGrid-KeyCorridorS6R3-v0"),
+    "fetch": ("MiniGrid-Fetch-8x8-N3-v0",) * 2,
+    "gotodoor": ("MiniGrid-GoToDoor-8x8-v0",) * 2,
+    "gotoobject": ("MiniGrid-GoToObject-8x8-N2-v0",) * 2,
+    "putnear": ("MiniGrid-PutNear-8x8-N3-v0",) * 2,
+    "redbluedoors": ("MiniGrid-RedBlueDoors-8x8-v0",) * 2,
+    "memory": ("MiniGrid-MemoryS7-v0",) * 2,
+    "unlock": ("MiniGrid-Unlock-v0",) * 2,
+    "dynamicobstacles": ("MiniGrid-Dynamic-Obstacles-8x8-v0", "MiniGrid-Dynamic-Obstacles-16x16-v0"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [8, 16])
+@pytest.mark.parametrize("ctl", [False, True])
+@pytest.mark.parametrize("transition", sorted(PLAN_CASES))
+@pytest.mark.parametrize("plan", sorted(PLANS))
+def test_cuda_rollout_kernel_plans_match_plain(plan, transition, ctl, size, monkeypatch):
+    """Each plan under every hook, with and without commit rows, at 8x8
+    and 16x16 on a ragged batch (2,048 + 32 lanes), byte for byte (reward
+    sums bit for bit)."""
+    dev = _cuda()
+    cfg = make(PLAN_CASES[transition][size == 16]).config
+    cfg = dataclasses.replace(cfg, width=size, height=size, max_steps=12)
+    b, t = 2048 + 32, 24
+    if transition == "base":
+        case = random_packed_case(size, size, size, b, cfg.max_steps)
+    else:
+        case = hooked_packed_case(size, transition, size, size, b, cfg.max_steps, cfg.n_obstacles or 0)
+    args = [torch.from_numpy(case[k]).to(dev) for k in OPERANDS]
+    rng = np.random.default_rng(size)
+    actions = torch.from_numpy(rng.integers(-1, 8, (t, b)).astype(np.int32)).to(dev)
+    ctl_in = None
+    if ctl:
+        rows = np.stack([rng.integers(0, 2, b), rng.integers(0, t + 1, b), rng.random(b) < 0.1]).astype(np.int32)
+        rows[:, : b // 2] = 0
+        ctl_in = torch.from_numpy(rows).to(dev)
+    for name, value in PLANS[plan].items():
+        monkeypatch.setattr(tfr, name, value)
+    tfr._card_plan.cache_clear()
+    try:
+        got = tfr.run_rollout_kernel(*args, actions, cfg, transition, ctl=ctl_in)
+        used = tfr.last_rollout_plan
+    finally:
+        tfr._card_plan.cache_clear()
+    want = tfr.plain_rollout(*args, actions, cfg, transition, ctl=ctl_in)
+    assert (used.cell_bits, used.threads_per_lane) == {"cells16_t1": (16, 1), "cells16_t4": (16, 4),
+                                                      "generic_int32": (32, 1)}[plan]
+    for name, g, w in zip(("words", "regs", "rsum", "episodes", "checksum", "ctl"), got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    assert int(want[3].sum()) > 0
+
+
+_MISFIT = """
+import sys
+import numpy as np
+import torch
+from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.ops import fused_rollout as fr
+from minigrid_tpu_torch.testing import random_packed_case
+
+cfg = EnvConfig(family="empty", width=8, height=8, max_steps=256, see_through_walls=False)
+case = random_packed_case(3, 8, 8, 256, cfg.max_steps)
+case["words"][5, 7] = 1 << 20
+args = [torch.from_numpy(case[k]).to("cuda") for k in ("words", "regs", "tmpl_words", "tmpl_regs")]
+fr.run_rollout_kernel(*args, torch.zeros((4, 256), dtype=torch.int32, device="cuda"), cfg)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.gpu
+def test_cuda_rollout_kernel_traps_on_a_word_that_does_not_fit_16_bits():
+    """A word that does not fit a 16-bit cell traps the launch, and the
+    next synchronization raises (in a process of its own: a trap leaves
+    the CUDA context unusable)."""
+    _cuda()
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    res = subprocess.run([sys.executable, "-c", _MISFIT], capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[2])
+    assert res.returncode == 0 and "raised:" in res.stdout, res.stdout + res.stderr

@@ -122,6 +122,42 @@ def test_wrapper_checks_its_operands():
         P.run_probe_kernel("base_where", *meta)
 
 
+def _sw128(row, k):
+    return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + (k & 7) * 2
+
+
+@pytest.mark.parametrize("which", ["wt1", "wt2"])
+def test_probe_weight_chunks_hold_each_weight_once(which):
+    """The probe kernel's weight layout: each weight of `wt1` and `wt2`
+    once, zeros only in W1ᵀ's padding (980 -> 992), each at the byte the
+    kernel's descriptors read: 16 KB chunks of 128 rows of one N half in
+    the 128-byte swizzle, W1ᵀ's K chunks outer and W2ᵀ's N halves outer,
+    then W1ᵀ's tail of two 16 x 256 k slabs in 8 x 8 core matrices."""
+    k = P.F if which == "wt1" else P.H
+    w = torch.arange(1, P.H * k + 1, dtype=torch.float32).reshape(P.H, k)
+    other = torch.zeros((P.H, P.H if which == "wt1" else P.F))
+    w1s, w2s = P.probe_weight_chunks(*((w, other) if which == "wt1" else (other, w)))
+    flat = w1s if which == "wt1" else w2s
+    k_outer = which == "wt1"
+    kp = -(-k // 16) * 16
+    full = kp // 64 * 64
+    nk = full // 64
+    assert flat.numel() == P.H * kp and flat.is_contiguous()
+    values = flat.sort().values
+    assert torch.equal(values[values > 0], w.reshape(-1)) and int((values == 0).sum()) == P.H * (kp - k)
+    for n in range(0, P.H, 7):
+        for kk in range(0, k, 13):
+            h, row = divmod(n, 128)
+            if kk < full:
+                kc = kk // 64
+                chunk = kc * 2 + h if k_outer else h * nk + kc
+                byte = chunk * 16384 + _sw128(row, kk % 64)
+            else:
+                s, kr = divmod(kk - full, 16)
+                byte = 2 * nk * 16384 + 8192 * s + 256 * (n // 8) + 128 * (kr // 8) + 16 * (n % 8) + 2 * (kr % 8)
+            assert flat[byte // 2] == w[n, kk], (n, kk)
+
+
 # ---------------------------------------------------------------------------
 # On a card
 # ---------------------------------------------------------------------------
