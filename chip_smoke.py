@@ -8,9 +8,9 @@ result line):
   1. The card's name and power limit (nvidia-smi), then the build of the
      CUDA kernels from the sources in this checkout, timed, and `ptxas
      -v`'s registers and spills of every instantiation of the policy
-     kernel, the gradient kernel, the rollout kernel and the Mosaic
-     probe's kernels (a spill fails). Every phase prints its wall seconds,
-     and the script its total.
+     kernel, the gradient kernel, the rollout kernel, the connect and
+     room-chain kernels and the Mosaic probe's kernels (a spill fails).
+     Every phase prints its wall seconds, and the script its total.
   2. The main path at full size: Empty-8x8, `reset_batch(key(0), 2**21)`,
      `packed_init(..., "regen")`, one warm-up and three timed
      `step(generator, carry)` calls at T=256, `packed_finish`. Every
@@ -101,9 +101,12 @@ result line):
      reset, through the kernels and through `build_packed_plain_rollout`
      (whose refresh generates with the plain connect loop); (b) the
      connect kernel on the generator's own plan for 32,768 lanes and on
-     numpy-random inputs (max_itrs 5000 and 7), timed on the plan, its
-     bound from the draws the plain version counts; (c) the chunked-regen
-     step at S3R1, S4R3 and S6R3 on planted pickup targets
+     numpy-random inputs (max_itrs 5000 and 7), timed on the plan beside
+     the kernel's previous design (`PREVIOUS_B4_MS`), with its launch
+     plan (threads a lane, lanes a block, blocks), its bound from the draws
+     the plain version counts, and the warp divergence (the mean over
+     32-lane warps of the warp's most draws, over the mean); (c) the
+     chunked-regen step at S3R1, S4R3 and S6R3 on planted pickup targets
      (`testing.plant_pickup_target`), `max_steps` as registered and cut
      to 5, chunks 4 and 8: `reset_overlaps` and successes must both occur;
      and the rollout kernel with the hook and the control rows alone, one
@@ -124,10 +127,12 @@ result line):
  11. The slice's kernels against their plain versions on the card, byte
      for byte (reward sums bit for bit): (a) the room-chain kernel on the
      generator's own retry keys and room counts for 32,768 lanes of N4-S5
-     and N6 (the chain, its count, the attempts and the key rows), timed,
-     its bound from the attempts and rows the plain version counts, and
-     the warp divergence (the mean over 32-lane warps of the warp's most
-     attempts, over the mean); (b) the whole random-policy chunked-regen
+     and N6 (the chain, its count, the attempts and the key rows), timed
+     beside the kernel's previous design (`PREVIOUS_B5_MS`), with its
+     launch plan (threads a lane, lanes a block, blocks), its bound from the
+     attempts and rows the plain version counts, and the warp divergence
+     (the mean over 32-lane warps of the warp's most attempts, over the
+     mean); (b) the whole random-policy chunked-regen
      step from phase 10's carry whose call deferred resets, through the
      kernels and through `build_packed_plain_rollout`; (c) the same for
      policy evaluation under dyadic weights against
@@ -249,7 +254,10 @@ over the memory rate and its operations over the peak rate for their
 type, counted from this run's shapes) and, where one PyTorch call
 computes the same function, that call's time (`library_ms`). The
 capability probe's row gives device times (the kernel's and
-`torch.add`'s), the rest times through the wrappers.
+`torch.add`'s), the rest times through the wrappers. The room-chain
+kernel has a row at each of its phase 11a shapes: N4-S5's with its
+launches on phase 10's path, N6's with 0 launches, since no path that
+the script drives runs N6.
 """
 
 from __future__ import annotations
@@ -423,6 +431,13 @@ PREVIOUS_B1_MS = {
     ("dynamicobstacles", 6, 6, 32_768, 32): 0.503264,
 }
 PREVIOUS_MOSAIC_BASE_WHERE_MS = 11.130352
+# Times of the connect kernel (B4) on phase 9b's generator plan and of the
+# room-chain kernel (B5) on phase 11a's inputs under their previous design
+# (one thread a lane, the whole loop serial), from
+# `tools/gen_kernel_sweep.py --parent` on a checkout of that design
+# (NVIDIA H100 80GB HBM3, 700 W). Printed beside this run's.
+PREVIOUS_B4_MS = 0.392054
+PREVIOUS_B5_MS = {"MiniGrid-MultiRoom-N4-S5-v0": 0.563469, "MiniGrid-MultiRoom-N6-v0": 8.372461}
 
 # The card's published peaks (H100 SXM data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -481,9 +496,10 @@ def card_line() -> str:
 
 # Kernel names in `ptxas -v`'s log whose registers and spills phase 1
 # reports: the policy kernel (B2), the gradient kernel (B3), the rollout
-# kernel (B1) and the Mosaic probe's kernels.
-REPORTED_KERNELS = ("policy_kernel", "grad_g", "rollout_generic", "rollout_cells16", "probe_forward_kernel",
-                    "probe_product")
+# kernel (B1), the connect kernel (B4), the room-chain kernel (B5) and the
+# Mosaic probe's kernels.
+REPORTED_KERNELS = ("policy_kernel", "grad_g", "rollout_generic", "rollout_cells16", "connect_kernel",
+                    "mr_chain_kernel", "probe_forward_kernel", "probe_product")
 
 
 def kernel_label(name: str) -> str:
@@ -495,6 +511,7 @@ def kernel_label(name: str) -> str:
         (r"rollout_cells16ILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", "rollout_cells16<hook={}, ctl={}, threads={}, view={}>"),
         (r"rollout_genericILi(\d+)ELb(\d)E", "rollout_generic<hook={}, ctl={}>"),
         (r"probe_forward_kernelILi(\d+)E", "probe_forward_kernel<variant={}>"),
+        (r"\d(connect_kernel|mr_chain_kernel)E", "{}"),
     ):
         m = re.search(pattern, name)
         if m:
@@ -504,8 +521,9 @@ def kernel_label(name: str) -> str:
 
 def compiler_report(log: str) -> None:
     """`ptxas -v`'s registers and spills of every instantiation of the
-    policy kernel (B2), the gradient kernel (B3), the rollout kernel (B1)
-    and the Mosaic probe, one line each; any spill fails."""
+    policy kernel (B2), the gradient kernel (B3), the rollout kernel (B1),
+    the connect and room-chain kernels (B4, B5) and the Mosaic probe, one
+    line each; any spill fails."""
     import re
 
     current, rows = None, {}
@@ -1393,6 +1411,46 @@ def _same_carry_and_metrics(got, want):
     return bad
 
 
+def kc_connect_inputs(cfg, b, dev):
+    """The connect kernel's arguments that KeyCorridor's generator makes
+    for `b` lanes: one `generate_packed` call on numpy keys (seed 8),
+    caught at the wrapper."""
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch.envs.keycorridor import generate_packed
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+
+    captured = []
+    run = gk.run_connect_kernel
+    gk.run_connect_kernel = lambda *a: captured.append(a) or run(*a)
+    try:
+        keys = torch.from_numpy(np.random.default_rng(8).integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.int64))
+        generate_packed(keys.to(dev), cfg)
+    finally:
+        gk.run_connect_kernel = run
+    return captured[0]
+
+
+def mr_chain_inputs(cfg, b, dev):
+    """The room-chain kernel's arguments that MultiRoom's `_plan` makes for
+    `b` lanes from numpy keys (seed 8): the retry key rows, the room
+    counts, `cfg` and `MAX_ATTEMPTS`."""
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.envs.multiroom import MAX_ATTEMPTS
+    from minigrid_tpu_torch.ops.packing import key_rows
+
+    keys = torch.from_numpy(np.random.default_rng(8).integers(0, 2**32, (b, 2), dtype=np.uint64)
+                            .astype(np.int64)).to(dev)
+    k, _ = prng.split(keys, 2).unbind(1)
+    ks = prng.split(k, 6).unbind(1)
+    return (key_rows(ks[1]), prng.randint(ks[0], cfg.min_num_rooms, cfg.max_num_rooms + 1)[None].contiguous(), cfg,
+            MAX_ATTEMPTS)
+
+
 def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
     import numpy as np
     import torch
@@ -1428,17 +1486,7 @@ def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
     # (b) B4 alone: the generator's own connect inputs for B lanes (taken
     # from one generate_packed call), and numpy-random ones with locked
     # rooms, some lanes unable to connect, and a small max_itrs.
-    from minigrid_tpu_torch.envs.keycorridor import generate_packed
-
-    captured = []
-    run = gk.run_connect_kernel
-    gk.run_connect_kernel = lambda *a: captured.append(a) or run(*a)
-    try:
-        keys = torch.from_numpy(np.random.default_rng(8).integers(0, 2**32, (KC_B, 2), dtype=np.uint64).astype(np.int64))
-        generate_packed(keys.to(dev), cfg)
-    finally:
-        gk.run_connect_kernel = run
-    plan = captured[0]
+    plan = kc_connect_inputs(cfg, KC_B, dev)
     rows, cols = cfg.num_rows, cfg.num_cols
     rng = np.random.default_rng(9)
     t = torch.from_numpy
@@ -1457,21 +1505,24 @@ def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
         mism = {n: int((g != w).sum()) for n, g, w in zip(("doors", "colors", "draws"), got, want)}
         err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
         max_err = max(max_err, err)
-        draws = want[2].double()
+        draws = want[2][0].double()
+        warp_draws = float(draws.reshape(-1, 32).max(dim=1).values.mean())
         print(f"phase 9b: connect kernel, {name}, B={KC_B}: draws mean {float(draws.mean()):.4f} max "
-              f"{int(draws.max())}; mismatches {mism}", flush=True)
+              f"{int(draws.max())}, mean of the 32-lane warp's max {warp_draws:.4f} "
+              f"({warp_draws / max(float(draws.mean()), 1e-9):.3f}x); mismatches {mism}", flush=True)
         if any(mism.values()):
             raise RuntimeError(f"phase 9b failed on {name}: {mism}")
         if timing is None:  # the main path's inputs
             gk.run_connect_kernel(*args)  # warm
             ms, _ = time_events(lambda: gk.run_connect_kernel(*args), KC_TIMED)
             plain_ms, _ = time_events(lambda: gk.plain_connect_plan(*args), 1)
-            timing = (ms, plain_ms, float(draws.sum()), int(draws.max()), float(draws.mean()))
+            timing = (ms, plain_ms, float(draws.sum()), int(draws.max()), float(draws.mean()),
+                      gk.card_plan(0, KC_B, dev, rows=rows, cols=cols))
     ops = (CONNECT_OPS_PER_DRAW_BASE + CONNECT_OPS_PER_FLOOD_STEP * rows * cols) * timing[2]
     b4_bound = bound(4 * (2 + 3 + 4) * KC_B + 4 * (4 + rows * cols * 4 + 1) * KC_B, ops, int_issue_rate(dev))
-    print(f"phase 9b: connect kernel on the generator plan, B={KC_B}: {timing[0]:.6f} ms/call (mean of {KC_TIMED}), "
-          f"plain {timing[1]:.4f} ms; {timing[2]:.0f} draws (mean {timing[4]:.4f}, max {timing[3]}); bound "
-          f"{b4_bound} [{card}]", flush=True)
+    print(f"phase 9b: connect kernel on the generator plan, B={KC_B}: {timing[0]:.6f} ms/call (mean of {KC_TIMED}; "
+          f"previous design {PREVIOUS_B4_MS} ms), plain {timing[1]:.4f} ms; {timing[2]:.0f} draws (mean "
+          f"{timing[4]:.4f}, max {timing[3]}); bound {b4_bound}; plan {timing[5]} [{card}]", flush=True)
 
     # (c) B1 with the hook and the control rows: the chunked-regen step
     # through the kernels and through the plain versions, on planted
@@ -1647,31 +1698,23 @@ def _overlap_carry(window):
 
 
 def phase_mr_vs_plain(dev, card, env, rand, policy):
-    import numpy as np
     import torch
 
     from minigrid_tpu_torch import make
-    from minigrid_tpu_torch.core import prng
     from minigrid_tpu_torch.core.prng import key
-    from minigrid_tpu_torch.envs.multiroom import MAX_ATTEMPTS
     from minigrid_tpu_torch.ops import fused_rollout as fr
     from minigrid_tpu_torch.ops import gen_kernel as gk
     from minigrid_tpu_torch.ops import policy_rollout as pr
-    from minigrid_tpu_torch.ops.packing import key_rows
     from minigrid_tpu_torch.testing import dyadic_flax_params
 
     # (a) B5 on the generator's own retry keys and room counts.
     chain = {}
     for env_id in MR_CHAIN_IDS:
         cfg = make(env_id).config
-        keys = torch.from_numpy(np.random.default_rng(8).integers(0, 2**32, (MR_B, 2), dtype=np.uint64)
-                                .astype(np.int64)).to(dev)
-        k, _ = prng.split(keys, 2).unbind(1)
-        ks = prng.split(k, 6).unbind(1)
-        args = (key_rows(ks[1]), prng.randint(ks[0], cfg.min_num_rooms, cfg.max_num_rooms + 1)[None].contiguous(),
-                cfg, MAX_ATTEMPTS)
+        args = mr_chain_inputs(cfg, MR_B, dev)
         gk.run_mr_chain_kernel(*args)  # warm
         ms, got = time_events(lambda: gk.run_mr_chain_kernel(*args), MR_TIMED)
+        plan = gk.card_plan(1, MR_B, dev, nmax=cfg.max_num_rooms)
         plain_ms, want = time_events(lambda: gk.plain_mr_chain(*args), 1)
         mism = {n: int((g != w).sum()) for n, g, w in zip(("rooms", "count", "attempts", "rows"), got, want)}
         err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
@@ -1683,12 +1726,13 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
         b5_bound = bound(nbytes, ops, int_issue_rate(dev))
         warp_att = float(att.reshape(-1, 32).max(dim=1).values.mean())
         warp_rows = float(rows.reshape(-1, 32).max(dim=1).values.mean())
-        print(f"phase 11a: room-chain kernel, {env_id}, B={MR_B}: {ms:.6f} ms/call (mean of {MR_TIMED}), plain "
-              f"{plain_ms:.4f} ms; attempts mean {float(att.mean()):.4f} max {int(att.max())}, mean of the "
-              f"32-lane warp's max {warp_att:.4f} ({warp_att / float(att.mean()):.3f}x); rows mean "
-              f"{float(rows.mean()):.4f}, warp max mean {warp_rows:.4f} ({warp_rows / float(rows.mean()):.3f}x); "
-              f"count == num_rooms on {int((want[1] == args[1]).sum())} lanes; bound {b5_bound} "
-              f"({ops:.6e} operations); mismatches {mism} [{card}]", flush=True)
+        print(f"phase 11a: room-chain kernel, {env_id}, B={MR_B}: {ms:.6f} ms/call (mean of {MR_TIMED}; previous "
+              f"design {PREVIOUS_B5_MS[env_id]} ms), plain {plain_ms:.4f} ms; attempts mean {float(att.mean()):.4f} "
+              f"max {int(att.max())}, mean of the 32-lane warp's max {warp_att:.4f} "
+              f"({warp_att / float(att.mean()):.3f}x); rows mean {float(rows.mean()):.4f}, warp max mean "
+              f"{warp_rows:.4f} ({warp_rows / float(rows.mean()):.3f}x); count == num_rooms on "
+              f"{int((want[1] == args[1]).sum())} lanes; bound {b5_bound} ({ops:.6e} operations); plan {plan}; "
+              f"mismatches {mism} [{card}]", flush=True)
         if any(mism.values()):
             raise RuntimeError(f"phase 11a failed on {env_id}: {mism}")
         chain[env_id] = (err, ms, plain_ms, b5_bound)
@@ -1798,9 +1842,7 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
           f"mismatches {counts}; bound {b2_bnd} [{card}]", flush=True)
     if any(counts.values()):
         raise RuntimeError("phase 11: the policy kernel with the control rows differs from its twin")
-    _, ms5, plain5, bound5 = chain[MR_ENV_ID]
-    return ((max(c[0] for c in chain.values()), ms5, plain5, bound5), (b1_err, b1_ms, b1_plain_ms, b1_bnd),
-            (b2_err, b2_ms, b2_plain_ms, b2_bnd))
+    return chain, (b1_err, b1_ms, b1_plain_ms, b1_bnd), (b2_err, b2_ms, b2_plain_ms, b2_bnd)
 
 
 def _mark_window(tag, call, n_timed, dev, path_kernels, phase="12"):
@@ -1845,7 +1887,8 @@ def phase_regen_policy_main_path(dev, card):
     """The slice's main path at full width, B = 32,768: (a) KeyCorridorS6R3
     policy evaluation and (b) the fused train step, both regen at T=256,
     chunk 32; (c) the fused train step on MultiRoom-N4-S5 regen at T=288,
-    chunk 96. Returns the carries each timed window started from."""
+    chunk 96. Returns the carries each timed window started from, and
+    each window's env-steps/s (`out["rates"]`)."""
     import torch
 
     from minigrid_tpu_torch import make
@@ -1875,6 +1918,7 @@ def phase_regen_policy_main_path(dev, card):
     if sum(int(m.episodes) for m in res) < RT_B:
         raise RuntimeError("phase 12a: the window held no mass reset")
     out["kc_eval"] = (state["befores"][1:], res, counts)
+    out["rates"] = {"a": RT_B * RT_KC_T * RT_KC_TIMED / seconds}
 
     for tag, env_id, t, chunk, n_timed, kernels in (
         ("b", KC_ENV_ID, RT_KC_T, RT_KC_CHUNK, RT_KC_TIMED, ("policy_kernel", "grad_kernel", "connect_kernel")),
@@ -1912,6 +1956,7 @@ def phase_regen_policy_main_path(dev, card):
         if env_id == MR_ENV_ID and (overlaps == 0 or counts["reentry_passes"] == 0):
             raise RuntimeError(f"phase 12{tag}: no deferred reset or re-entry: {overlaps}, {counts}")
         out[f"train_{tag}"] = (env, state["befores"], res, counts)
+        out["rates"][tag] = rate
     return kc, model, out
 
 
@@ -2705,8 +2750,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     env, _, rand, policy = run_phase("10", phase_mr_main_path, dev, card)
     mr_launches = {"a": rand[2], "b": policy[2]}
-    (b5_err, b5_ms, b5_plain_ms, b5_bound), (b1c_err, b1c_ms, b1c_plain_ms, b1c_bound), (
-        b2c_err, b2c_ms, b2c_plain_ms, b2c_bound) = run_phase("11", phase_mr_vs_plain, dev, card, env, rand, policy)
+    chain, (b1c_err, b1c_ms, b1c_plain_ms, b1c_bound), (b2c_err, b2c_ms, b2c_plain_ms, b2c_bound) = run_phase(
+        "11", phase_mr_vs_plain, dev, card, env, rand, policy)
     del env, rand, policy
     torch.cuda.empty_cache()
     kc, kc_model, rt_runs = run_phase("12", phase_regen_policy_main_path, dev, card)
@@ -2868,19 +2913,21 @@ def main() -> int:
             "bound_by": b4_bound[1],
             "library_ms": None,
         },
-        {
-            "name": "mr_chain_kernel",
+        *({
+            "name": name,
             "route": "cuda",
             "source": GEN_SOURCE,
             "replaces": MR_REPLACES,
-            "launches": mr_launches["a"]["mr_chain_kernel"] + mr_launches["b"]["mr_chain_kernel"],
-            "max_abs_err": b5_err,
-            "ms": b5_ms,
-            "plain_ms": b5_plain_ms,
-            "bound_ms": b5_bound[0],
-            "bound_by": b5_bound[1],
+            "launches": launches,
+            "max_abs_err": chain[env_id][0],
+            "ms": chain[env_id][1],
+            "plain_ms": chain[env_id][2],
+            "bound_ms": chain[env_id][3][0],
+            "bound_by": chain[env_id][3][1],
             "library_ms": None,
-        },
+        } for name, env_id, launches in zip(
+            ("mr_chain_kernel", "mr_chain_kernel_n6"), MR_CHAIN_IDS,
+            (mr_launches["a"]["mr_chain_kernel"] + mr_launches["b"]["mr_chain_kernel"], 0))),
         {
             "name": "rollout_kernel_ctl",
             "route": "cuda",

@@ -130,6 +130,8 @@ def _open() -> ctypes.CDLL:
         lib.mg_connect_launch.restype = ctypes.c_int
         lib.mg_mr_chain_launch.argtypes = [ptr] * 6 + [ctypes.c_int] * 6 + [ptr]
         lib.mg_mr_chain_launch.restype = ctypes.c_int
+        lib.mg_gen_occupancy.argtypes = [ctypes.c_int]
+        lib.mg_gen_occupancy.restype = ctypes.c_int
         lib.mg_mosaic_probe_launch.argtypes = [ptr] * 9 + [ctypes.c_int, ptr]
         lib.mg_mosaic_probe_launch.restype = ctypes.c_int
         lib.mg_probe_launch.argtypes = [ptr, ptr, ctypes.c_int, ptr]

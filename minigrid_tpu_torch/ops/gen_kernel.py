@@ -15,16 +15,17 @@ masks. Every draw is jax.random's stream (`core/prng.py`), so the doors,
 their colours and the draw count are byte-exact against the JAX package.
 
   * `run_connect_kernel` — the wrapper of the CUDA kernel
-    `csrc/gen_kernel.cu::connect_kernel` (one thread per lane). A CUDA
-    tensor launches it (or the call raises); a CPU tensor runs
+    `csrc/gen_kernel.cu::connect_kernel` (a group of threads a lane, one
+    draw each in a window of draws, launched as `connect_plan` says). A
+    CUDA tensor launches it (or the call raises); a CPU tensor runs
     `plain_connect_plan`. Nothing falls back.
   * `plain_connect_plan` — the same loop as torch ops over all lanes, one
     draw an iteration with every update gated on the lane's own
     convergence; each draw's Threefry blocks run as a few `(k, B)` calls.
     A lane that cannot connect (every slot that could still take a door
     has one, or is locked) would draw on to `max_itrs` without changing
-    anything; the plain version sets its count to `max_itrs` at once, so
-    such lanes cost it no thousands of draws (the kernel draws them).
+    anything; the plain version and the kernel set its count to
+    `max_itrs` at once, so such lanes cost no thousands of draws.
 
 The JAX package switches to `vmap(connect_plan)` when `rows·cols > 30`
 (the masks no longer fit an int32); no registered family gets there, and
@@ -36,17 +37,25 @@ candidate chain when it has more rooms than the best so far, until the
 best has the lane's room count or `max_attempts` attempts were made.
 
   * `run_mr_chain_kernel` — the wrapper of the CUDA kernel
-    `csrc/gen_kernel.cu::mr_chain_kernel` (one thread per lane). A CUDA
-    tensor launches it (or the call raises); a CPU tensor runs
-    `plain_mr_chain`.
+    `csrc/gen_kernel.cu::mr_chain_kernel` (eight threads an attempt, one
+    per try, one attempt in flight a lane at the start, launched as
+    `mr_chain_plan` says). A CUDA tensor launches it (or the call raises);
+    a CPU tensor runs `plain_mr_chain`.
   * `plain_mr_chain` — the loop as torch ops: each attempt is
     `envs/multiroom.py::_try_chain` over the lanes that have not
     converged, which is the gating `vmap`'s while-batching applies.
+
+Both kernels' launch plans (`connect_plan`, `mr_chain_plan`: threads a
+lane, lanes a block, blocks, and a refusal where no block fits an SM) are
+pure Python above the card's occupancy (`mg_gen_occupancy`), so the CPU
+tests check them with the occupancy given as numbers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -63,6 +72,87 @@ mr_chain_kernel_launches = 0
 
 _MAX_ROOMS = 30  # room bitmasks live in the low bits of an int32
 _CHECK_EVERY = 8  # plain version: draws between host checks of "all done"
+
+# ---------------------------------------------------------------------------
+# The kernels' launch plans
+# ---------------------------------------------------------------------------
+
+GEN_BLOCK_THREADS = 256  # threads a block of both kernels (csrc/gen_kernel.cu::kGenBlockThreads)
+SM_COUNT = 132  # an H100 SXM's SMs
+# Threads a lane at the start of a launch: the connect kernel's two, one
+# draw each a window (csrc/gen_kernel.cu::kConnectThreads); the room-chain
+# kernel's eight, one attempt in flight, a thread per try (kTries). As a
+# warp's lanes stop, the others take their threads. Measured
+# (tools/gen_kernel_sweep.py --traffic, PERF.md §6): on phases 8's and
+# 10's own launches, and at 32,768 lanes, no other start was faster beyond
+# the launches' spread.
+CONNECT_THREADS = 2
+MR_THREADS = 8
+
+
+class GenPlan(NamedTuple):
+    """A launch of the connect or room-chain kernel: threads a lane at the
+    start, lanes a block, blocks, blocks an SM holds at once, and the warps
+    an SM runs on average over the launch's waves."""
+
+    threads_per_lane: int
+    lanes: int
+    blocks: int
+    blocks_per_sm: int
+    warps_per_sm: float
+
+
+def _gen_plan(kernel: str, b: int, threads: int, blocks_per_sm: int, sms: int) -> GenPlan:
+    if b <= 0:
+        raise ValueError(f"{kernel}: empty batch")
+    if blocks_per_sm <= 0:
+        raise ValueError(f"{kernel}: no block of {GEN_BLOCK_THREADS} threads fits an SM")
+    lanes = GEN_BLOCK_THREADS // threads
+    blocks = -(-b // lanes)
+    warps = -(-b * threads // 32) / (sms * -(-blocks // (blocks_per_sm * sms)))
+    return GenPlan(threads, lanes, blocks, blocks_per_sm, warps)
+
+
+def connect_plan(rows: int, cols: int, b: int, blocks_per_sm: int, sms: int = SM_COUNT) -> GenPlan:
+    """The connect kernel's launch for `b` lanes of a `rows` x `cols` room
+    grid; `blocks_per_sm` is the card's occupancy (the wrapper's
+    `mg_gen_occupancy`). Raises on a room grid the masks do not hold, an
+    empty batch, or where no block fits an SM."""
+    if rows * cols > _MAX_ROOMS:
+        raise ValueError(f"connect loop: {rows}x{cols} rooms do not fit the int32 room masks")
+    return _gen_plan("connect kernel", b, CONNECT_THREADS, blocks_per_sm, sms)
+
+
+def mr_chain_plan(nmax: int, b: int, blocks_per_sm: int, sms: int = SM_COUNT) -> GenPlan:
+    """The room-chain kernel's launch for `b` lanes of chains of at most
+    `nmax` rooms, as `connect_plan`. Raises on a chain longer than the
+    kernel keeps, an empty batch, or where no block fits an SM."""
+    if not 1 <= nmax <= _MAX_CHAIN_ROOMS:
+        raise ValueError(f"room-chain kernel: max_num_rooms {nmax} not in [1, {_MAX_CHAIN_ROOMS}]")
+    return _gen_plan("room-chain kernel", b, MR_THREADS, blocks_per_sm, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_blocks_per_sm(lib, kernel: int) -> int:
+    """Blocks an SM holds of the connect (`kernel` 0) or room-chain (1)
+    kernel, from the card (`mg_gen_occupancy`)."""
+    n = lib.mg_gen_occupancy(kernel)
+    if n < 0:
+        raise RuntimeError(f"generator kernel occupancy failed: CUDA error {-n} ({lib.mg_error_string(-n).decode()})")
+    return n
+
+
+def card_plan(kernel: int, b: int, device: torch.device, rows: int = 0, cols: int = 0, nmax: int = 0) -> GenPlan:
+    """The plan the wrapper launches on `device`: the connect kernel's
+    (`kernel` 0, for a `rows` x `cols` room grid) or the room-chain
+    kernel's (1, for chains of at most `nmax` rooms), for `b` lanes."""
+    from minigrid_tpu_torch.ops import _build
+
+    held = _card_blocks_per_sm(_build.load_library(device), kernel)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if kernel == 0:
+        return connect_plan(rows, cols, b, held, sms)
+    return mr_chain_plan(nmax, b, held, sms)
 
 
 def _edges(rows: int, cols: int):
@@ -158,8 +248,9 @@ def plain_connect_plan(keys, start_i, start_j, locked_bits, hd0, rows: int, cols
 def run_connect_kernel(keys, start_i, start_j, locked_bits, hd0, rows: int, cols: int, max_itrs: int):
     """The connect kernel's wrapper: same arguments and results as
     `plain_connect_plan`. CPU tensors run the plain version; CUDA tensors
-    launch the kernel on the current stream, and any other device, a
-    failed build or a failed launch raises."""
+    launch the kernel on the current stream under `connect_plan`, and any
+    other device, a plan that does not fit, a failed build or a failed
+    launch raises."""
     if rows * cols > _MAX_ROOMS:
         raise ValueError(f"connect loop: {rows}x{cols} rooms do not fit the int32 room masks")
     if keys.device.type == "cpu":
@@ -177,6 +268,7 @@ def run_connect_kernel(keys, start_i, start_j, locked_bits, hd0, rows: int, cols
         raise ValueError("connect kernel: empty batch")
     dev = keys.device
     lib = _build.load_library(dev)
+    card_plan(0, b, dev, rows=rows, cols=cols)  # raises where the launch does not fit
     hd = torch.empty((4, b), dtype=torch.int32, device=dev)
     colors = torch.empty((rows * cols * 4, b), dtype=torch.int32, device=dev)
     draws = torch.empty((1, b), dtype=torch.int32, device=dev)
@@ -231,7 +323,7 @@ def connect_plan_batched(
 # MultiRoom's room-chain retry loop
 # ---------------------------------------------------------------------------
 
-_MAX_CHAIN_ROOMS = 8  # the kernel keeps a lane's chain in fixed-size arrays
+_MAX_CHAIN_ROOMS = 8  # the kernel keeps room slot r in thread r of a group of eight
 _CHAIN_FIELDS = 6  # top x, top y, size x, size y, entry x, entry y
 
 
@@ -243,7 +335,7 @@ def plain_mr_chain(keys, num_rooms, config: EnvConfig, max_attempts: int):
     int32: per room slot its top x, top y, size x, size y, entry x and
     entry y (zeros past the chain's count), the best chain's room count,
     the attempts the lane made, and the key rows its attempts needed
-    (`envs/multiroom.py::_try_chain`; the kernel draws just those)."""
+    (`envs/multiroom.py::_try_chain`; the kernel counts just those)."""
     nmax = config.max_num_rooms
     b, dev = keys.shape[1], keys.device
     key = (keys.T.to(torch.int64) & prng.MASK32).contiguous()  # (B, 2)
@@ -271,9 +363,9 @@ def plain_mr_chain(keys, num_rooms, config: EnvConfig, max_attempts: int):
 def run_mr_chain_kernel(keys, num_rooms, config: EnvConfig, max_attempts: int):
     """The room-chain kernel's wrapper: same arguments and results as
     `plain_mr_chain`. CPU tensors run the plain version; CUDA tensors
-    launch the kernel on the current stream, and any other device, a
-    chain longer than the kernel keeps, a failed build or a failed launch
-    raises."""
+    launch the kernel on the current stream under `mr_chain_plan`, and any
+    other device, a chain longer than the kernel keeps, a plan that does
+    not fit, a failed build or a failed launch raises."""
     if keys.device.type == "cpu":
         return plain_mr_chain(keys, num_rooms, config, max_attempts)
     from minigrid_tpu_torch.ops import _build
@@ -291,6 +383,7 @@ def run_mr_chain_kernel(keys, num_rooms, config: EnvConfig, max_attempts: int):
     dev = keys.device
     lib = _build.load_library(dev)
     nmax = config.max_num_rooms
+    card_plan(1, b, dev, nmax=nmax)  # raises where the launch does not fit
     rooms = torch.empty((_CHAIN_FIELDS, nmax, b), dtype=torch.int32, device=dev)
     count = torch.empty((1, b), dtype=torch.int32, device=dev)
     attempts = torch.empty((1, b), dtype=torch.int32, device=dev)

@@ -146,3 +146,60 @@ def test_cuda_keycorridor_layouts_match_the_plain_generator():
     want = generate_packed(keys, env.config)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _connect_case(case):
+    """(args, max_itrs) of a connect-kernel case on the CPU: numpy-random
+    inputs on S6R3's 3x3 room grid at 1, 33 and 4,096 + 77 lanes; lanes
+    already connected (every slot with a neighbour has a door: 0 draws),
+    and lanes that can never connect (every room locked, and a few doors)
+    at max_itrs 5000 and 7, each beside random lanes; and a 5 x 6 room
+    grid, the most rooms the masks hold."""
+    b, rows, cols, max_itrs = {"b1": (1, 3, 3, 5000), "b33": (33, 3, 3, 5000), "ragged": (4096 + 77, 3, 3, 5000),
+                               "connected": (512, 3, 3, 5000), "stuck_5000": (512, 3, 3, 5000),
+                               "stuck_7": (512, 3, 3, 7), "grid_5x6": (1024, 5, 6, 5000)}[case]
+    args = list(_plain_args(rows, cols, b, b + rows * cols + max_itrs, "cpu"))
+    if case == "connected":
+        right, left = tgk._edges(rows, cols)
+        full = (1 << rows * cols) - 1
+        bottom = sum(1 << ((rows - 1) * cols + i) for i in range(cols))
+        top = sum(1 << i for i in range(cols))
+        every = torch.tensor([full & ~right, full & ~bottom, full & ~left, full & ~top], dtype=torch.int32)
+        args[4][:, ::2] = every[:, None]
+    elif case.startswith("stuck"):
+        args[3][0, ::2] = (1 << rows * cols) - 1
+    return args, rows, cols, max_itrs
+
+
+CONNECT_CASES = ("b1", "b33", "ragged", "connected", "stuck_5000", "stuck_7", "grid_5x6")
+
+
+def test_connect_cases_hold_what_they_name():
+    """The special lanes of `_connect_case`: connected ones draw nothing,
+    stuck ones run to max_itrs and keep their doors, and the random lanes
+    beside them add doors (the plain version, on the CPU)."""
+    for case in ("connected", "stuck_5000", "stuck_7"):
+        args, rows, cols, max_itrs = _connect_case(case)
+        hd, _, draws = tgk.plain_connect_plan(*args, rows, cols, max_itrs)
+        draws = draws[0]
+        if case == "connected":
+            assert bool((draws[::2] == 0).all()) and bool((draws[1::2] > 0).all())
+        else:
+            assert bool((draws[::2] == max_itrs).all()) and torch.equal(hd[:, ::2], args[4][:, ::2])
+            assert not torch.equal(hd[:, 1::2], args[4][:, 1::2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CONNECT_CASES)
+def test_cuda_connect_kernel_plans_match_plain_version(case):
+    """The kernel on each case, byte for byte against the plain version;
+    two launches agree."""
+    dev = _cuda()
+    args, rows, cols, max_itrs = _connect_case(case)
+    args = [x.to(dev) for x in args]
+    got = tgk.run_connect_kernel(*args, rows, cols, max_itrs)
+    again = tgk.run_connect_kernel(*args, rows, cols, max_itrs)
+    want = tgk.plain_connect_plan(*args, rows, cols, max_itrs)
+    for name, g, a, w in zip(("doors", "colors", "draws"), got, again, want):
+        assert torch.equal(g, w), name
+        assert torch.equal(a, g), name

@@ -347,6 +347,70 @@ def test_cuda_mr_chain_kernel_matches_plain(env_id):
     assert bool((want[1] == nr).all())
 
 
+def _chain_case(case, dev):
+    """The room-chain kernel's arguments for a case: the generator's own
+    retry keys and room counts (`_plan`'s draws) for 1, 33 and 4,096 + 77
+    lanes of N4-S5 and N6; N6 at max_attempts 1 and 3 (lanes stop short
+    of their count); an `EnvConfig` with max_num_rooms 8 (N6's grid, 6 to 8
+    rooms); and N6's tail, the 64 lanes of 2,048 that take the most
+    attempts."""
+    env_id, b, max_attempts, nmax = {
+        "n4_b1": (N4, 1, tmr.MAX_ATTEMPTS, None), "n4_b33": (N4, 33, tmr.MAX_ATTEMPTS, None),
+        "n4_ragged": (N4, 4096 + 77, tmr.MAX_ATTEMPTS, None), "n6_ragged": (N6, 4096 + 77, tmr.MAX_ATTEMPTS, None),
+        "n6_attempts1": (N6, 1024, 1, None), "n6_attempts3": (N6, 1024, 3, None),
+        "nmax8": (N6, 512, tmr.MAX_ATTEMPTS, 8), "n6_tail": (N6, 2048, tmr.MAX_ATTEMPTS, None),
+    }[case]
+    cfg = make(env_id).config
+    if nmax is not None:
+        cfg = dataclasses.replace(cfg, max_num_rooms=nmax)
+    keys = _torch_keys(_keys(b, seed=b + max_attempts), dev)
+    k, _ = prng.split(keys, 2).unbind(1)
+    ks = prng.split(k, 6).unbind(1)
+    retry = key_rows(ks[1])
+    nr = prng.randint(ks[0], cfg.min_num_rooms, cfg.max_num_rooms + 1)[None].contiguous()
+    if case == "n6_tail":
+        attempts = tgk.plain_mr_chain(retry, nr, cfg, max_attempts)[2][0]
+        tail = torch.argsort(attempts, descending=True, stable=True)[:64]
+        retry, nr = retry[:, tail].contiguous(), nr[:, tail].contiguous()
+    return retry, nr, cfg, max_attempts
+
+
+CHAIN_CASES = ("n4_b1", "n4_b33", "n4_ragged", "n6_ragged", "n6_attempts1", "n6_attempts3", "nmax8", "n6_tail")
+
+
+def test_chain_cases_hold_what_they_name():
+    """On the CPU, through the plain version: lanes stop short of their
+    count at max_attempts 1 and 3, and max_num_rooms 8 places chains of 8
+    rooms (the GPU test checks N6's tail, whose choice takes seconds
+    here)."""
+    for case in ("n6_attempts1", "n6_attempts3", "nmax8"):
+        args = _chain_case(case, CPU)
+        _, count, attempts, _ = tgk.plain_mr_chain(*args)
+        if case.startswith("n6_attempts"):
+            assert int(attempts.max()) == args[3] and bool((count < args[1]).any())
+        else:
+            assert int(count.max()) == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_cuda_mr_chain_kernel_plans_match_plain(case):
+    """The kernel on each case, byte for byte against the plain version:
+    the chain, its count, the attempts and the rows; two launches agree.
+    N6's tail takes at least 10 attempts a lane."""
+    dev = _cuda()
+    args = _chain_case(case, dev)
+    got = tgk.run_mr_chain_kernel(*args)
+    again = tgk.run_mr_chain_kernel(*args)
+    want = tgk.plain_mr_chain(*args)
+    for name, g, a, w in zip(("rooms", "count", "attempts", "rows"), got, again, want):
+        assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+        assert torch.equal(a, g), name
+    if case == "n6_tail":
+        assert int(want[2].min()) >= 10
+
+
 def _ctl_case(cfg, b, t, seed):
     """Random packed states and commit rows: some lanes consumed, frozen,
     or part-way or all the way through the chunk."""
