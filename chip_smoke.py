@@ -247,6 +247,38 @@ result line):
      lane-step n Threefry-20 evaluations and 9·(n + 3) coordinate tests
      per obstacle.
 
+ 18. LavaGap, FourRooms, Lava and Simple Crossing, LockedRoom and
+     Playground (the base step with lava, locked doors and occlusion), each
+     window's kernels held against their plain versions at its own shape,
+     byte for byte (reward sums bit for bit), TF32 off: (a) each of the 14
+     ids' regen main path under the random policy, B=32,768, T=64, chunk
+     32: one warm-up and one timed call with only the rollout kernel
+     launched, then one 32-step B1 pass under fresh commit rows against
+     `plain_rollout`, with the id's launch plan; (b) policy evaluation
+     (the seeded `ActorCritic`) at FourRooms and LockedRoom (19x19, 64-lane
+     blocks) and LavaCrossingS9N1 (128-lane blocks), regen B=32,768, T=64:
+     one warm-up and one timed call with only the policy kernel launched,
+     then one 64-step B2 pass under fresh commit rows against
+     `plain_policy_rollout` under dyadic weights, and the seeded weights
+     after one step on at most 1e-4 of the lanes; (c) BASELINE.md's config
+     5 at full width: LavaCrossingS9N1 + FourRooms, 32,768 lanes a member
+     (65,536 in all), T=256 (`parallel/mixed.py`):
+     `build_packed_mixed_rollout` cached and regen and
+     `build_mixed_policy_eval` regen (the seeded `ActorCritic` a member),
+     each one warm-up and 2 timed calls with every count set to 0 just
+     before them (only the rollout kernel, or only the policy kernel),
+     env-steps/s of each call, each member's share of it and the pieces
+     its members mark (actions or seeds, kernel passes, refresh, re-entry,
+     sums) and each member's own launches; then a 1,024-lane, T=32 slice
+     of each surface's warm carries against its plain twin at the main
+     path's chunk (dyadic weights for the policy), carries and integer
+     metrics byte for byte, and B1 cached (a 256-step call), B1 regen and
+     B2 regen (a 32-step pass) of each member alone at 32,768 lanes
+     against their plain versions, each its own row in the kernels line
+     with that member's launches; and the cached call's action stream
+     drawn at each member's shape from a key (the JAX package's actions,
+     `prng.randint_stream`) and from a `torch.Generator`.
+
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
 version's, its bound on this card (`bound_ms`: the larger of its bytes
@@ -405,6 +437,23 @@ NEW_FAMILY_IDS = ("MiniGrid-Unlock-v0", "MiniGrid-UnlockPickup-v0", "MiniGrid-Bl
                   "MiniGrid-MemoryS7-v0", "MiniGrid-Dynamic-Obstacles-5x5-v0",
                   "MiniGrid-Dynamic-Obstacles-Random-6x6-v0")
 NEW_FAMILY_T = 64
+# Phase 18: LavaGap, FourRooms, the Crossings, LockedRoom and Playground,
+# and BASELINE.md's config 5 (LavaCrossing + FourRooms, B = 65,536, T =
+# 256; BASELINE.json configs[4]).
+S12_IDS = tuple(f"MiniGrid-LavaGapS{s}-v0" for s in (5, 6, 7)) + ("MiniGrid-FourRooms-v0",) + tuple(
+    f"MiniGrid-{o}CrossingS{n}-v0" for o in ("Lava", "Simple") for n in ("9N1", "9N2", "9N3", "11N5")) + (
+    "MiniGrid-LockedRoom-v0", "MiniGrid-Playground-v0")
+S12_B = 32_768
+S12_T = 64
+S12_CHUNK = 32
+S12_POLICY_IDS = ("MiniGrid-FourRooms-v0", "MiniGrid-LockedRoom-v0", "MiniGrid-LavaCrossingS9N1-v0")
+MIXED_IDS = ("MiniGrid-LavaCrossingS9N1-v0", "MiniGrid-FourRooms-v0")
+MIXED_B = 32_768  # a member: 65,536 lanes in all
+MIXED_T = 256
+MIXED_CHUNK = 32
+MIXED_TIMED = 2
+MIXED_CHECK_B = 1024
+MIXED_CHECK_T = 32
 
 # Times under the previous design of the rollout kernel (one thread a lane,
 # int32 grids) and of the Mosaic probe (the forward recomputed by every
@@ -2684,9 +2733,229 @@ def phase_new_hooks(dev, card):
         _report_window("d", f"{env_id} random policy, chunk {NEW_CHUNK}", res, counts, seconds, pieces, peak,
                        NEW_FAMILY_T, card, b=NEW_B, phase="17")
         b1 = _time_pass("17d", env.config, state["carry"], NEW_CHUNK, dev, card, env.transition, "random")
-        name = env_id.removeprefix("MiniGrid-").removesuffix("-v0").lower().replace("-", "_")
-        rows[f"rollout_kernel_{name}"] = [counts["rollout_kernel"], b1[0], b1[1], b1[2], b1[3], KERNEL_SOURCE]
+        rows[f"rollout_kernel_{_row_name(env_id)}"] = [counts["rollout_kernel"], b1[0], b1[1], b1[2], b1[3],
+                                                       KERNEL_SOURCE]
         del state, step
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _row_name(env_id: str) -> str:
+    return env_id.removeprefix("MiniGrid-").removesuffix("-v0").lower().replace("-", "_")
+
+
+def _same_mixed(got, want):
+    """(mismatching fields, |total_reward| difference) of two mixed calls'
+    `(carries, metrics)`: carries and integer metrics byte for byte."""
+    import torch
+
+    bad = [f"member {i} {name}" for i, (cg, cw) in enumerate(zip(got[0], want[0]))
+           for name, g, w in zip(cg._fields, cg, cw) if not torch.equal(g, w)]
+    bad += [n for n in ("episodes", "total_steps", "obs_checksum", "reset_overlaps")
+            if not torch.equal(getattr(got[1], n), getattr(want[1], n))]
+    return bad, abs(float(got[1].total_reward) - float(want[1].total_reward))
+
+
+def _time_action_sources(cfg, dev, card):
+    """The random policy's `(MIXED_T, MIXED_B)` action stream at `cfg`'s
+    action count, drawn from a key (`prng.randint_stream`, the JAX
+    package's actions) and from a `torch.Generator` (`torch.randint`):
+    device ms a draw, mean of 3 after a warm-up."""
+    import torch
+
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.core.rollout import random_policy
+
+    src = prng.key(1990, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1990)
+    by_key = lambda: prng.randint_stream(src, MIXED_T, MIXED_B, 0, cfg.num_actions)  # noqa: E731
+    by_gen = lambda: random_policy(cfg.num_actions)(g, MIXED_T, MIXED_B)  # noqa: E731
+    by_key(), by_gen()
+    key_ms, _ = time_events(by_key, 3)
+    gen_ms, _ = time_events(by_gen, 3)
+    print(f"phase 18c: the action stream, {cfg.num_actions} actions, T={MIXED_T} B={MIXED_B}: from a key "
+          f"{key_ms:.6f} ms, from a torch.Generator {gen_ms:.6f} ms (mean of 3) [{card}]", flush=True)
+
+
+def _mixed_window(tag, what, step, carries, dev, card, path_kernel):
+    """One warm-up call, then `MIXED_TIMED` timed calls with every count set
+    to 0 just before them, each timed alone (env-steps/s) and split into
+    its members' shares by the step's marks, and each member's launches
+    of `path_kernel` read at its mark. Returns (the warm carries, the
+    counts, the launches a member over the timed calls)."""
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+
+    carries, _ = step(key(1900, device=dev), carries)  # warm-up
+    torch.cuda.synchronize()
+    warm = carries
+    _zero_counts()
+    member_launches = [0] * len(MIXED_IDS)
+    for i in range(1, MIXED_TIMED + 1):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        seen = [_counts()[path_kernel]]
+
+        def mark(piece):
+            events.append((piece, torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+            if piece.startswith("member"):
+                n = _counts()[path_kernel]
+                member_launches[int(piece.split()[1])] += n - seen[0]
+                seen[0] = n
+
+        t0 = time.perf_counter()
+        events[0][1].record()
+        carries, m = step(key(1900 + i, device=dev), carries, mark=mark)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        members, pieces, member_ms = [], {}, 0.0
+        for (_, a), (piece, e) in zip(events, events[1:]):
+            ms = a.elapsed_time(e)
+            member_ms += ms
+            if piece.startswith("member"):
+                members.append(round(member_ms, 4))
+                member_ms = 0.0
+            else:
+                pieces[piece] = round(pieces.get(piece, 0.0) + ms, 4)
+        b = MIXED_B * len(MIXED_IDS)
+        print(f"phase 18c: {what}, call {i}: B={b} T={MIXED_T} {seconds:.4f} s, {b * MIXED_T / seconds:.6e} "
+              f"env-steps/s; members ms {dict(zip(MIXED_IDS, members))}; pieces ms (both members) {pieces}; "
+              f"episodes {int(m.episodes)}, reset_overlaps {int(m.reset_overlaps)}, reward "
+              f"{float(m.total_reward):.6f} [{card}]", flush=True)
+        if int(m.total_steps) != b * MIXED_T or int(m.obs_checksum) == 0 or int(m.episodes) == 0:
+            raise RuntimeError(f"phase 18{tag}: total_steps != B*T, a zero checksum or no episode: {m}")
+    counts = _counts()
+    kernels = {n: c for n, c in counts.items() if n.endswith("_kernel")}
+    if kernels[path_kernel] == 0 or any(c for n, c in kernels.items() if n != path_kernel):
+        raise RuntimeError(f"phase 18{tag}: launches {kernels}; the path runs only the {path_kernel}")
+    if sum(member_launches) != kernels[path_kernel] or 0 in member_launches:
+        raise RuntimeError(f"phase 18{tag}: members' launches {member_launches} against {kernels[path_kernel]}")
+    print(f"phase 18c: {what}: per call {_per_call(counts, MIXED_TIMED)}; {path_kernel} launches a member over "
+          f"{MIXED_TIMED} calls {dict(zip(MIXED_IDS, member_launches))} [{card}]", flush=True)
+    return warm, counts, member_launches
+
+
+def phase_slice12(dev, card):
+    """Phase 18 (module docstring): LavaGap, FourRooms, the Crossings,
+    LockedRoom and Playground, and config 5's mixed batch. Returns `{row
+    name: [launches, max_abs_err, ms, plain_ms, bound, source]}`."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import mixed
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    rows = {}
+
+    # (a) Each id's regen main path under the random policy.
+    for env_id in S12_IDS:
+        env = make(env_id)
+        step = fr.build_fused_rollout(env, S12_T, mode="regen", as_carry=True, regen_chunk=S12_CHUNK)
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), S12_B), "regen")}
+
+        def family_call(i, mark, step=step, state=state):
+            state["carry"], m = step(key(1700 + i, device=dev), state["carry"], mark=mark)
+            return m
+
+        res, counts, seconds, pieces, peak = _mark_window("a", family_call, 1, dev, ("rollout_kernel",), phase="18")
+        _report_window("a", f"{env_id} random policy, chunk {S12_CHUNK}", res, counts, seconds, pieces, peak, S12_T,
+                       card, b=S12_B, phase="18")
+        b1 = _time_pass("18a", env.config, state["carry"], S12_CHUNK, dev, card, env.transition, "random")
+        rows[f"rollout_kernel_{_row_name(env_id)}"] = [counts["rollout_kernel"], b1[0], b1[1], b1[2], b1[3],
+                                                       KERNEL_SOURCE]
+        del state, step
+        torch.cuda.empty_cache()
+
+    # (b) Policy evaluation at 64- and 128-lane blocks.
+    for env_id in S12_POLICY_IDS:
+        env = make(env_id)
+        cfg = env.config
+        model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+        step = pr.build_policy_eval_rollout(env, model, S12_T, mode="regen", as_carry=True, regen_chunk=S12_CHUNK)
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), S12_B), "regen")}
+
+        def eval_call(i, mark, step=step, state=state):
+            state["carry"], m = step(key(1750 + i, device=dev), state["carry"], mark=mark)
+            return m
+
+        res, counts, seconds, pieces, peak = _mark_window("b", eval_call, 1, dev, ("policy_kernel",), phase="18")
+        bt = pr.policy_lane_block(cfg)
+        _report_window("b", f"{env_id} policy evaluation, chunk {S12_CHUNK}, {bt}-lane blocks", res, counts, seconds,
+                       pieces, peak, S12_T, card, b=S12_B, phase="18")
+        ew = pr.eval_weights_from_params(dyadic_flax_params(14), cfg.agent_view_size, device=dev)
+        b2 = _time_pass("18b", cfg, state["carry"], S12_T, dev, card, env.transition, "eval", ew)
+        carry = state["carry"]
+        args = (carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs)
+        seed_row = pr._seeds_for(key(1760, device=dev), 1, S12_B)
+        weights = pr.eval_weights_from_params(model, cfg.agent_view_size)
+        lanes = compare_lanes(pr.run_policy_kernel(*args, seed_row, weights, cfg),
+                              pr.plain_policy_rollout(*args, seed_row, weights, cfg))
+        print(f"phase 18b: {env_id} ActorCritic weights, T=1, B={S12_B}: {lanes} lanes differ (limit "
+              f"{FLAX_T1_MAX_SHARE * S12_B:.2f}) [{card}]", flush=True)
+        if lanes > FLAX_T1_MAX_SHARE * S12_B:
+            raise RuntimeError(f"phase 18b: {lanes} of {S12_B} lanes differ after one step at {env_id}")
+        rows[f"policy_kernel_{_row_name(env_id)}"] = [counts["policy_kernel"], b2[0], b2[1], b2[2], b2[3],
+                                                      POLICY_SOURCE]
+        del state, step
+        torch.cuda.empty_cache()
+
+    # (c) Config 5 at full width: the three mixed surfaces.
+    envs = [make(e) for e in MIXED_IDS]
+    states = [e.reset_batch(key(10 + i, device=dev), MIXED_B) for i, e in enumerate(envs)]
+    models = [ActorCritic(e.config.num_actions, generator=torch.Generator(device=dev).manual_seed(i))
+              for i, e in enumerate(envs)]
+    dyadic = [dyadic_flax_params(15 + i) for i in range(len(envs))]
+    surfaces = (
+        ("cached", "random policy, cached", "rollout_kernel",
+         mixed.build_packed_mixed_rollout(MIXED_IDS, MIXED_T, mode="cached", as_carry=True),
+         lambda t: mixed.build_packed_mixed_rollout(MIXED_IDS, t, mode="cached", as_carry=True),
+         lambda t: mixed.build_packed_mixed_plain_rollout(MIXED_IDS, t, mode="cached", as_carry=True)),
+        ("regen", f"random policy, regen chunk {MIXED_CHUNK}", "rollout_kernel",
+         mixed.build_packed_mixed_rollout(MIXED_IDS, MIXED_T, mode="regen", as_carry=True),
+         lambda t: mixed.build_packed_mixed_rollout(MIXED_IDS, t, mode="regen", as_carry=True),
+         lambda t: mixed.build_packed_mixed_plain_rollout(MIXED_IDS, t, mode="regen", as_carry=True)),
+        ("policy", f"policy evaluation, regen chunk {MIXED_CHUNK}", "policy_kernel",
+         mixed.build_mixed_policy_eval(MIXED_IDS, models, MIXED_T, mode="regen", regen_chunk=MIXED_CHUNK),
+         lambda t: mixed.build_mixed_policy_eval(MIXED_IDS, dyadic, t, mode="regen", regen_chunk=MIXED_CHUNK),
+         lambda t: mixed.build_mixed_policy_eval_plain(MIXED_IDS, dyadic, t, mode="regen",
+                                                       regen_chunk=MIXED_CHUNK)),
+    )
+    for name, what, kernel, step, build_kernel, build_plain in surfaces:
+        mode = "cached" if name == "cached" else "regen"
+        carries = tuple(fr.packed_init(e, st, mode) for e, st in zip(envs, states))
+        warm, _, member_launches = _mixed_window("c", f"{' + '.join(MIXED_IDS)} {what}", step, carries, dev, card,
+                                                 kernel)
+        # A slice of the warm carries through the kernels and the plain twins.
+        part = tuple(_slice_carry(c, MIXED_CHECK_B) for c in warm)
+        src = key(1950, device=dev)
+        got = build_kernel(MIXED_CHECK_T)(src, part)
+        want = build_plain(MIXED_CHECK_T)(src, part)
+        bad, reward_diff = _same_mixed(got, want)
+        print(f"phase 18c: {what}, {MIXED_CHECK_B} lanes a member, T={MIXED_CHECK_T}, kernels against plain "
+              f"twins: mismatches {bad or 'none'}; episodes {int(want[1].episodes)}, reset_overlaps "
+              f"{int(want[1].reset_overlaps)}; |total_reward difference| {reward_diff} [{card}]", flush=True)
+        if bad or int(want[1].episodes) == 0 or reward_diff > 1e-6 * max(1.0, abs(float(want[1].total_reward))):
+            raise RuntimeError(f"phase 18c: the {name} slice differs from its plain twin: {bad}, {reward_diff}")
+        # Each member's kernel alone at its shape.
+        for i, (env, carry) in enumerate(zip(envs, warm)):
+            cfg = env.config
+            if name == "policy":
+                ew = pr.eval_weights_from_params(dyadic[i], cfg.agent_view_size, device=dev)
+                res = _time_pass("18c", cfg, carry, MIXED_CHUNK, dev, card, env.transition, "eval", ew)
+            elif name == "regen":
+                res = _time_pass("18c", cfg, carry, MIXED_CHUNK, dev, card, env.transition, "random")
+            else:  # a cached call is one launch of all its steps
+                res = _time_pass("18c", cfg, carry, MIXED_T, dev, card, env.transition, "random", ctl=False)
+                _time_action_sources(cfg, dev, card)
+            rows[f"{kernel}_config5_{name}_{_row_name(MIXED_IDS[i])}"] = [
+                member_launches[i], res[0], res[1], res[2], res[3], KERNEL_SOURCE if kernel == "rollout_kernel"
+                else POLICY_SOURCE]
+        del warm, part, got, want, carries
         torch.cuda.empty_cache()
     return rows
 
@@ -2774,6 +3043,8 @@ def main() -> int:
     hook_rows = run_phase("16", phase_hooks, dev, card)
     torch.cuda.empty_cache()
     new_rows = run_phase("17", phase_new_hooks, dev, card)
+    torch.cuda.empty_cache()
+    new_rows.update(run_phase("18", phase_slice12, dev, card))
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():

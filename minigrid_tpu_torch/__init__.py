@@ -4,9 +4,10 @@ The JAX package `minigrid_tpu` is the reference; this package mirrors its
 module paths so each piece has an obvious counterpart, and imports only
 `torch` and `numpy`. Ported so far, on the steady carry surface: the
 packed rollout (`ops/fused_rollout.py`), its step loop in one
-hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for 48 ids of
-fifteen families: Empty, DistShift, DoorKey, DynamicObstacles, Memory,
-Fetch, GoToDoor, GoToObject, PutNear, RedBlueDoors, MultiRoom, Unlock,
+hand-written CUDA kernel (`ops/csrc/rollout_kernel.cu`), for 62 ids of
+twenty families: Empty, DistShift, LavaGap, FourRooms, DoorKey, Lava and
+Simple Crossing, DynamicObstacles, Memory, Fetch, GoToDoor, GoToObject,
+PutNear, RedBlueDoors, MultiRoom, LockedRoom, Playground, Unlock,
 UnlockPickup, BlockedUnlockPickup and KeyCorridor (every family hook of
 the JAX package in the kernel, `ops/packed_hooks.py`). In regen mode the random-layout families
 run exact chunked regen (`ops/chunked_regen.py`) with fresh layouts from
@@ -18,7 +19,9 @@ policy-in-the-loop evaluation (`ops/policy_rollout.py`,
 the fused train step (`parallel/train.py::build_fused_train_step`): that
 kernel in collect mode spills the trajectory (on a random layout, merged
 across chunked regen's passes), a third one (`ops/csrc/grad_kernel.cu`)
-runs the actor-critic gradient pass, then clip + Adam. `tools/` holds the
+runs the actor-critic gradient pass, then clip + Adam; and mixed batches
+of member envs, one lane block each (`parallel/mixed.py`, on one
+device). `tools/` holds the
 Mosaic bisection probe, a fourth. Entry points make their tensors on the
 card unless the caller names a device. See ROADMAP.md for what is still
 to come.

@@ -11,6 +11,7 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 
+EMPTY_CELL = (C.EMPTY, 0, 0, 0, 0)
 WALL_CELL = (C.WALL, C.GREY, 0, 0, 0)
 
 

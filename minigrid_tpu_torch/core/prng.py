@@ -14,11 +14,13 @@ both output words of `threefry2x32(k0, k1, 0, c)`, and word `i` of a bits
 draw (row-major flat index) is `x0 ^ x1` of `threefry2x32(k0, k1,
 hi32(i), lo32(i))`.
 
-`bits`, `randint`, `categorical` and `permutation` are the draws the
-generators make (`jax.random.bits(key, (), uint32)`,
+`bits`, `randint`, `categorical`, `permutation` and `permute` are the
+draws the generators make (`jax.random.bits(key, (), uint32)`,
 `jax.random.randint(key, (), lo, hi)`, `jax.random.categorical(key,
-logits)` and `jax.random.permutation(key, n)`), vectorised over a batch
-of keys.
+logits)`, `jax.random.permutation(key, n)` and `jax.random.permutation(key,
+x)` of an array), vectorised over a batch of keys. `fold_in` is
+`jax.random.fold_in`, and `randint_stream` the random policy's `(T, B)`
+draws from one key.
 
 `key` makes its tensor on the card unless the caller names a device, as
 every entry point of the port does.
@@ -91,6 +93,18 @@ def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
     k1 = keys[..., 1:2]
     c = torch.arange(n, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` over a `(..., 2)` key tensor, for
+    `0 <= data < 2**32`: Threefry of the key over the counter words
+    `threefry_seed(data) = (0, data)` (`jax._src.prng._threefry_fold_in`),
+    both output words. With `jax_threefry_partitionable` that is child
+    `data` of `split(key, n)` for any `n > data`."""
+    if not 0 <= data <= MASK32:
+        raise ValueError(f"fold_in data must be a uint32, got {data}")
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -169,6 +183,26 @@ def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, lo, hi) -> torc
     return (lo + off % span).to(torch.int32)
 
 
+def randint_stream(key: torch.Tensor, num_steps: int, batch: int, lo: int, hi: int) -> torch.Tensor:
+    """The JAX package's random policy from one `(2,)` key: `keys =
+    split(key, num_steps)`, then `jax.random.randint(keys[t], (batch,), lo,
+    hi)` for each step, as a `(num_steps, batch)` int32 tensor. A shaped
+    `randint` draws `bits(k, (batch,))` of both children of `split(k)`
+    (counters `(0, i)` for lane `i`) and reduces them as `randint_from_bits`
+    does. Threefry runs over at most `_BITS_CHUNK` counters at a time."""
+    steps = split(key, num_steps)  # (T, 2)
+    halves = split(steps, 2)  # (T, 2 [higher, lower], 2)
+    lanes = torch.arange(batch, dtype=torch.int64, device=key.device)
+    out = torch.empty((num_steps, batch), dtype=torch.int32, device=key.device)
+    rows = max(1, _BITS_CHUNK // max(2 * batch, 1))
+    for start in range(0, num_steps, rows):
+        k = halves[start : start + rows]
+        x0, x1 = threefry2x32(k[..., 0:1], k[..., 1:2], lanes >> 32, lanes & MASK32)  # (rows, 2, B)
+        words = x0 ^ x1
+        out[start : start + rows] = randint_from_bits(words[:, 0], words[:, 1], lo, hi)
+    return out
+
+
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """`jax.random.categorical(key, logits)` per row, for `(B, 2)` keys and
     `(B, N)` logits whose entries are 0 or -inf (a uniform draw over a
@@ -218,3 +252,12 @@ def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
         x0, x1 = threefry2x32(sub[:, 0:1], sub[:, 1:2], 0, idx)  # bits(sub, (n,)): counters (0, i)
         x = sort_key_val(x0 ^ x1, x)
     return x
+
+
+def permute(keys: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """`jax.random.permutation(key, x)` of a 1-D array per key: `(B, 2)`
+    keys and `(B, n)` values, one array per lane. jax shuffles `x` itself
+    with the sort keys and round count (from `x`'s length) that it uses for
+    `arange(n)`, and the sort is stable, so the result is `values` gathered
+    at `permutation(keys, n)`."""
+    return torch.gather(values, 1, permutation(keys, values.shape[1]))

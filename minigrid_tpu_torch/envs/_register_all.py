@@ -1,23 +1,29 @@
 """Registrations of the ported env ids, in the JAX package's order
 (`minigrid_tpu/envs/_register_all.py`): Empty (fixed and random start),
-DistShift, DoorKey, DynamicObstacles, Memory, Fetch, GoToDoor,
-GoToObject, PutNear, RedBlueDoors, MultiRoom, Unlock, UnlockPickup,
+DistShift, LavaGap, FourRooms, DoorKey, Lava and Simple Crossing,
+DynamicObstacles, Memory, Fetch, GoToDoor, GoToObject, PutNear,
+RedBlueDoors, MultiRoom, LockedRoom, Playground, Unlock, UnlockPickup,
 BlockedUnlockPickup and KeyCorridor, each with the JAX package's
 configuration."""
 
 from __future__ import annotations
 
 from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.envs import crossing as _crossing
 from minigrid_tpu_torch.envs import distshift as _distshift
 from minigrid_tpu_torch.envs import doorkey as _doorkey
 from minigrid_tpu_torch.envs import dynamicobstacles as _dynobst
 from minigrid_tpu_torch.envs import empty as _empty
 from minigrid_tpu_torch.envs import fetch as _fetch
+from minigrid_tpu_torch.envs import fourrooms as _fourrooms
 from minigrid_tpu_torch.envs import gotodoor as _gotodoor
 from minigrid_tpu_torch.envs import gotoobject as _gotoobject
 from minigrid_tpu_torch.envs import keycorridor as _keycorridor
+from minigrid_tpu_torch.envs import lavagap as _lavagap
+from minigrid_tpu_torch.envs import lockedroom as _lockedroom
 from minigrid_tpu_torch.envs import memory as _memory
 from minigrid_tpu_torch.envs import multiroom as _multiroom
+from minigrid_tpu_torch.envs import playground as _playground
 from minigrid_tpu_torch.envs import putnear as _putnear
 from minigrid_tpu_torch.envs import redbluedoors as _rbd
 from minigrid_tpu_torch.envs import unlock as _unlock
@@ -69,12 +75,36 @@ for _v, _row in ((1, 2), (2, 5)):
         _distshift.generate,
     )
 
+for _size in (5, 6, 7):
+    register(
+        f"MiniGrid-LavaGapS{_size}-v0",
+        EnvConfig(family="lavagap", width=_size, height=_size, max_steps=4 * _size * _size, obstacle_type="lava"),
+        _lavagap.generate,
+    )
+
+register("MiniGrid-FourRooms-v0", EnvConfig(family="fourrooms", width=19, height=19, max_steps=100), _fourrooms.generate)
+
 for _size in (5, 6, 8, 16):
     register(
         f"MiniGrid-DoorKey-{_size}x{_size}-v0",
         EnvConfig(family="doorkey", width=_size, height=_size, max_steps=10 * _size * _size),
         _doorkey.generate,
     )
+
+for _obst, _name in (("lava", "Lava"), ("wall", "Simple")):
+    for _size, _n in ((9, 1), (9, 2), (9, 3), (11, 5)):
+        register(
+            f"MiniGrid-{_name}CrossingS{_size}N{_n}-v0",
+            EnvConfig(
+                family="crossing",
+                width=_size,
+                height=_size,
+                max_steps=4 * _size * _size,
+                num_crossings=_n,
+                obstacle_type=_obst,
+            ),
+            _crossing.generate,
+        )
 
 # Three actions; max_steps = 4 * size * size.
 for _name, _size, _n, _random in (
@@ -180,6 +210,13 @@ for _name, _min, _max, _maxsz in (("N2-S4", 2, 2, 4), ("N4-S5", 4, 4, 5), ("N6",
         ),
         _multiroom.generate,
     )
+
+register(
+    "MiniGrid-LockedRoom-v0", EnvConfig(family="lockedroom", width=19, height=19, max_steps=10 * 19), _lockedroom.generate
+)
+register(
+    "MiniGrid-Playground-v0", EnvConfig(family="playground", width=19, height=19, max_steps=100), _playground.generate
+)
 
 # Two rooms of size 6 side by side: an 11x6 grid.
 _RS = 6

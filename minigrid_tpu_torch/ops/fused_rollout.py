@@ -47,10 +47,11 @@ import numpy as np
 import torch
 
 from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core import prng
 from minigrid_tpu_torch.core.rollout import RolloutMetrics, random_policy
 from minigrid_tpu_torch.core.state import AUX_LEN, EnvConfig, EnvState
 from minigrid_tpu_torch.envs.base import BASE_STEP, Env
-from minigrid_tpu_torch.ops.chunked_regen import build_chunked_regen
+from minigrid_tpu_torch.ops.chunked_regen import _no_mark, build_chunked_regen
 from minigrid_tpu_torch.ops.packed_gen import get_packed_generator, packed_generator  # noqa: F401  (re-exported)
 from minigrid_tpu_torch.ops.packed_hooks import KERNEL_HOOK_IDS, HookVals, packed_hook
 from minigrid_tpu_torch.ops.packing import (
@@ -396,8 +397,9 @@ SM_COUNT = 132  # an H100 SXM's SMs: the plan's mirror on a machine without the 
 # int32 cells.
 CELL16_VIEW = 7
 CELL16_FAMILIES = frozenset({
-    "blockedunlockpickup", "distshift", "doorkey", "dynamicobstacles", "empty", "fetch", "gotodoor", "gotoobject",
-    "keycorridor", "memory", "multiroom", "putnear", "redbluedoors", "unlock", "unlockpickup",
+    "blockedunlockpickup", "crossing", "distshift", "doorkey", "dynamicobstacles", "empty", "fetch", "fourrooms",
+    "gotodoor", "gotoobject", "keycorridor", "lavagap", "lockedroom", "memory", "multiroom", "playground", "putnear",
+    "redbluedoors", "unlock", "unlockpickup",
 })
 # Threads a lane of the 16-bit kernel, and the warps an SM one thread a
 # lane must reach for the plan to take it (it does the least work) over
@@ -775,9 +777,12 @@ def _wrap_i32(total: torch.Tensor) -> torch.Tensor:
     return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
-def _action_stream(env: Env, num_steps: int, generator, b: int, device, override=None):
+def _action_stream(env: Env, num_steps: int, source, b: int, device, override=None):
     """The `(T, B)` int32 action stream: `override` (a `(T, B)` or `(T,)`
-    array) if given, else the random policy drawn from `generator`."""
+    array) if given, else the random policy drawn from `source`: a
+    `torch.Generator` (`torch.randint`), or a `(2,)` key for the JAX
+    package's own actions (`prng.randint_stream`, Threefry in plain torch;
+    its cost beside the Generator's is in PERF.md §5)."""
     if override is not None:
         actions = torch.as_tensor(np.asarray(override), dtype=torch.int32, device=device)
         if actions.ndim == 1:
@@ -785,32 +790,40 @@ def _action_stream(env: Env, num_steps: int, generator, b: int, device, override
         if tuple(actions.shape) != (num_steps, b):
             raise ValueError(f"actions_override has shape {tuple(actions.shape)}, expected {(num_steps, b)}")
         return actions.contiguous()
-    if generator is None:
-        raise ValueError("a torch.Generator is needed to sample the random policy")
-    gd = torch.device(generator.device)
+    if source is None:
+        raise ValueError("a torch.Generator or a key is needed to sample the random policy")
+    if isinstance(source, torch.Tensor):
+        return prng.randint_stream(source.to(device), num_steps, b, 0, env.config.num_actions)
+    gd = torch.device(source.device)
     if gd.type != device.type or gd.index not in (None, device.index):
         raise ValueError(f"the generator is on {gd}, the carry on {device}")
-    return random_policy(env.config.num_actions)(generator, num_steps, b)
+    return random_policy(env.config.num_actions)(source, num_steps, b)
 
 
 def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, stream_fn):
-    """`step(source, carry) -> (carry, RolloutMetrics)` for the
+    """`step(source, carry, mark) -> (carry, RolloutMetrics)` for the
     static-template paths (cached mode, or regen on static layouts).
     `stream_fn(source, b, device)` makes the `(T, B)` per-step input (the
     actions, or the policy's sampling seeds) and `run_core(words, regs,
-    tmpl_words, tmpl_regs, stream, config)` runs the whole `num_steps`."""
+    tmpl_words, tmpl_regs, stream, config)` runs the whole `num_steps`.
+    `mark(piece)` is called at the end of each piece ("actions", "kernel",
+    "rng" in regen mode, "sums"), as chunked regen's step does."""
 
-    def step_carry(source, carry: PackedCarry):
+    def step_carry(source, carry: PackedCarry, mark=_no_mark):
         b = carry.words.shape[1]
         dev = carry.words.device
         stream = stream_fn(source, b, dev)
+        mark("actions")
         words_f, regs_f, rsum, epi, csum = run_core(
             carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, stream, env.config
         )
+        mark("kernel")
         rng = carry.rng
         if mode == "regen":
             rng = _replay_rng_chain(env, rng, epi[0])
+            mark("rng")
         metrics = rollout_metrics(rsum, epi, csum, num_steps)
+        mark("sums")
         return PackedCarry(words_f, regs_f, carry.tmpl_words, carry.tmpl_regs, rng), metrics
 
     return step_carry
@@ -848,15 +861,15 @@ def _surface(env: Env, mode: str, as_carry: bool, step_carry):
     if as_carry:
         return step_carry
 
-    def rollout(source, states: EnvState):
-        carry, metrics = step_carry(source, packed_init(env, states, mode))
+    def rollout(source, states: EnvState, mark=_no_mark):
+        carry, metrics = step_carry(source, packed_init(env, states, mode), mark=mark)
         return packed_finish(env, carry), metrics
 
     return rollout
 
 
 def _actions_for(env: Env, num_steps: int, actions_override):
-    return lambda generator, b, dev: _action_stream(env, num_steps, generator, b, dev, actions_override)
+    return lambda source, b, dev: _action_stream(env, num_steps, source, b, dev, actions_override)
 
 
 def _build_rollout(env, num_steps, mode, as_carry, actions_override, regen_chunk, refresh_block, run):
@@ -891,12 +904,14 @@ def build_fused_rollout(
     refresh_block=None,
     row_reader: str = "auto",
 ):
-    """`rollout(generator, states) -> (states, RolloutMetrics)`, or with
-    `as_carry=True` the steady surface `step(generator, carry) -> (carry,
+    """`rollout(source, states) -> (states, RolloutMetrics)`, or with
+    `as_carry=True` the steady surface `step(source, carry) -> (carry,
     RolloutMetrics)` (see `packed_init`/`packed_finish`). The step loop
     runs in the CUDA kernel for CUDA tensors and in the plain twin for CPU
-    tensors. `actions_override` (`(T, B)` or `(T,)`) replaces the random
-    policy.
+    tensors. The random policy draws from `source`: a `torch.Generator`,
+    or a `(2,)` key, which gives the JAX package's `random_policy` actions
+    at the cost of a Threefry stream in plain torch (PERF.md §5 times
+    both); `actions_override` (`(T, B)` or `(T,)`) replaces it.
 
     `row_reader` takes the JAX package's values, "auto", "slices" and
     "matmul", and raises on any other. They choose how the TPU kernel

@@ -1,13 +1,15 @@
 """Write the JAX package's generator outputs that
 `tests/port/test_torch_doorkey.py`, `tests/port/test_torch_hooks.py`,
-`tests/port/test_torch_dynamicobstacles.py` and
-`tests/port/test_torch_memory_unlock.py` hold the port's generators
+`tests/port/test_torch_dynamicobstacles.py`,
+`tests/port/test_torch_memory_unlock.py` and
+`tests/port/test_torch_rooms_crossings.py` hold the port's generators
 against (`data/family_generators_b32.npz`), and recompute them live for
 those files' `slow` tests.
 
-For each of the 33 ids of Empty-Random, DoorKey, Fetch, GoToDoor,
+For each of the 47 ids of Empty-Random, DoorKey, Fetch, GoToDoor,
 GoToObject, PutNear, RedBlueDoors, DynamicObstacles, Memory, Unlock,
-UnlockPickup and BlockedUnlockPickup: `jax.vmap(generate)` on the 32 keys
+UnlockPickup, BlockedUnlockPickup, LavaGap, FourRooms, Lava and Simple
+Crossing, LockedRoom and Playground: `jax.vmap(generate)` on the 32 keys
 `split(key(21), 32)`, every state field stored as `<env id>/<field>`.
 Each generator takes one to four seconds to compile on a CPU; the tier-1
 run compiles none of them, which keeps its worker processes clear of
@@ -42,7 +44,13 @@ HOOKED_IDS = (
 DYNOBST_IDS = [f"MiniGrid-Dynamic-Obstacles-{n}-v0" for n in ("5x5", "Random-5x5", "6x6", "Random-6x6", "8x8", "16x16")]
 MEMORY_UNLOCK_IDS = [f"MiniGrid-Memory{n}-v0" for n in ("S17Random", "S13Random", "S13", "S11", "S9", "S7")] + [
     "MiniGrid-Unlock-v0", "MiniGrid-UnlockPickup-v0", "MiniGrid-BlockedUnlockPickup-v0"]
-ALL_IDS = DOORKEY_IDS + HOOKED_IDS + DYNOBST_IDS + MEMORY_UNLOCK_IDS
+ROOMS_CROSSINGS_IDS = (
+    [f"MiniGrid-LavaGapS{s}-v0" for s in (5, 6, 7)]
+    + ["MiniGrid-FourRooms-v0"]
+    + [f"MiniGrid-{o}CrossingS{n}-v0" for o in ("Lava", "Simple") for n in ("9N1", "9N2", "9N3", "11N5")]
+    + ["MiniGrid-LockedRoom-v0", "MiniGrid-Playground-v0"]
+)
+ALL_IDS = DOORKEY_IDS + HOOKED_IDS + DYNOBST_IDS + MEMORY_UNLOCK_IDS + ROOMS_CROSSINGS_IDS
 
 
 def keys():

@@ -57,6 +57,54 @@ def test_train_state_defaults_to_the_card():
     assert ts.opt_state.mu.shape == (318_984,) and int(ts.opt_state.count) == 0
 
 
+MIXED_IDS = ("MiniGrid-LavaCrossingS9N1-v0", "MiniGrid-FourRooms-v0")
+
+
+def _mixed_outputs(device, monkeypatch):
+    """One call of each mixed surface on member carries on `device`, with
+    the port's default device made to raise: nothing inside may fall back
+    to it. Returns every output tensor."""
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.ops.fused_rollout import packed_init
+    from minigrid_tpu_torch.parallel import mixed
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    carries = tuple(packed_init(make(e), make(e).reset_batch(key(i, device=device), 32), "regen")
+                    for i, e in enumerate(MIXED_IDS))
+
+    def no_default(device=None):
+        if device is None:
+            raise AssertionError("a mixed surface asked for the default device")
+        return torch.device(device)
+
+    monkeypatch.setattr(prng, "default_device", no_default)
+    # Built with no device in sight: the builders make no tensor.
+    rollout = mixed.build_packed_mixed_rollout(MIXED_IDS, 8, mode="regen", as_carry=True)
+    policy = mixed.build_mixed_policy_eval(MIXED_IDS, [dyadic_flax_params(0)] * 2, 8, mode="regen")
+    out = []
+    for step in (rollout, policy):
+        finals, metrics = step(key(5, device=device), carries)
+        out += [t for carry in finals for t in carry] + list(metrics)
+    return out
+
+
+def test_mixed_surfaces_follow_their_inputs_onto_the_cpu(monkeypatch):
+    """The mixed builders run on the card unless the caller's key and
+    carries are on the CPU, as here: every output lies on the CPU."""
+    outputs = _mixed_outputs(torch.device("cpu"), monkeypatch)
+    assert len(outputs) == 2 * (2 * 5 + 5) and {t.device.type for t in outputs} == {"cpu"}
+
+
+@pytest.mark.gpu
+def test_mixed_surfaces_stay_on_the_card(monkeypatch):
+    """On card carries and key, no output (nor any tensor the metrics sum)
+    lies on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    outputs = _mixed_outputs(torch.device("cuda"), monkeypatch)
+    assert {t.device.type for t in outputs} == {"cuda"}
+
+
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "minigrid_tpu_torch")):
@@ -79,7 +127,8 @@ def test_no_port_module_imports_jax_flax_or_the_jax_package():
     paths = _port_sources()
     assert len(paths) >= 20, paths
     for module in ("envs/dynamicobstacles.py", "envs/memory.py", "envs/unlock.py", "envs/unlockpickup.py",
-                   "envs/roomgrid.py", "ops/packed_hooks.py"):
+                   "envs/roomgrid.py", "ops/packed_hooks.py", "envs/lavagap.py", "envs/fourrooms.py",
+                   "envs/crossing.py", "envs/lockedroom.py", "envs/playground.py", "parallel/mixed.py"):
         assert os.path.join(REPO, "minigrid_tpu_torch", module) in paths, module
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths

@@ -203,6 +203,54 @@ def test_cuda_rollout_kernel_plans_match_plain(plan, transition, ctl, size, monk
     assert int(want[3].sum()) > 0
 
 
+# One id of each family this slice adds; each runs at 9x9 and 19x19.
+NEW_FAMILY_IDS = ("MiniGrid-LavaGapS7-v0", "MiniGrid-FourRooms-v0", "MiniGrid-LavaCrossingS9N1-v0",
+                  "MiniGrid-SimpleCrossingS11N5-v0", "MiniGrid-LockedRoom-v0", "MiniGrid-Playground-v0")
+
+
+def family_case(env_id, size, b, dev, seed=0):
+    """The family's own layouts at `size` x `size` (`max_steps` cut to 12 so
+    lanes end episodes, Crossing's rivers cut to what the size holds):
+    `(cfg, [words, regs, tmpl_words, tmpl_regs])` of `b` lanes on `dev`,
+    cached mode's carry."""
+    env = make(env_id)
+    cfg = env.config
+    crossings = cfg.num_crossings and min(cfg.num_crossings, 2 * len(range(2, size - 2, 2)))
+    cfg = dataclasses.replace(cfg, width=size, height=size, max_steps=12, num_crossings=crossings)
+    env = dataclasses.replace(env, config=cfg)
+    carry = tfr.packed_init(env, env.reset_batch(key(seed, device=dev), b), "cached")
+    return cfg, [carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [9, 19])
+@pytest.mark.parametrize("ctl", [False, True])
+@pytest.mark.parametrize("env_id", NEW_FAMILY_IDS)
+def test_cuda_rollout_kernel_on_the_new_families_matches_plain(env_id, ctl, size):
+    """LavaGap, FourRooms, both Crossings, LockedRoom and Playground on their
+    own layouts (lava, locked doors, objects; occlusion on), a ragged batch
+    (2,048 + 32 lanes), with and without commit rows, byte for byte."""
+    dev = _cuda()
+    b, t = 2048 + 32, 24
+    cfg, args = family_case(env_id, size, b, dev, seed=size)
+    assert tfr.rollout_cell_bits(cfg) == 16
+    rng = np.random.default_rng(size + ctl)
+    actions = torch.from_numpy(rng.integers(0, 7, (t, b)).astype(np.int32)).to(dev)
+    ctl_in = None
+    if ctl:
+        rows = np.stack([rng.integers(0, 2, b), rng.integers(0, t + 1, b), rng.random(b) < 0.1]).astype(np.int32)
+        rows[:, : b // 2] = 0
+        ctl_in = torch.from_numpy(rows).to(dev)
+    before = tfr.rollout_kernel_launches
+    got = tfr.run_rollout_kernel(*args, actions, cfg, ctl=ctl_in)
+    want = tfr.plain_rollout(*args, actions, cfg, ctl=ctl_in)
+    torch.cuda.synchronize()
+    assert tfr.rollout_kernel_launches == before + 1
+    for name, g, w in zip(("words", "regs", "rsum", "episodes", "checksum", "ctl"), got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    assert int(want[3].sum()) > 0
+
+
 _MISFIT = """
 import sys
 import numpy as np

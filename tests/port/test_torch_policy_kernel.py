@@ -115,13 +115,14 @@ def test_lane_block_fits_shared_memory(size, lanes):
 def test_every_ported_id_has_a_lane_block_and_plan_that_fit(env_id):
     """Every registered family (the support matrix's `FAMILY_REPS` cells
     among them): the block plan fits one block's shared memory, 128 lanes
-    wherever the grids allow (all but MultiRoom's 25x25), at least
-    MIN_STAGES ring slots, and Empty-8x8 takes 10."""
+    wherever the grids allow (all but the 19x19 grids of FourRooms,
+    LockedRoom and Playground and MultiRoom's 25x25), at least MIN_STAGES
+    ring slots, and Empty-8x8 takes 10."""
     cfg = make(env_id).config
     bt = tpr.policy_lane_block(cfg)
     stages, smem = tpr.policy_plan(cfg, bt)
     assert smem <= tpr._SMEM_LIMIT == 232_448
-    assert bt == (64 if cfg.width * cfg.height > 361 else 128)
+    assert bt == (64 if cfg.width * cfg.height >= 361 else 128)
     assert tpr.MIN_STAGES <= stages <= tpr.MAX_STAGES
     if env_id == "MiniGrid-Empty-8x8-v0":
         assert (bt, stages) == (128, 10)
@@ -351,4 +352,52 @@ def test_cuda_collect_spill_matches_plain_twin(width, height, see_through_walls)
         if g.dtype == torch.float32:
             g, x = g.view(torch.int32), x.view(torch.int32)
         assert torch.equal(g, x), name
+    assert int(want[3].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [9, 19])
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("env_id", ["MiniGrid-LavaGapS7-v0", "MiniGrid-FourRooms-v0", "MiniGrid-LavaCrossingS9N1-v0",
+                                    "MiniGrid-SimpleCrossingS11N5-v0", "MiniGrid-LockedRoom-v0",
+                                    "MiniGrid-Playground-v0"])
+def test_cuda_kernel_on_the_new_families_matches_plain_twin(env_id, collect, size):
+    """Under dyadic weights, on each new family's own layouts (a ragged
+    batch of 2,048 + 32 lanes: 128-lane blocks at 9x9, 64-lane blocks at
+    19x19) under commit rows, in eval and collect mode: byte for byte,
+    f32 rows as bits, the spill on each lane's committed rows."""
+    from test_torch_kernel import family_case
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, t = 2048 + 32, 24
+    cfg, args = family_case(env_id, size, b, dev, seed=size + 1)
+    assert tpr.policy_lane_block(cfg) == (64 if size == 19 else 128)
+    rng = np.random.default_rng(size)
+    seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, (t, b)).astype(np.int32)).to(dev)
+    rows = np.stack([rng.integers(0, 2, b), rng.integers(0, t + 1, b), rng.random(b) < 0.1]).astype(np.int32)
+    rows[:, : b // 2] = 0
+    ctl = torch.from_numpy(rows).to(dev)
+    to_weights = tpr.train_weights_from_params if collect else tpr.eval_weights_from_params
+    w = to_weights(dyadic_flax_params(7), cfg.agent_view_size, device=dev)
+    before = tpr.policy_kernel_launches
+    got = tpr.run_policy_kernel(*args, seeds, w, cfg, collect=collect, ctl=ctl)
+    want = tpr.plain_policy_rollout(*args, seeds, w, cfg, collect=collect, ctl=ctl)
+    torch.cuda.synchronize()
+    assert tpr.policy_kernel_launches == before + 1
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for name, g, x in zip(("words", "regs", "rsum", "episodes", "checksum"), got[:5], want[:5]):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert torch.equal(bits(g), bits(x)), name
+    assert torch.equal(got[-1], want[-1])  # the commit rows
+    if collect:
+        committed = torch.arange(t, device=dev)[:, None] < (want[-1][1] - ctl[1])[None, :]
+        assert bool(committed.any())
+        for name, g, x in zip(("obs_w", "actions", "logp", "value", "reward", "done"), got[5], want[5]):
+            assert g.dtype == x.dtype and g.shape == x.shape, name
+            m = committed if g.ndim == 2 else committed[:, None, :]
+            assert torch.equal(torch.where(m, bits(g), 0), torch.where(m, bits(x), 0)), name
     assert int(want[3].sum()) > 0

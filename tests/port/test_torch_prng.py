@@ -1,8 +1,9 @@
 """The port's Threefry and key recipes, bit for bit against jax.random and
 the JAX package's `core.prng` on numpy-made keys: split, bits, randint
-(static and per-lane bounds), categorical over 0/-inf masks, and
+(static and per-lane bounds), categorical over 0/-inf masks,
 permutation (with its stable sort held to `lax.sort_key_val` on tied sort
-keys)."""
+keys), the permutation of per-lane values, `fold_in`, and the random
+policy's `(T, B)` stream from one key."""
 
 import functools
 
@@ -173,3 +174,53 @@ def test_hash_u31_matches_jax_at_the_walk_counters(n):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (counters < 0).any()  # the counter wrapped
+
+
+@pytest.mark.parametrize("data", [0, 1, 2, 7, 2**31, 2**32 - 1])
+def test_fold_in_matches_jax_random_fold_in(data):
+    keys = _keys(200 + data % 97)[:2000]
+    want = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.fold_in(k, data)))(jnp.asarray(keys)))
+    got = prng.fold_in(_t(keys), data).numpy()
+    assert got.dtype == np.int64 and got.min() >= 0 and got.max() < 2**32
+    np.testing.assert_array_equal(got.astype(np.uint32), want)
+
+
+def test_fold_in_rejects_data_outside_uint32():
+    for data in (-1, 2**32):
+        with pytest.raises(ValueError, match="uint32"):
+            prng.fold_in(_t(_keys(1)[:4]), data)
+
+
+@pytest.mark.parametrize("n,values", [(2, "mask"), (3, "mask"), (5, "mask"), (6, "positions"), (8, "positions"),
+                                      (40, "positions")])
+def test_permute_matches_jax_random_permutation_of_an_array(n, values):
+    """Crossing's draws: the path's move kinds `arange(n) < nv` (many ties
+    among the values), and arbitrary per-lane values; jax takes its round
+    count from the array's length."""
+    rng = np.random.default_rng(n)
+    keys = _keys(300 + n)[:2000]
+    if values == "mask":
+        x = (np.arange(n)[None, :] < rng.integers(0, n + 1, (2000, 1))).astype(np.int32)
+    else:
+        x = rng.integers(-50, 50, (2000, n)).astype(np.int32)
+    want = np.asarray(jax.jit(jax.vmap(lambda k, v: jax.random.permutation(k, v)))(jnp.asarray(keys),
+                                                                                    jnp.asarray(x)))
+    got = prng.permute(_t(keys), torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("num_actions,b", [(7, 37), (3, 256)])
+def test_randint_stream_is_the_jax_packages_random_policy(num_actions, b):
+    """`split(key, T)`, then `randint(key_t, (B,), 0, A)` per step, as the
+    JAX package's packed rollouts draw the random policy."""
+    from minigrid_tpu.core.rollout import random_policy
+
+    t = 9
+    policy = random_policy(num_actions)
+    k = jax.random.PRNGKey(num_actions * 1000 + b)
+    want = np.asarray(jax.jit(lambda k: jax.vmap(lambda kt: policy(kt, jnp.zeros((b, 1), jnp.int32)))(
+        jax.random.split(k, t)))(k))
+    got = prng.randint_stream(_t(k), t, b, 0, num_actions)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (t, b)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -4,7 +4,7 @@ the kernel takes its grid and view, the offset tables agree, and `make`
 either returns that configuration or names ROADMAP.md; on every ported id
 and both auto-reset modes, `fused_rollout_supported` is the JAX
 package's; and on every cell of `tests/test_support_matrix.py`'s
-`FAMILY_REPS` that the port covers (15 of the 22 families), both modes
+`FAMILY_REPS` that the port covers (21 of the 22 families), both modes
 and all three surfaces, the port's support predicates are the JAX
 package's, and all true."""
 
@@ -26,11 +26,13 @@ from minigrid_tpu_torch.ops.fused_rollout import fused_rollout_supported, kernel
 
 def test_ported_ids_keep_the_jax_registration_order():
     assert env_list == [e for e in jax_env_list if e in env_list]
-    # Empty (4), Empty-Random (2), DistShift (2), DoorKey (4),
-    # DynamicObstacles (6), Memory (6), Fetch (3), GoToDoor (3),
-    # GoToObject (2), PutNear (2), RedBlueDoors (2), MultiRoom (3), Unlock,
+    # Empty (4), Empty-Random (2), DistShift (2), LavaGap (3), FourRooms,
+    # DoorKey (4), LavaCrossing (4), SimpleCrossing (4), DynamicObstacles
+    # (6), Memory (6), Fetch (3), GoToDoor (3), GoToObject (2), PutNear
+    # (2), RedBlueDoors (2), MultiRoom (3), LockedRoom, Playground, Unlock,
     # UnlockPickup, BlockedUnlockPickup, KeyCorridor (6).
-    assert len(env_list) == 48
+    assert len(env_list) == 62
+    assert [e for e in jax_env_list if e not in env_list] == [e for e in jax_env_list if "ObstructedMaze" in e]
 
 
 @pytest.mark.parametrize("mode", ["cached", "regen"])
@@ -71,8 +73,9 @@ def _family_reps():
 PORTED_REPS = [e for e in _family_reps() if e in env_list]
 
 
-def test_fifteen_of_the_support_matrix_families_are_ported():
-    assert len(_family_reps()) == 22 and len(PORTED_REPS) == 15
+def test_twenty_one_of_the_support_matrix_families_are_ported():
+    assert len(_family_reps()) == 22 and len(PORTED_REPS) == 21
+    assert [e for e in _family_reps() if e not in env_list] == ["MiniGrid-ObstructedMaze-1Dl-v0"]
 
 
 @pytest.mark.parametrize("surface", ["fused", "eval", "collect"])

@@ -197,13 +197,13 @@ def test_unported_paths_raise():
     """An id the port lacks, regen mode on an env without a generator, and
     a transition whose hook is not ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make("MiniGrid-FourRooms-v0")
-    jcfg = minigrid_tpu.make("MiniGrid-FourRooms-v0").config
-    fourrooms = Env("MiniGrid-FourRooms-v0", EnvConfig(**dataclasses.asdict(jcfg)), generate=None)
+        make("MiniGrid-ObstructedMaze-1Dl-v0")
+    jcfg = minigrid_tpu.make("MiniGrid-ObstructedMaze-1Dl-v0").config
+    maze = Env("MiniGrid-ObstructedMaze-1Dl-v0", EnvConfig(**dataclasses.asdict(jcfg)), generate=None)
     with pytest.raises(NotImplementedError, match="no generator"):
-        tfr.build_fused_rollout(fourrooms, 8, mode="regen")
+        tfr.build_fused_rollout(maze, 8, mode="regen")
     with pytest.raises(NotImplementedError, match="hooks"):
-        tfr.build_fused_rollout(dataclasses.replace(fourrooms, transition="lavagap"), 8, mode="cached")
+        tfr.build_fused_rollout(dataclasses.replace(maze, transition="lavagap"), 8, mode="cached")
 
 
 def test_port_never_imports_jax():

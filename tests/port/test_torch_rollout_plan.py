@@ -67,7 +67,7 @@ def test_rollout_plan_takes_more_threads_only_where_warps_are_short():
 
 def test_rollout_plan_runs_int32_cells_off_the_16_bit_configurations():
     cfg = make("MiniGrid-Empty-8x8-v0").config
-    for other in (dataclasses.replace(cfg, agent_view_size=5), dataclasses.replace(cfg, family="lockedroom")):
+    for other in (dataclasses.replace(cfg, agent_view_size=5), dataclasses.replace(cfg, family="obstructedmaze")):
         plan = fr.rollout_plan(other, 32_768)
         assert (plan.cell_bits, plan.threads_per_lane) == (32, 1)
         assert plan.lanes <= fr.kernel_lane_block(other)
