@@ -278,6 +278,37 @@ result line):
      with that member's launches; and the cached call's action stream
      drawn at each member's shape from a key (the JAX package's actions,
      `prng.randint_stream`) and from a `torch.Generator`.
+ 19. ObstructedMaze (keys in boxes, blocking balls, locked doors; the
+     batched `generate` refreshes its templates) and the per-env engine,
+     TF32 off: (a) each of the 8 ids' regen main path, B=32,768, T=32,
+     chunk 16, the key-drawn random policy, every step count within 4·T
+     of `max_steps` so about a quarter of the lanes reset in each call
+     (in (b) and (c) too): one warm-up and one timed
+     call with only the rollout kernel launched, the template refresh's
+     share of it, 4,096 fresh lanes (as near the end) through the whole
+     step against `build_packed_plain_rollout` (carries and metrics byte
+     for byte), then one 16-step B1 pass of 32,768 fresh lanes under
+     fresh commit rows against `plain_rollout` with the id's launch plan; (b) policy evaluation (the
+     seeded `ActorCritic`) at 1Dlhb and Full, regen B=32,768, T=64: a
+     window with only the policy kernel launched, one 64-step B2 pass
+     with the pickup-target hook under fresh commit rows against
+     `plain_policy_rollout` under dyadic weights, and the seeded weights
+     after one step on at most 1e-4 of the lanes; (c) one fused train step
+     at 2Dlhb, B=32,768, T=64, chunk 16 (B2 collecting, B3): a window with
+     only those two kernels launched, the collecting pass byte for byte
+     under dyadic weights and B3 against `plain_grad_pass` within phase
+     7's bounds; (d) the per-env engine (`core/rollout.py::build_rollout`,
+     plain PyTorch) against `build_fused_rollout` (B1) from the same
+     `reset_batch` states (step counts within 128 of `max_steps`) and
+     the same key, B=32,768, T=64: Empty-8x8 cached, DoorKey-8x8 regen and
+     ObstructedMaze-1Dlhb regen; episodes, total_steps, obs_checksum and
+     every final state field equal, total_reward to rtol 1e-5, only the
+     rollout kernel launched on the fused side, both env-steps/s, then a
+     B1 pass at the final carry against `plain_rollout`; (e)
+     `build_mixed_rollout` on config 5's members (`MixedEnv`, alternating
+     lanes, B=8,192, T=64, step counts within 64 of each member's
+     `max_steps`) on the card against the same call on the CPU: states
+     and integer metrics byte for byte, reward to rtol 1e-5; its rate.
 
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
@@ -297,6 +328,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -454,6 +486,23 @@ MIXED_CHUNK = 32
 MIXED_TIMED = 2
 MIXED_CHECK_B = 1024
 MIXED_CHECK_T = 32
+# Phase 19: ObstructedMaze (B1, B2, B3 on its layouts) and the per-env
+# engine held against B1 and run on the mixed batch.
+OM_IDS = tuple(f"MiniGrid-ObstructedMaze-{n}-v0" for n in ("1Dl", "1Dlh", "1Dlhb", "2Dlh", "2Dlhb", "1Q", "2Q", "Full"))
+OM_B = 32_768
+OM_T = 32
+OM_CHUNK = 16
+OM_CHECK_B = 4096
+OM_POLICY_IDS = ("MiniGrid-ObstructedMaze-1Dlhb-v0", "MiniGrid-ObstructedMaze-Full-v0")
+OM_POLICY_T = 64
+OM_TRAIN_ID = "MiniGrid-ObstructedMaze-2Dlhb-v0"
+OM_TRAIN_T = 64
+ENGINE_CELLS = (("MiniGrid-Empty-8x8-v0", "cached"), ("MiniGrid-DoorKey-8x8-v0", "regen"),
+                ("MiniGrid-ObstructedMaze-1Dlhb-v0", "regen"))
+ENGINE_B = 32_768
+ENGINE_T = 64
+ENGINE_MIXED_B = 8192
+ENGINE_MIXED_T = 64
 
 # Times under the previous design of the rollout kernel (one thread a lane,
 # int32 grids) and of the Mosaic probe (the forward recomputed by every
@@ -855,7 +904,7 @@ def phase_main_path(dev, card):
 
     from minigrid_tpu_torch import make
     from minigrid_tpu_torch.core.prng import key
-    from minigrid_tpu_torch.core.rollout import random_policy
+    from minigrid_tpu_torch.core.rollout import generator_policy
     from minigrid_tpu_torch.ops import _build
     from minigrid_tpu_torch.ops import fused_rollout as fr
 
@@ -866,7 +915,7 @@ def phase_main_path(dev, card):
     env = make(ENV_ID)
     cfg = env.config
     t0 = time.perf_counter()
-    states = env.reset_batch(key(0, device=dev), MAIN_B)
+    states, _ = env.reset_batch(key(0, device=dev), MAIN_B)
     carry = fr.packed_init(env, states, "regen")
     torch.cuda.synchronize()
     print(f"phase 2: {ENV_ID} B={MAIN_B} T={MAIN_T} regen: reset_batch + packed_init "
@@ -925,7 +974,7 @@ def phase_main_path(dev, card):
         raise RuntimeError(f"kernel and plain twin differ at full size in {bad}")
 
     # The kernel alone and the twin alone, on fixed actions.
-    actions = random_policy(cfg.num_actions)(torch.Generator(device=dev).manual_seed(11), MAIN_T, MAIN_B)
+    actions = generator_policy(cfg.num_actions)(torch.Generator(device=dev).manual_seed(11), MAIN_T, MAIN_B)
     args = (warm_carry.words, warm_carry.regs, warm_carry.tmpl_words, warm_carry.tmpl_regs, actions, cfg)
     fr.run_rollout_kernel(*args)  # warm
     kernel_ms, got = time_events(lambda: fr.run_rollout_kernel(*args), 5)
@@ -958,7 +1007,7 @@ def phase_policy_main_path(dev, card):
     env = make(ENV_ID)
     cfg = env.config
     t0 = time.perf_counter()
-    carry = fr.packed_init(env, env.reset_batch(key(0), MAIN_B), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0), MAIN_B)[0], "regen")
     model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
     step = pr.build_policy_eval_rollout(env, model, POLICY_T, mode="regen", as_carry=True)
     torch.cuda.synchronize()
@@ -1126,7 +1175,7 @@ def phase_train_main_path(dev, card):
     torch.cuda.reset_peak_memory_stats(dev)
     env = make(ENV_ID)
     t0 = time.perf_counter()
-    carry = fr.packed_init(env, env.reset_batch(key(0), TRAIN_B), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0), TRAIN_B)[0], "regen")
     ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
     step = tr.build_fused_train_step(env, TRAIN_T, mode="regen")
     p0 = tr.flatten_params(ts.params.flax_params())
@@ -1387,7 +1436,7 @@ def phase_kc_main_path(dev, card):
     env = make(KC_ENV_ID)
     cfg = env.config
     t0 = time.perf_counter()
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), KC_B), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), KC_B)[0], "regen")
     torch.cuda.synchronize()
     print(f"phase 8: {KC_ENV_ID} B={KC_B} T={KC_T} regen: reset_batch + packed_init "
           f"{time.perf_counter() - t0:.3f} s, {gk.connect_kernel_launches} connect kernel launches", flush=True)
@@ -1579,7 +1628,7 @@ def phase_kc_vs_plain(dev, card, env, warm_carry, reset_carry):
     overlaps, successes = 0, 0.0
     for env_id in KC_CHECK_IDS:
         base = make(env_id)
-        states = plant_pickup_target(state_to_numpy(base.reset_batch(key(3, device=dev), KC_CHECK_B)))
+        states = plant_pickup_target(state_to_numpy(base.reset_batch(key(3, device=dev), KC_CHECK_B)[0]))
         for max_steps in (base.config.max_steps, KC_CUT_MAX_STEPS):
             e = base if max_steps == base.config.max_steps else dataclasses.replace(
                 base, config=dataclasses.replace(base.config, max_steps=max_steps))
@@ -1724,7 +1773,7 @@ def phase_mr_main_path(dev, card):
 
     env = make(MR_ENV_ID)
     t0 = time.perf_counter()
-    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), MR_B), "regen")
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), MR_B)[0], "regen")
     torch.cuda.synchronize()
     print(f"phase 10: {MR_ENV_ID} B={MR_B} T={MR_T} regen_chunk {MR_CHUNK}: reset_batch + packed_init "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
@@ -1833,7 +1882,7 @@ def phase_mr_vs_plain(dev, card, env, rand, policy):
     # through the kernels and through the plain versions.
     cut = make(MR_CUT_ID)
     cut = dataclasses.replace(cut, config=dataclasses.replace(cut.config, max_steps=MR_CUT_MAX_STEPS))
-    carry = fr.packed_init(cut, cut.reset_batch(key(3, device=dev), MR_CUT_B), "regen")
+    carry = fr.packed_init(cut, cut.reset_batch(key(3, device=dev), MR_CUT_B)[0], "regen")
     for path, builds, source in (
         ("random", (fr.build_fused_rollout, fr.build_packed_plain_rollout), None),
         ("policy", (pr.build_policy_eval_rollout, pr.build_policy_eval_plain_rollout), "key"),
@@ -1950,7 +1999,7 @@ def phase_regen_policy_main_path(dev, card):
 
     out = {}
     kc = make(KC_ENV_ID)
-    kc_carry0 = fr.packed_init(kc, kc.reset_batch(key(0, device=dev), RT_B), "regen")
+    kc_carry0 = fr.packed_init(kc, kc.reset_batch(key(0, device=dev), RT_B)[0], "regen")
     model = ActorCritic(kc.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
     eval_step = pr.build_policy_eval_rollout(kc, model, RT_KC_T, mode="regen", as_carry=True,
                                              regen_chunk=RT_KC_CHUNK)
@@ -1974,7 +2023,7 @@ def phase_regen_policy_main_path(dev, card):
         ("c", MR_ENV_ID, RT_MR_T, RT_MR_CHUNK, RT_MR_TIMED, ("policy_kernel", "grad_kernel", "mr_chain_kernel")),
     ):
         env = make(env_id)
-        carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), RT_B), "regen")
+        carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), RT_B)[0], "regen")
         ts0 = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
         step = tr.build_fused_train_step(env, t, mode="regen", regen_chunk=chunk)
         p0 = tr.flatten_params(ts0.params.flax_params())
@@ -2155,7 +2204,7 @@ def phase_regen_policy_vs_plain(dev, card, kc, model, runs):
         env = make(env_id)
         if max_steps is not None:
             env = dc.replace(env, config=dc.replace(env.config, max_steps=max_steps))
-        states = env.reset_batch(key(7, device=dev), MR_CUT_B)
+        states, _ = env.reset_batch(key(7, device=dev), MR_CUT_B)
         if planted:
             states = state_from_numpy(plant_pickup_target(state_to_numpy(states)), device=dev)
         carry = fr.packed_init(env, states, mode)
@@ -2249,11 +2298,12 @@ def _slice_carry(carry, n):
 
 
 def _time_pass(name, cfg, carry, t, dev, card, transition, surface, weights=None, reps=RT_TIMED_KERNEL, seed=0,
-               ctl=True):
+               ctl=True, repeats=1):
     """One chunk pass of `t` steps from `carry`, under fresh commit rows if
     `ctl` (regen's chunk passes) or none (cached mode's calls): the kernel
-    (warm, then timed, mean of `reps`) and its plain version (timed once),
-    compared byte for byte. Returns (max_abs_err, ms, plain_ms, bound)."""
+    (warm, then timed, mean of `reps`; with `repeats` > 1 the median of that
+    many such means) and its plain version (timed once), compared byte for
+    byte. Returns (max_abs_err, ms, plain_ms, bound)."""
     import torch
 
     from minigrid_tpu_torch.ops import fused_rollout as fr
@@ -2276,15 +2326,16 @@ def _time_pass(name, cfg, carry, t, dev, card, transition, surface, weights=None
         plain = lambda: pr.plain_policy_rollout(*args, stream, weights, cfg, **kw)  # noqa: E731
         bnd = b2_bound(cfg, b, t, collect, ctl=ctl, dev=dev)
     kernel()  # warm
-    ms, got = time_events(kernel, reps)
+    readings = [time_events(kernel, reps) for _ in range(repeats)]
+    ms, got = statistics.median(r[0] for r in readings), readings[-1][1]
     plain_ms, want = time_events(plain, 1)
     bad = _policy_mismatches(got, want, ctl_rows)
     err = float((got[2] - want[2]).abs().max())
+    spread = f"; the median of {', '.join(f'{r[0]:.6f}' for r in readings)}" if repeats > 1 else ""
     print(f"phase {name}: {surface} pass under {transition!r}, commit rows {ctl}, {cfg.width}x{cfg.height} B={b} "
-          f"T={t}: kernel "
-          f"{ms:.6f} ms/call (mean of {reps}), plain {plain_ms:.4f} ms; episodes {int(want[3].sum())}; mismatches "
-          f"{bad or 'none'}; bound {bnd} [{card}]" + (f"; {b1_plan(cfg, b, t)}" if surface == "random" else ""),
-          flush=True)
+          f"T={t}: kernel {ms:.6f} ms/call (mean of {reps}{spread}), plain {plain_ms:.4f} ms; episodes "
+          f"{int(want[3].sum())}; mismatches {bad or 'none'}; bound {bnd} [{card}]"
+          + (f"; {b1_plan(cfg, b, t)}" if surface == "random" else ""), flush=True)
     if bad:
         raise RuntimeError(f"phase {name}: the {surface} kernel under {transition!r} differs from its plain version")
     return err, ms, plain_ms, bnd
@@ -2307,7 +2358,7 @@ def phase_doorkey_main_path(dev, card):
 
     env = make(DK_ENV_ID)
     out = {"env": env}
-    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), DK_B), "regen")
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), DK_B)[0], "regen")
     step = fr.build_fused_rollout(env, DK_T, mode="regen", as_carry=True, regen_chunk=DK_CHUNK)
     gen = torch.Generator(device=dev).manual_seed(1)
     state = {"carry": carry0, "befores": []}
@@ -2329,7 +2380,7 @@ def phase_doorkey_main_path(dev, card):
     del carry0, state
     torch.cuda.empty_cache()
 
-    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), DK_TRAIN_B), "regen")
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), DK_TRAIN_B)[0], "regen")
     ts0 = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
     train = tr.build_fused_train_step(env, DK_TRAIN_T, mode="regen", regen_chunk=DK_CHUNK)
     p0 = tr.flatten_params(ts0.params.flax_params())
@@ -2415,10 +2466,10 @@ def phase_doorkey_vs_plain(dev, card, runs):
     three_surfaces("c", env, _slice_carry(runs["rand"][0][2], DK_CHECK_B),
                    _slice_carry(runs["train"][0][2][1], DK_CHECK_B), DK_T, DK_CHUNK, False)
     cut = dataclasses.replace(env, config=dataclasses.replace(env.config, max_steps=DK_CUT_MAX_STEPS))
-    carry = fr.packed_init(cut, cut.reset_batch(key(6, device=dev), DK_CHECK_B), "regen")
+    carry = fr.packed_init(cut, cut.reset_batch(key(6, device=dev), DK_CHECK_B)[0], "regen")
     three_surfaces("d", cut, carry, carry, DK_CUT_T, DK_CUT_CHUNK, True)
     er = make(ER_ENV_ID)
-    carry = fr.packed_init(er, er.reset_batch(key(7, device=dev), DK_CHECK_B), "regen")
+    carry = fr.packed_init(er, er.reset_batch(key(7, device=dev), DK_CHECK_B)[0], "regen")
     three_surfaces("e", er, carry, carry, CHECK_T, DK_CHUNK, False)
 
     # The new instantiation alone at the train step's shape, and B1 at the
@@ -2471,7 +2522,7 @@ def phase_hooks(dev, card):
         env = make(env_id)
         cfg = env.config
         model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
-        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), HK_B), "regen")}
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), HK_B)[0], "regen")}
         launches = {}
         for surface in ("random", "eval"):
             if surface == "random":
@@ -2547,7 +2598,7 @@ def phase_hooks(dev, card):
 
     # (c) The timed windows.
     fetch = make(FETCH_TIMED_ID)
-    state = {"carry": fr.packed_init(fetch, fetch.reset_batch(key(0, device=dev), FETCH_TIMED_B), "cached")}
+    state = {"carry": fr.packed_init(fetch, fetch.reset_batch(key(0, device=dev), FETCH_TIMED_B)[0], "cached")}
     step = fr.build_fused_rollout(fetch, FETCH_TIMED_T, mode="cached", as_carry=True)
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -2568,7 +2619,7 @@ def phase_hooks(dev, card):
 
     rbd = make(RBD_TIMED_ID)
     model = ActorCritic(rbd.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
-    state = {"carry": fr.packed_init(rbd, rbd.reset_batch(key(0, device=dev), HK_B), "regen")}
+    state = {"carry": fr.packed_init(rbd, rbd.reset_batch(key(0, device=dev), HK_B)[0], "regen")}
     step = pr.build_policy_eval_rollout(rbd, model, RBD_TIMED_T, mode="regen", as_carry=True, regen_chunk=HK_CHUNK)
 
     def rbd_call(i, mark):
@@ -2623,7 +2674,7 @@ def phase_new_hooks(dev, card):
 
     # (a) B1 with the pre-hook at its heaviest, cached.
     env = make(DO_CACHED_ID)
-    state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), DO_CACHED_B), "cached")}
+    state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), DO_CACHED_B)[0], "cached")}
     step = fr.build_fused_rollout(env, DO_CACHED_T, mode="cached", as_carry=True)
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -2645,7 +2696,7 @@ def phase_new_hooks(dev, card):
     # (b) DynamicObstacles-8x8 regen: policy evaluation and the train step.
     env = make(DO_REGEN_ID)
     cfg = env.config
-    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B), "regen")
+    carry0 = fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B)[0], "regen")
     model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
     eval_step = pr.build_policy_eval_rollout(env, model, NEW_T, mode="regen", as_carry=True, regen_chunk=NEW_CHUNK)
     state = {"carry": carry0}
@@ -2703,7 +2754,7 @@ def phase_new_hooks(dev, card):
     cfg = env.config
     model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
     step = pr.build_policy_eval_rollout(env, model, NEW_T, mode="regen", as_carry=True, regen_chunk=NEW_CHUNK)
-    state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B), "regen")}
+    state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B)[0], "regen")}
 
     def mem_call(i, mark):
         state["carry"], m = step(key(1300 + i, device=dev), state["carry"], mark=mark)
@@ -2722,7 +2773,7 @@ def phase_new_hooks(dev, card):
     for env_id in NEW_FAMILY_IDS:
         env = make(env_id)
         step = fr.build_fused_rollout(env, NEW_FAMILY_T, mode="regen", as_carry=True, regen_chunk=NEW_CHUNK)
-        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B), "regen")}
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), NEW_B)[0], "regen")}
         gen = torch.Generator(device=dev).manual_seed(8)
 
         def family_call(i, mark, step=step, state=state, gen=gen):
@@ -2764,12 +2815,12 @@ def _time_action_sources(cfg, dev, card):
     import torch
 
     from minigrid_tpu_torch.core import prng
-    from minigrid_tpu_torch.core.rollout import random_policy
+    from minigrid_tpu_torch.core.rollout import generator_policy
 
     src = prng.key(1990, device=dev)
     g = torch.Generator(device=dev).manual_seed(1990)
     by_key = lambda: prng.randint_stream(src, MIXED_T, MIXED_B, 0, cfg.num_actions)  # noqa: E731
-    by_gen = lambda: random_policy(cfg.num_actions)(g, MIXED_T, MIXED_B)  # noqa: E731
+    by_gen = lambda: generator_policy(cfg.num_actions)(g, MIXED_T, MIXED_B)  # noqa: E731
     by_key(), by_gen()
     key_ms, _ = time_events(by_key, 3)
     gen_ms, _ = time_events(by_gen, 3)
@@ -2856,7 +2907,7 @@ def phase_slice12(dev, card):
     for env_id in S12_IDS:
         env = make(env_id)
         step = fr.build_fused_rollout(env, S12_T, mode="regen", as_carry=True, regen_chunk=S12_CHUNK)
-        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), S12_B), "regen")}
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), S12_B)[0], "regen")}
 
         def family_call(i, mark, step=step, state=state):
             state["carry"], m = step(key(1700 + i, device=dev), state["carry"], mark=mark)
@@ -2877,7 +2928,7 @@ def phase_slice12(dev, card):
         cfg = env.config
         model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
         step = pr.build_policy_eval_rollout(env, model, S12_T, mode="regen", as_carry=True, regen_chunk=S12_CHUNK)
-        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), S12_B), "regen")}
+        state = {"carry": fr.packed_init(env, env.reset_batch(key(0, device=dev), S12_B)[0], "regen")}
 
         def eval_call(i, mark, step=step, state=state):
             state["carry"], m = step(key(1750 + i, device=dev), state["carry"], mark=mark)
@@ -2906,7 +2957,7 @@ def phase_slice12(dev, card):
 
     # (c) Config 5 at full width: the three mixed surfaces.
     envs = [make(e) for e in MIXED_IDS]
-    states = [e.reset_batch(key(10 + i, device=dev), MIXED_B) for i, e in enumerate(envs)]
+    states = [e.reset_batch(key(10 + i, device=dev), MIXED_B)[0] for i, e in enumerate(envs)]
     models = [ActorCritic(e.config.num_actions, generator=torch.Generator(device=dev).manual_seed(i))
               for i, e in enumerate(envs)]
     dyadic = [dyadic_flax_params(15 + i) for i in range(len(envs))]
@@ -2957,6 +3008,246 @@ def phase_slice12(dev, card):
                 else POLICY_SOURCE]
         del warm, part, got, want, carries
         torch.cuda.empty_cache()
+    return rows
+
+
+def _near_the_end(step_count, max_steps, span, dev, seed):
+    """Step counts drawn in `[max_steps - span, max_steps)` (a tensor of
+    `max_steps` per lane, or an int), so that about `T / span` of the lanes
+    reset within `T` steps."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    back = torch.randint(1, span + 1, step_count.shape, generator=g, device=dev, dtype=torch.int32)
+    return (torch.as_tensor(max_steps, device=dev) - back).clamp(min=0).to(torch.int32)
+
+
+def _om_carry(env, b, dev, seed, span):
+    """`packed_init` of `reset_batch(key(seed))` with every step count
+    within `span` of `max_steps` (the carry's step-count row): a window of
+    a warm-up and a timed call of T steps each, at `span = 4·T`, resets
+    about a quarter of the lanes in each call."""
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops.packing import R_SC
+
+    carry = fr.packed_init(env, env.reset_batch(key(seed, device=dev), b)[0], "regen")
+    carry.regs[R_SC] = _near_the_end(carry.regs[R_SC], env.config.max_steps, span, dev, seed)
+    return carry
+
+
+def _engine_cell(env_id, mode, dev, card):
+    """Phase 19d: the per-env `build_rollout` against `build_fused_rollout`
+    at one cell. Returns the B1 row."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.core.rollout import build_rollout
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    env = make(env_id)
+    states, _ = env.reset_batch(key(0, device=dev), ENGINE_B)
+    states = states.replace(step_count=_near_the_end(states.step_count, env.config.max_steps, 2 * ENGINE_T, dev, 19))
+    per_env = build_rollout(env, ENGINE_T, autoreset_mode=mode)
+    fused = fr.build_fused_rollout(env, ENGINE_T, mode=mode)
+    src = key(1990, device=dev)
+    fused(src, states)  # warm-up: the plan and the first launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_env, m_env = per_env(src, states)
+    torch.cuda.synchronize()
+    env_s = time.perf_counter() - t0
+    _zero_counts()
+    t0 = time.perf_counter()
+    s_b1, m_b1 = fused(src, states)
+    torch.cuda.synchronize()
+    b1_s = time.perf_counter() - t0
+    counts = _counts()
+    kernels = {n: c for n, c in counts.items() if n.endswith("_kernel") and c}
+    a, b = state_to_numpy(s_env), state_to_numpy(s_b1)
+    bad = [n for n in a if not (a[n] == b[n]).all()]
+    bad += [n for n in ("episodes", "total_steps", "obs_checksum") if int(getattr(m_env, n)) != int(getattr(m_b1, n))]
+    r_env, r_b1 = float(m_env.total_reward), float(m_b1.total_reward)
+    steps = ENGINE_B * ENGINE_T
+    print(f"phase 19d: {env_id} {mode} B={ENGINE_B} T={ENGINE_T}: per-env build_rollout {env_s:.4f} s, "
+          f"{steps / env_s:.6e} env-steps/s; build_fused_rollout {b1_s:.4f} s, {steps / b1_s:.6e} env-steps/s; "
+          f"episodes {int(m_env.episodes)} and {int(m_b1.episodes)}, obs_checksum {int(m_env.obs_checksum)} and "
+          f"{int(m_b1.obs_checksum)}, reward {r_env:.6f} and {r_b1:.6f}; launches {kernels}; differing "
+          f"{bad or 'none'} [{card}]", flush=True)
+    if bad or kernels.keys() != {"rollout_kernel"} or int(m_b1.episodes) == 0 or abs(r_env - r_b1) > 1e-5 * abs(r_env):
+        raise RuntimeError(f"phase 19d: {env_id} {mode}: the per-env engine and B1 differ: {bad}, {kernels}, "
+                           f"{r_env} vs {r_b1}")
+    carry = fr.packed_init(env, s_b1, mode)
+    t = ENGINE_T if mode == "cached" else 32
+    b1 = _time_pass("19d", env.config, carry, t, dev, card, env.transition, "random", ctl=mode == "regen")
+    return [counts["rollout_kernel"], b1[0], b1[1], b1[2], b1[3], KERNEL_SOURCE]
+
+
+def _engine_mixed(dev, card):
+    """Phase 19e: `build_mixed_rollout` on the card against the CPU."""
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.core.state import EnvState
+    from minigrid_tpu_torch.parallel import mixed
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    menv = mixed.MixedEnv.create(MIXED_IDS)
+    ids = torch.arange(ENGINE_MIXED_B, device=dev) % len(MIXED_IDS)
+    states, _ = menv.reset_batch(key(20, device=dev), ids)
+    max_steps = torch.tensor([m.config.max_steps for m in menv.members], device=dev)[ids]
+    states = states.replace(step_count=_near_the_end(states.step_count, max_steps, ENGINE_MIXED_T, dev, 20))
+    rollout = mixed.build_mixed_rollout(menv, ENGINE_MIXED_T)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_gpu, m_gpu = rollout(key(21, device=dev), states)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launched = {n: c for n, c in _counts().items() if n.endswith("_kernel") and c}
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    s_cpu, m_cpu = rollout(key(21, device=cpu), EnvState(**{k: v.to(cpu) for k, v in vars(states).items()}))
+    cpu_s = time.perf_counter() - t0
+    a, b = state_to_numpy(s_gpu), state_to_numpy(s_cpu)
+    bad = [n for n in a if not (a[n] == b[n]).all()]
+    bad += [n for n in ("episodes", "total_steps", "obs_checksum") if int(getattr(m_gpu, n)) != int(getattr(m_cpu, n))]
+    r_gpu, r_cpu = float(m_gpu.total_reward), float(m_cpu.total_reward)
+    steps = ENGINE_MIXED_B * ENGINE_MIXED_T
+    print(f"phase 19e: MixedEnv {' + '.join(MIXED_IDS)} build_mixed_rollout B={ENGINE_MIXED_B} T={ENGINE_MIXED_T}: "
+          f"card {gpu_s:.4f} s, {steps / gpu_s:.6e} env-steps/s; CPU {cpu_s:.4f} s; episodes {int(m_gpu.episodes)}, "
+          f"obs_checksum {int(m_gpu.obs_checksum)}, reward {r_gpu:.6f} (CPU {r_cpu:.6f}); kernels launched "
+          f"{launched or 'none'}; differing {bad or 'none'} [{card}]", flush=True)
+    if bad or launched or int(m_gpu.episodes) < ENGINE_MIXED_B or abs(r_gpu - r_cpu) > 1e-5 * max(abs(r_cpu), 1.0):
+        raise RuntimeError(f"phase 19e: the card's mixed rollout differs from the CPU's: {bad}, {r_gpu} vs {r_cpu}")
+
+
+def phase_slice13(dev, card):
+    """Phase 19 (module docstring): ObstructedMaze through B1, B2 and B3,
+    and the per-env engine. Returns `{row name: [launches, max_abs_err, ms,
+    plain_ms, bound, source]}`."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import train as tr
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    rows = {}
+
+    # (a) Each id's regen main path under the key-drawn random policy.
+    for env_id in OM_IDS:
+        env = make(env_id)
+        step = fr.build_fused_rollout(env, OM_T, mode="regen", as_carry=True, regen_chunk=OM_CHUNK)
+        state = {"carry": _om_carry(env, OM_B, dev, 0, 4 * OM_T)}
+
+        def om_call(i, mark, step=step, state=state):
+            state["carry"], m = step(key(1800 + i, device=dev), state["carry"], mark=mark)
+            return m
+
+        res, counts, seconds, pieces, peak = _mark_window("a", om_call, 1, dev, ("rollout_kernel",), phase="19")
+        _report_window("a", f"{env_id} random policy (key), chunk {OM_CHUNK}", res, counts, seconds, pieces, peak,
+                       OM_T, card, b=OM_B, phase="19")
+        share = pieces.get("refresh", 0.0) / max(sum(pieces.values()), 1e-9)
+        print(f"phase 19a: {env_id}: the template refresh takes {pieces.get('refresh', 0.0):.4f} ms of "
+              f"{sum(pieces.values()):.4f} ms a call ({share:.4f}) [{card}]", flush=True)
+        if int(res[0].episodes) == 0:
+            raise RuntimeError(f"phase 19a: no episode ended at {env_id}")
+        part = _om_carry(env, OM_CHECK_B, dev, 3, 2 * OM_T)
+        src = key(1850, device=dev)
+        got = fr.build_fused_rollout(env, OM_T, mode="regen", as_carry=True, regen_chunk=OM_CHUNK)(src, part)
+        want = fr.build_packed_plain_rollout(env, OM_T, mode="regen", as_carry=True, regen_chunk=OM_CHUNK)(src, part)
+        bad = _same_carry_and_metrics(got, want)
+        print(f"phase 19a: {env_id}: {OM_CHECK_B} lanes, T={OM_T}, build_fused_rollout against "
+              f"build_packed_plain_rollout: differing {bad or 'none'}; episodes {int(want[1].episodes)} "
+              f"[{card}]", flush=True)
+        if bad or int(want[1].episodes) == 0:
+            raise RuntimeError(f"phase 19a: {env_id}: the fused step differs from its plain twin: {bad}")
+        fresh = _om_carry(env, OM_B, dev, 4, 2 * OM_CHUNK)
+        b1 = _time_pass("19a", env.config, fresh, OM_CHUNK, dev, card, env.transition, "random", repeats=5)
+        rows[f"rollout_kernel_{_row_name(env_id)}"] = [counts["rollout_kernel"], b1[0], b1[1], b1[2], b1[3],
+                                                       KERNEL_SOURCE]
+        del state, step, part, got, want, fresh
+        torch.cuda.empty_cache()
+
+    # (b) Policy evaluation with the pickup-target hook under the control rows.
+    for env_id in OM_POLICY_IDS:
+        env = make(env_id)
+        cfg = env.config
+        model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+        step = pr.build_policy_eval_rollout(env, model, OM_POLICY_T, mode="regen", as_carry=True,
+                                            regen_chunk=OM_CHUNK)
+        state = {"carry": _om_carry(env, OM_B, dev, 1, 4 * OM_POLICY_T)}
+
+        def eval_call(i, mark, step=step, state=state):
+            state["carry"], m = step(key(1860 + i, device=dev), state["carry"], mark=mark)
+            return m
+
+        res, counts, seconds, pieces, peak = _mark_window("b", eval_call, 1, dev, ("policy_kernel",), phase="19")
+        _report_window("b", f"{env_id} policy evaluation, chunk {OM_CHUNK}, {pr.policy_lane_block(cfg)}-lane blocks",
+                       res, counts, seconds, pieces, peak, OM_POLICY_T, card, b=OM_B, phase="19")
+        ew = pr.eval_weights_from_params(dyadic_flax_params(17), cfg.agent_view_size, device=dev)
+        b2 = _time_pass("19b", cfg, state["carry"], OM_POLICY_T, dev, card, env.transition, "eval", ew)
+        carry = state["carry"]
+        args = (carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs)
+        seed_row = pr._seeds_for(key(1870, device=dev), 1, OM_B)
+        weights = pr.eval_weights_from_params(model, cfg.agent_view_size)
+        kw = dict(transition=env.transition)
+        lanes = compare_lanes(pr.run_policy_kernel(*args, seed_row, weights, cfg, **kw),
+                              pr.plain_policy_rollout(*args, seed_row, weights, cfg, **kw))
+        print(f"phase 19b: {env_id} ActorCritic weights, T=1, B={OM_B}: {lanes} lanes differ (limit "
+              f"{FLAX_T1_MAX_SHARE * OM_B:.2f}) [{card}]", flush=True)
+        if lanes > FLAX_T1_MAX_SHARE * OM_B:
+            raise RuntimeError(f"phase 19b: {lanes} of {OM_B} lanes differ after one step at {env_id}")
+        rows[f"policy_kernel_{_row_name(env_id)}"] = [counts["policy_kernel"], b2[0], b2[1], b2[2], b2[3],
+                                                      POLICY_SOURCE]
+        del state, step
+        torch.cuda.empty_cache()
+
+    # (c) One fused train step at 2Dlhb.
+    env = make(OM_TRAIN_ID)
+    cfg = env.config
+    ts0 = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
+    train = tr.build_fused_train_step(env, OM_TRAIN_T, mode="regen", regen_chunk=OM_CHUNK)
+    p0 = tr.flatten_params(ts0.params.flax_params())
+    state = {"ts": ts0, "carry": _om_carry(env, OM_B, dev, 2, 4 * OM_TRAIN_T)}
+
+    def train_call(i, mark):
+        state["ts"], state["carry"], m = train(state["ts"], state["carry"], key(1880 + i, device=dev), mark=mark)
+        return m
+
+    res, counts, seconds, pieces, peak = _mark_window("c", train_call, 1, dev, ("policy_kernel", "grad_kernel"),
+                                                      phase="19")
+    loss = float(res[0]["loss"])
+    moved = float((tr.flatten_params(state["ts"].params.flax_params()) - p0).abs().max())
+    print(f"phase 19c: {OM_TRAIN_ID} fused train step, regen B={OM_B} T={OM_TRAIN_T} chunk {OM_CHUNK}: "
+          f"{seconds:.4f} s, {OM_B * OM_TRAIN_T / seconds:.6e} env-steps/s; loss {loss}; episodes "
+          f"{float(res[0]['episodes'])}; params moved by up to {moved:.6e}; launches {_per_call(counts, 1)}; pieces "
+          f"ms { {k: round(v, 4) for k, v in pieces.items()} }; peak memory {peak} B [{card}]", flush=True)
+    if not math.isfinite(loss) or not moved > 0 or int(res[0]["env_steps"]) != OM_B * OM_TRAIN_T:
+        raise RuntimeError(f"phase 19c: loss {loss}, params moved by {moved}, or env_steps != B*T")
+    tw = pr.train_weights_from_params(dyadic_flax_params(18), cfg.agent_view_size, device=dev)
+    b2c = _time_pass("19c", cfg, state["carry"], OM_CHUNK, dev, card, env.transition, "collect", tw, reps=1)
+    weights = pr.train_weights_from_params(state["ts"].params, cfg.agent_view_size)
+    roll = pr.build_fused_train_rollout(env, OM_TRAIN_T, mode="regen", regen_chunk=OM_CHUNK)
+    _, traj, _ = roll(weights, key(1890, device=dev), state["carry"])
+    b3 = _grad_vs_plain("19c", cfg, weights, traj, card)
+    rows[f"policy_kernel_collect_{_row_name(OM_TRAIN_ID)}"] = [counts["policy_kernel"], b2c[0], b2c[1], b2c[2],
+                                                               b2c[3], POLICY_SOURCE]
+    rows[f"grad_kernel_{_row_name(OM_TRAIN_ID)}"] = [counts["grad_kernel"], b3[0], b3[1], b3[2], b3[3], GRAD_SOURCE]
+    del state, traj, roll, train
+    torch.cuda.empty_cache()
+
+    # (d) The per-env engine against B1; (e) the mixed batch, card and CPU.
+    for env_id, mode in ENGINE_CELLS:
+        rows[f"rollout_kernel_engine_{_row_name(env_id)}_{mode}"] = _engine_cell(env_id, mode, dev, card)
+        torch.cuda.empty_cache()
+    _engine_mixed(dev, card)
     return rows
 
 
@@ -3045,6 +3336,8 @@ def main() -> int:
     new_rows = run_phase("17", phase_new_hooks, dev, card)
     torch.cuda.empty_cache()
     new_rows.update(run_phase("18", phase_slice12, dev, card))
+    torch.cuda.empty_cache()
+    new_rows.update(run_phase("19", phase_slice13, dev, card))
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():

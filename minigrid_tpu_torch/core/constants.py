@@ -40,3 +40,8 @@ COLOR_NAMES = sorted(COLOR_TO_IDX)
 
 # Heading id -> (dx, dy): 0=right(+x), 1=down(+y), 2=left, 3=up.
 DIR_TO_VEC = ((1, 0), (0, 1), (-1, 0), (0, -1))
+
+# The object types the agent may stand on (open doors too, by their state)
+# and the ones it may pick up.
+OVERLAP_TYPES = (EMPTY, FLOOR, GOAL, LAVA)
+PICKUP_TYPES = (KEY, BALL, BOX)

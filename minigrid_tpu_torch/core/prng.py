@@ -183,23 +183,33 @@ def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, lo, hi) -> torc
     return (lo + off % span).to(torch.int32)
 
 
+def _randint_rows(halves: torch.Tensor, batch: int, lo, hi) -> torch.Tensor:
+    """`jax.random.randint(k, (batch,), lo, hi)` per row, from `halves`
+    `(..., 2, 2)`: the two children of `split(k)` of each row's key. A
+    shaped `randint` draws `bits(k, (batch,))` of both children (counters
+    `(0, i)` for lane `i`) and reduces them as `randint_from_bits` does."""
+    lanes = torch.arange(batch, dtype=torch.int64, device=halves.device)
+    x0, x1 = threefry2x32(halves[..., 0:1], halves[..., 1:2], lanes >> 32, lanes & MASK32)  # (..., 2, B)
+    words = x0 ^ x1
+    return randint_from_bits(words[..., 0, :], words[..., 1, :], lo, hi)
+
+
+def randint_lanes(key: torch.Tensor, batch: int, lo: int, hi: int) -> torch.Tensor:
+    """`jax.random.randint(key, (batch,), lo, hi)` for one `(2,)` key:
+    `(batch,)` int32, one row of `randint_stream`."""
+    return _randint_rows(split(key, 2), batch, lo, hi)
+
+
 def randint_stream(key: torch.Tensor, num_steps: int, batch: int, lo: int, hi: int) -> torch.Tensor:
     """The JAX package's random policy from one `(2,)` key: `keys =
     split(key, num_steps)`, then `jax.random.randint(keys[t], (batch,), lo,
-    hi)` for each step, as a `(num_steps, batch)` int32 tensor. A shaped
-    `randint` draws `bits(k, (batch,))` of both children of `split(k)`
-    (counters `(0, i)` for lane `i`) and reduces them as `randint_from_bits`
-    does. Threefry runs over at most `_BITS_CHUNK` counters at a time."""
-    steps = split(key, num_steps)  # (T, 2)
-    halves = split(steps, 2)  # (T, 2 [higher, lower], 2)
-    lanes = torch.arange(batch, dtype=torch.int64, device=key.device)
+    hi)` for each step (`_randint_rows`), as a `(num_steps, batch)` int32
+    tensor. Threefry runs over at most `_BITS_CHUNK` counters at a time."""
+    halves = split(split(key, num_steps), 2)  # (T, 2 [higher, lower], 2)
     out = torch.empty((num_steps, batch), dtype=torch.int32, device=key.device)
     rows = max(1, _BITS_CHUNK // max(2 * batch, 1))
     for start in range(0, num_steps, rows):
-        k = halves[start : start + rows]
-        x0, x1 = threefry2x32(k[..., 0:1], k[..., 1:2], lanes >> 32, lanes & MASK32)  # (rows, 2, B)
-        words = x0 ^ x1
-        out[start : start + rows] = randint_from_bits(words[:, 0], words[:, 1], lo, hi)
+        out[start : start + rows] = _randint_rows(halves[start : start + rows], batch, lo, hi)
     return out
 
 

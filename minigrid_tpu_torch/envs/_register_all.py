@@ -3,8 +3,8 @@
 DistShift, LavaGap, FourRooms, DoorKey, Lava and Simple Crossing,
 DynamicObstacles, Memory, Fetch, GoToDoor, GoToObject, PutNear,
 RedBlueDoors, MultiRoom, LockedRoom, Playground, Unlock, UnlockPickup,
-BlockedUnlockPickup and KeyCorridor, each with the JAX package's
-configuration."""
+BlockedUnlockPickup, KeyCorridor and ObstructedMaze: all 70 of the JAX
+package's ids, each with its configuration."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from minigrid_tpu_torch.envs import lavagap as _lavagap
 from minigrid_tpu_torch.envs import lockedroom as _lockedroom
 from minigrid_tpu_torch.envs import memory as _memory
 from minigrid_tpu_torch.envs import multiroom as _multiroom
+from minigrid_tpu_torch.envs import obstructedmaze as _om
 from minigrid_tpu_torch.envs import playground as _playground
 from minigrid_tpu_torch.envs import putnear as _putnear
 from minigrid_tpu_torch.envs import redbluedoors as _rbd
@@ -255,4 +256,32 @@ for _rs, _rows in ((3, 1), (3, 2), (3, 3), (4, 3), (5, 3), (6, 3)):
         ),
         _keycorridor.generate,
         _keycorridor.TRANSITION,
+    )
+
+# A 1×2 or 3×3 grid of rooms of size 6; max_steps = 4 * rooms visited * 6**2.
+_OM_RS = 6
+for _name, _extras, _visited, _rows, _cols in (
+    ("1Dl", ("1D", False, False), 2, 1, 2),
+    ("1Dlh", ("1D", True, False), 2, 1, 2),
+    ("1Dlhb", ("1D", True, True), 2, 1, 2),
+    ("2Dlh", ("full", 2, 1, True, False, 1), 4, 3, 3),
+    ("2Dlhb", ("full", 2, 1, True, True, 1), 4, 3, 3),
+    ("1Q", ("full", 1, 1, True, True, 1), 5, 3, 3),
+    ("2Q", ("full", 1, 1, True, True, 2), 11, 3, 3),
+    ("Full", ("full", 1, 1, True, True, 4), 25, 3, 3),
+):
+    register(
+        f"MiniGrid-ObstructedMaze-{_name}-v0",
+        EnvConfig(
+            family="obstructedmaze",
+            width=(_OM_RS - 1) * _cols + 1,
+            height=(_OM_RS - 1) * _rows + 1,
+            max_steps=4 * _visited * _OM_RS * _OM_RS,
+            room_size=_OM_RS,
+            num_rows=_rows,
+            num_cols=_cols,
+            extras=_extras,
+        ),
+        _om.generate,
+        _om.TRANSITION,
     )

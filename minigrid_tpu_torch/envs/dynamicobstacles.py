@@ -22,7 +22,9 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng, sampling
-from minigrid_tpu_torch.core.state import EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.state import Actions, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step
+from minigrid_tpu_torch.core.view import front_pos
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 
@@ -83,3 +85,51 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
         grid = G.set_cell(grid, ox, oy, BALL_CELL)
         aux[:, 2 * i], aux[:, 2 * i + 1] = ox, oy
     return placed(state, grid, ax, ay, agent_dir, missions.encode(MISSION)).replace(aux=aux)
+
+
+def _remap(action: torch.Tensor, config: EnvConfig) -> torch.Tensor:
+    """Actions from `num_actions` up act as 0."""
+    return torch.where(action >= config.num_actions, torch.zeros_like(action), action)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `dynamicobstacles` transition: the front cell's
+    clearance before the walk, the obstacles' walk (obstacle i of step t
+    draws `hash_u31(rng, t·n + i)`, one after another, each to a uniform
+    free cell of its 3×3 box that is not the agent's), then
+    `post_walk_step`."""
+    a = _remap(action, config)
+    fwd = front_pos(state.agent_pos, state.agent_dir)
+    ft = G.get_cell(state.grid, fwd[:, 0], fwd[:, 1])[:, 0]
+    not_clear = (ft != C.EMPTY) & (ft != C.GOAL)
+
+    grid, aux = state.grid, state.aux.clone()
+    h, w, n = config.height, config.width, config.n_obstacles
+    ax, ay = state.agent_pos[:, 0], state.agent_pos[:, 1]
+    for i in range(n):
+        u = prng.hash_u31(state.rng[:, 0], state.rng[:, 1], state.step_count * n + i)
+        ox, oy = aux[:, 2 * i], aux[:, 2 * i + 1]
+        valid9, xs9, ys9 = [], [], []
+        for dy, dx in WALK_OFFSETS:
+            nx, ny = ox + dx, oy + dy
+            inb = (nx >= 0) & (nx < w) & (ny >= 0) & (ny < h)
+            free = G.get_cell(grid, nx, ny)[:, 0] == C.EMPTY
+            valid9.append(inb & free & ~((nx == ax) & (ny == ay)))
+            xs9.append(nx)
+            ys9.append(ny)
+        nx, ny = select_walk_target(valid9, u, xs9, ys9, ox, oy)
+        grid = G.set_cell(grid, ox, oy, G.EMPTY_CELL)
+        grid = G.set_cell(grid, nx, ny, BALL_CELL)
+        aux[:, 2 * i], aux[:, 2 * i + 1] = nx, ny
+    return post_walk_step(state.replace(grid=grid, aux=aux), a, config, not_clear)
+
+
+def post_walk_step(state: EnvState, action: torch.Tensor, config: EnvConfig, not_clear: torch.Tensor) -> StepResult:
+    """The tail of `step` on a state whose walk is done: the base
+    transition, then -1 and the end of the episode for a forward move whose
+    front cell was blocked before the walk (`not_clear`)."""
+    a = _remap(action, config)
+    res = base_step(state, a, config)
+    collided = (a == Actions.forward) & not_clear
+    reward = torch.where(collided, torch.full_like(res.reward, -1.0), res.reward)
+    return StepResult(res.state, reward, res.terminated | collided, res.truncated)

@@ -15,6 +15,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng, sampling
 from minigrid_tpu_torch.core.state import MISSION_LEN, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 from minigrid_tpu_torch.envs.roomgrid import rand_color
@@ -65,3 +66,15 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     aux = state.aux.clone()
     aux[:, 0], aux[:, 1] = t_type, t_color
     return placed(state, grid, ax, ay, agent_dir, mission).replace(aux=aux)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `fetch` transition: holding any object ends the episode,
+    rewarded iff it is the target (type, colour) of `aux[0:2]`."""
+    res = base_step(state, action, config)
+    c, aux = res.state.carrying.to(torch.int32), res.state.aux
+    has = c[:, 0] > 0
+    match = has & (c[:, 0] == aux[:, 0]) & (c[:, 1] == aux[:, 1])
+    reward = torch.where(match, success_reward(res.state.step_count, config.max_steps), res.reward)
+    reward = torch.where(has & ~match, torch.zeros_like(reward), reward)
+    return StepResult(res.state, reward, res.terminated | has, res.truncated)

@@ -15,7 +15,8 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng, sampling
-from minigrid_tpu_torch.core.state import MISSION_LEN, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.state import MISSION_LEN, Actions, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 from minigrid_tpu_torch.envs.roomgrid import COLOR_ORDER
@@ -64,3 +65,21 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     mission = torch.zeros((b, MISSION_LEN), dtype=torch.int32, device=dev)
     mission[:, 0], mission[:, 1] = MISSION, t_color
     return placed(state, grid, ax, ay, agent_dir, mission).replace(aux=aux)
+
+
+def done_near_step(state: EnvState, action: torch.Tensor, config: EnvConfig, near) -> StepResult:
+    """The `done`-at-the-target transition (GoToDoor, GoToObject): `done`
+    where `near(|dx|, |dy|)` holds between the agent and the target
+    (`aux[0:2]`) rewards; `done` and `toggle` end the episode."""
+    res = base_step(state, action, config)
+    d = (res.state.agent_pos - res.state.aux[:, 0:2]).abs()
+    is_done = action == Actions.done
+    reward = torch.where(is_done & near(d[:, 0], d[:, 1]), success_reward(res.state.step_count, config.max_steps),
+                         res.reward)
+    return StepResult(res.state, reward, res.terminated | is_done | (action == Actions.toggle), res.truncated)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `gotodoor` transition: `done` cross-adjacent to the
+    target door rewards."""
+    return done_near_step(state, action, config, lambda dx, dy: ((dx == 0) & (dy == 1)) | ((dy == 0) & (dx == 1)))

@@ -15,9 +15,11 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng, sampling
 from minigrid_tpu_torch.core.state import MISSION_LEN, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 from minigrid_tpu_torch.envs.fetch import object_cells
+from minigrid_tpu_torch.envs.gotodoor import done_near_step
 
 MISSION = missions.register_template("go to the {c0} {t1}")
 
@@ -66,3 +68,9 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     mission = torch.zeros((b, MISSION_LEN), dtype=torch.int32, device=dev)
     mission[:, 0], mission[:, 1], mission[:, 2] = MISSION, t_color, t_type
     return placed(state, grid, ax, ay, agent_dir, mission).replace(aux=aux)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `gotoobject` transition: `done` within one cell of the
+    target rewards."""
+    return done_near_step(state, action, config, lambda dx, dy: (dx <= 1) & (dy <= 1))

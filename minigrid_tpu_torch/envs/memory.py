@@ -16,7 +16,8 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng
-from minigrid_tpu_torch.core.state import EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.state import Actions, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 from minigrid_tpu_torch.envs.fetch import object_cells
@@ -74,3 +75,17 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     agent_y = torch.full((b,), mid, dtype=torch.int32, device=dev)
     agent_dir = torch.zeros((b,), dtype=torch.int32, device=dev)
     return placed(state, grid, agent_x, agent_y, agent_dir, missions.encode(MISSION)).replace(aux=aux)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `memory` transition: pickup acts as toggle; stepping on
+    the success cell (`aux[0:2]`) rewards, on the failure cell (`aux[2:4]`)
+    gives 0, and both end the episode."""
+    a = torch.where(action == Actions.pickup, torch.full_like(action, Actions.toggle), action)
+    res = base_step(state, a, config)
+    pos, aux = res.state.agent_pos, res.state.aux
+    on_success = (pos[:, 0] == aux[:, 0]) & (pos[:, 1] == aux[:, 1])
+    on_failure = (pos[:, 0] == aux[:, 2]) & (pos[:, 1] == aux[:, 3])
+    reward = torch.where(on_success, success_reward(res.state.step_count, config.max_steps), res.reward)
+    reward = torch.where(on_failure, torch.zeros_like(reward), reward)
+    return StepResult(res.state, reward, res.terminated | on_success | on_failure, res.truncated)

@@ -16,7 +16,9 @@ import torch
 
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng, sampling
-from minigrid_tpu_torch.core.state import MISSION_LEN, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.state import MISSION_LEN, Actions, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
+from minigrid_tpu_torch.core.view import front_pos
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 from minigrid_tpu_torch.envs.fetch import object_cells
@@ -59,3 +61,20 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     mission[:, 0] = MISSION
     mission[:, 1], mission[:, 2], mission[:, 3], mission[:, 4] = aux[:, 1], aux[:, 0], aux[:, 5], aux[:, 4]
     return placed(state, grid, ax, ay, agent_dir, mission).replace(aux=aux)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `putnear` transition: a pickup while holding anything
+    but the object to move (`aux[0:2]`) ends the episode; so does any drop
+    while holding, rewarded iff it landed next to the target (`aux[2:4]`)."""
+    res = base_step(state, action, config)
+    aux = res.state.aux
+    c = res.state.carrying.to(torch.int32)
+    wrong = (c[:, 0] > 0) & ((c[:, 0] != aux[:, 0]) | (c[:, 1] != aux[:, 1]))
+    pickup_fail = (action == Actions.pickup) & wrong
+    dropped = (state.carrying[:, 0] > 0) & (action == Actions.drop)
+    landed = dropped & (c[:, 0] == 0)
+    fwd = front_pos(state.agent_pos, state.agent_dir)
+    near = ((fwd[:, 0] - aux[:, 2]).abs() <= 1) & ((fwd[:, 1] - aux[:, 3]).abs() <= 1)
+    reward = torch.where(landed & near, success_reward(res.state.step_count, config.max_steps), res.reward)
+    return StepResult(res.state, reward, res.terminated | pickup_fail | dropped, res.truncated)

@@ -16,6 +16,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng, sampling
 from minigrid_tpu_torch.core.state import EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
 from minigrid_tpu_torch.envs import missions
 from minigrid_tpu_torch.envs.empty import placed
 
@@ -45,3 +46,26 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     aux = state.aux.clone()
     aux[:, 0], aux[:, 1], aux[:, 2], aux[:, 3] = red_x, red_y, blue_x, blue_y
     return placed(state, grid, ax, ay, agent_dir, missions.encode(MISSION)).replace(aux=aux)
+
+
+def _door_open(grid: torch.Tensor, x, y) -> torch.Tensor:
+    cell = G.get_cell(grid, x, y)
+    return (cell[:, 0] == C.DOOR) & (cell[:, 2] == C.STATE_OPEN)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `redbluedoors` transition: the blue door (`aux[2:4]`)
+    open after the step succeeds iff the red one (`aux[0:2]`) was open
+    before it, and fails otherwise; opening the red door while the blue one
+    stood open fails. Success and failure end the episode."""
+    aux = state.aux
+    red_before = _door_open(state.grid, aux[:, 0], aux[:, 1])
+    blue_before = _door_open(state.grid, aux[:, 2], aux[:, 3])
+    res = base_step(state, action, config)
+    red_after = _door_open(res.state.grid, aux[:, 0], aux[:, 1])
+    blue_after = _door_open(res.state.grid, aux[:, 2], aux[:, 3])
+    success = blue_after & red_before
+    fail = (blue_after & ~red_before) | (~blue_after & red_after & blue_before)
+    reward = torch.where(success, success_reward(res.state.step_count, config.max_steps), res.reward)
+    reward = torch.where(fail, torch.zeros_like(reward), reward)
+    return StepResult(res.state, reward, res.terminated | success | fail, res.truncated)

@@ -23,8 +23,8 @@ env_list: List[str] = []  # registration order
 
 def register(env_id: str, config: EnvConfig, generate: GenerateFn, transition: str = BASE_STEP) -> None:
     """Register an id with its configuration, its batched generator and the
-    name of its transition (`BASE_STEP`, or a family hook's name in
-    `ops/packed_hooks.py`)."""
+    name of its transition (`BASE_STEP`, or a family's name in
+    `envs/base.py::STEP_FNS` and `ops/packed_hooks.py`)."""
     if env_id in registry:
         raise ValueError(f"duplicate env id: {env_id}")
     registry[env_id] = EnvSpec(env_id, config, generate, transition)
@@ -32,12 +32,9 @@ def register(env_id: str, config: EnvConfig, generate: GenerateFn, transition: s
 
 
 def make(env_id: str) -> Env:
-    """Resolve a ported env id to an `Env`. Ids the port does not have yet
-    raise `NotImplementedError`."""
+    """Resolve an env id to an `Env`; an id that is not registered raises
+    `KeyError`, as the JAX package's `make` does."""
     if env_id not in registry:
-        raise NotImplementedError(
-            f"{env_id!r} is not ported to minigrid_tpu_torch yet (ported: "
-            f"{env_list}); see ROADMAP.md for the order of the rest"
-        )
+        raise KeyError(f"unknown env id {env_id!r}; known: {sorted(registry)[:10]}...")
     spec = registry[env_id]
     return Env(spec.env_id, spec.config, spec.generate, spec.transition)

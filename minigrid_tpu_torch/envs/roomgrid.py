@@ -8,14 +8,16 @@ slot positions `init_plan`, the neighbour arithmetic) and the `RG`
 helpers of the JAX package batched over lanes: `init`, `add_door`,
 `room_interior_mask`, `reject_next_to_mask`, `place_in_room`,
 `add_object` and `place_agent`, each on a `(B, H, W, 5)` grid with one
-key per lane. Room and slot indices are Python ints, as the families
-that use them pass them. `remove_wall` and `connect_all` come with the
-families that need them.
+key per lane. Slot indices are Python ints; the room indices of
+`room_top`, `room_interior_mask`, `place_in_room` and `add_object` are
+ints or `(B,)` tensors of one room per lane (ObstructedMaze draws its
+ball's corner room per lane). `remove_wall` and `connect_all` come with
+the families that need them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -88,8 +90,9 @@ class RG(NamedTuple):
     agent_pos: torch.Tensor  # (B, 2) int32
 
 
-def room_top(config: EnvConfig, i: int, j: int) -> Tuple[int, int]:
-    """The top-left corner of room (i = column, j = row)."""
+def room_top(config: EnvConfig, i, j):
+    """The top-left corner of room (i = column, j = row); ints, or `(B,)`
+    tensors for room indices given per lane."""
     s = config.room_size - 1
     return i * s, j * s
 
@@ -133,9 +136,10 @@ def add_door(rg: RG, config: EnvConfig, i: int, j: int, k: int, color: torch.Ten
     return rg._replace(grid=grid, has_door=has_door, door_locked=door_locked, locked=room_locked)
 
 
-def room_interior_mask(config: EnvConfig, i: int, j: int, device="cpu") -> torch.Tensor:
+def room_interior_mask(config: EnvConfig, i, j, device="cpu") -> torch.Tensor:
     """`(1, H, W)` bool of room (i, j)'s whole rectangle (`place_obj`'s
-    window; the free-cell test leaves its walls out)."""
+    window; the free-cell test leaves its walls out), or `(B, H, W)` for
+    `(B,)` room indices."""
     rs = config.room_size
     return sampling.rect_mask(config.height, config.width, *room_top(config, i, j), rs, rs, device=device)
 
@@ -151,9 +155,9 @@ def reject_next_to_mask(config: EnvConfig, agent_pos: torch.Tensor) -> torch.Ten
     return (xs - ax).abs() + (ys - ay).abs() >= 2
 
 
-def place_in_room(rg: RG, config: EnvConfig, keys: torch.Tensor, i: int, j: int, cell: torch.Tensor):
+def place_in_room(rg: RG, config: EnvConfig, keys: torch.Tensor, i, j, cell: torch.Tensor):
     """One `(B, 5)` cell per lane on a free cell of room (i, j) away from
-    the agent. Returns `(rg, x, y)`."""
+    the agent; `i`, `j` are ints or `(B,)` tensors. Returns `(rg, x, y)`."""
     mask = (
         sampling.free_cell_mask(rg.grid, rg.agent_pos)
         & room_interior_mask(config, i, j, device=rg.grid.device)
@@ -167,14 +171,14 @@ def add_object(
     rg: RG,
     config: EnvConfig,
     keys: torch.Tensor,
-    i: int,
-    j: int,
+    i,
+    j,
     kind: Optional[int] = None,
     color: Optional[torch.Tensor] = None,
 ):
-    """An object in room (i, j): of a random kind among key, ball and box
-    and of a random colour, where `kind` (an int) and `color` (`(B,)`) are
-    not given. Returns `(rg, type, color, x, y)`, `(B,)` int32 each."""
+    """An object in room (i, j) (ints or `(B,)` tensors): of a random kind
+    among key, ball and box and of a random colour, where `kind` (an int)
+    and `color` (`(B,)`) are not given. Returns `(rg, type, color, x, y)`, `(B,)` int32 each."""
     k_kind, k_color, k_pos = prng.split(keys, 3).unbind(1)
     if kind is None:
         kinds = torch.tensor([C.KEY, C.BALL, C.BOX], dtype=torch.int32, device=keys.device)

@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 
 from minigrid_tpu_torch.core import constants as C
+from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng
-from minigrid_tpu_torch.core.state import EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.state import Actions, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
 from minigrid_tpu_torch.envs import missions, roomgrid
 from minigrid_tpu_torch.envs.empty import placed
 
@@ -39,3 +41,13 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     aux[:, 0], aux[:, 1] = door_pos[:, 0], door_pos[:, 1]
     ax, ay = rg.agent_pos.unbind(1)
     return placed(state, rg.grid, ax, ay, agent_dir, missions.encode(MISSION)).replace(aux=aux)
+
+
+def step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `unlock` transition: a toggle that leaves the door
+    (`aux[0:2]`) open rewards and ends the episode."""
+    res = base_step(state, action, config)
+    cell = G.get_cell(res.state.grid, res.state.aux[:, 0], res.state.aux[:, 1])
+    door_open = (action == Actions.toggle) & (cell[:, 0] == C.DOOR) & (cell[:, 2] == C.STATE_OPEN)
+    reward = torch.where(door_open, success_reward(res.state.step_count, config.max_steps), res.reward)
+    return StepResult(res.state, reward, res.terminated | door_open, res.truncated)

@@ -17,7 +17,8 @@ import torch
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import grid as G
 from minigrid_tpu_torch.core import prng
-from minigrid_tpu_torch.core.state import MISSION_LEN, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.state import MISSION_LEN, Actions, EnvConfig, EnvState, empty_state
+from minigrid_tpu_torch.core.step import StepResult, base_step, success_reward
 from minigrid_tpu_torch.envs import missions, roomgrid
 from minigrid_tpu_torch.envs.empty import placed
 from minigrid_tpu_torch.envs.fetch import object_cells
@@ -51,3 +52,15 @@ def generate(keys: torch.Tensor, config: EnvConfig) -> EnvState:
     mission[:, 0], mission[:, 1], mission[:, 2] = MISSION, obj_color, obj_type
     ax, ay = rg.agent_pos.unbind(1)
     return placed(state, rg.grid, ax, ay, agent_dir, mission).replace(aux=aux)
+
+
+def pickup_target_step(state: EnvState, action: torch.Tensor, config: EnvConfig) -> StepResult:
+    """The per-env `pickup_target` transition (UnlockPickup, KeyCorridor,
+    ObstructedMaze): a pickup that leaves the agent carrying the target
+    (type, colour) of `aux[0:2]` rewards and terminates."""
+    res = base_step(state, action, config)
+    c, aux = res.state.carrying.to(torch.int32), res.state.aux
+    got = (action == Actions.pickup) & (c[:, 0] == aux[:, 0]) & (c[:, 1] == aux[:, 1])
+    reward = torch.where(got, success_reward(res.state.step_count, config.max_steps), res.reward)
+    return StepResult(res.state, reward, res.terminated | got, res.truncated)
+

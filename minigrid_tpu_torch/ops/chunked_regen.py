@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import torch
 
-from minigrid_tpu_torch.core.rollout import RolloutMetrics
+from minigrid_tpu_torch.core.rollout import totals_metrics
 from minigrid_tpu_torch.envs.base import Env
 from minigrid_tpu_torch.ops.packing import R_RNG, rows_key
 
@@ -106,10 +106,6 @@ def _advance_chain(cur_rng, tr, consumed):
     """Consumed lanes' chains advance one link (I4): to the key their
     template's generator stored, which the reset also installed."""
     return torch.where(consumed[:, None], rows_key(tr[R_RNG : R_RNG + 2]), cur_rng)
-
-
-def _wrap_i32(total: torch.Tensor) -> torch.Tensor:
-    return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
 def _merge_spill(slab, spill, c0, c1, first_pass: bool = False):
@@ -237,13 +233,7 @@ def build_chunked_regen(env: Env, num_steps: int, tc: int, chunk_fn, stream_fn, 
                 steps_done[idx] = ctl[1]
             mark("reentry")
 
-        metrics = RolloutMetrics(
-            episodes=_wrap_i32(episodes),
-            total_reward=reward,
-            total_steps=_wrap_i32(torch.tensor(b * num_steps, dtype=torch.int64, device=dev)),
-            obs_checksum=_wrap_i32(checksum),
-            reset_overlaps=_wrap_i32(overlaps),
-        )
+        metrics = totals_metrics(episodes, reward, checksum, b * num_steps, overlaps)
         mark("sums")
         if collect:
             return PackedCarry(words, regs, tw, tr, rng), metrics, tuple(traj)

@@ -48,7 +48,7 @@ import torch
 
 from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import prng
-from minigrid_tpu_torch.core.rollout import RolloutMetrics, random_policy
+from minigrid_tpu_torch.core.rollout import RolloutMetrics, generator_policy, totals_metrics
 from minigrid_tpu_torch.core.state import AUX_LEN, EnvConfig, EnvState
 from minigrid_tpu_torch.envs.base import BASE_STEP, Env
 from minigrid_tpu_torch.ops.chunked_regen import _no_mark, build_chunked_regen
@@ -398,8 +398,8 @@ SM_COUNT = 132  # an H100 SXM's SMs: the plan's mirror on a machine without the 
 CELL16_VIEW = 7
 CELL16_FAMILIES = frozenset({
     "blockedunlockpickup", "crossing", "distshift", "doorkey", "dynamicobstacles", "empty", "fetch", "fourrooms",
-    "gotodoor", "gotoobject", "keycorridor", "lavagap", "lockedroom", "memory", "multiroom", "playground", "putnear",
-    "redbluedoors", "unlock", "unlockpickup",
+    "gotodoor", "gotoobject", "keycorridor", "lavagap", "lockedroom", "memory", "multiroom", "obstructedmaze",
+    "playground", "putnear", "redbluedoors", "unlock", "unlockpickup",
 })
 # Threads a lane of the 16-bit kernel, and the warps an SM one thread a
 # lane must reach for the plan to take it (it does the least work) over
@@ -772,11 +772,6 @@ def _replay_rng_chain(env: Env, rng0: torch.Tensor, n_resets: torch.Tensor) -> t
     return rng
 
 
-def _wrap_i32(total: torch.Tensor) -> torch.Tensor:
-    """An int64 total wrapped to int32, as the JAX package's int32 sums wrap."""
-    return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
-
-
 def _action_stream(env: Env, num_steps: int, source, b: int, device, override=None):
     """The `(T, B)` int32 action stream: `override` (a `(T, B)` or `(T,)`
     array) if given, else the random policy drawn from `source`: a
@@ -797,7 +792,7 @@ def _action_stream(env: Env, num_steps: int, source, b: int, device, override=No
     gd = torch.device(source.device)
     if gd.type != device.type or gd.index not in (None, device.index):
         raise ValueError(f"the generator is on {gd}, the carry on {device}")
-    return random_policy(env.config.num_actions)(source, num_steps, b)
+    return generator_policy(env.config.num_actions)(source, num_steps, b)
 
 
 def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, stream_fn):
@@ -832,14 +827,8 @@ def _make_plain_carry_step(env: Env, num_steps: int, mode: str, run_core, stream
 def rollout_metrics(rsum, epi, csum, num_steps: int) -> RolloutMetrics:
     """A static-template call's batch totals from its `(1, B)` per-lane
     reward sums, episode counts and obs checksums."""
-    b, dev = rsum.shape[1], rsum.device
-    return RolloutMetrics(
-        episodes=_wrap_i32(epi.sum(dtype=torch.int64)),
-        total_reward=rsum.sum(),
-        total_steps=_wrap_i32(torch.tensor(b * num_steps, dtype=torch.int64, device=dev)),
-        obs_checksum=_wrap_i32(csum.sum(dtype=torch.int64)),
-        reset_overlaps=torch.zeros((), dtype=torch.int32, device=dev),
-    )
+    b = rsum.shape[1]
+    return totals_metrics(epi.sum(dtype=torch.int64), rsum.sum(), csum.sum(dtype=torch.int64), b * num_steps)
 
 
 def _fit_chunk(num_steps: int, chunk: int) -> int:

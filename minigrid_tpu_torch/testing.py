@@ -22,6 +22,10 @@ hook reads as its family lays them out, and the events that make the hook
 fire planted near each agent: the target object or door in its forward
 cell, the object it must drop in its hands, the target cell within a step
 or two, an obstacle in its forward cell.
+
+`obstructed_script_case` is a doctored ObstructedMaze-1Dlhb batch and a
+forced action script through its locked door: a key in a grey box toggled
+out or carried in its box, the door unlocked, the blue ball picked up.
 """
 
 from __future__ import annotations
@@ -244,3 +248,50 @@ def hooked_packed_case(
     for w, r in (("words", "regs"), ("tmpl_words", "tmpl_regs")):
         _hook_events(rng, transition, case[w], case[r], width, height, n_obstacles)
     return case
+
+
+OBSTRUCTED_ID = "MiniGrid-ObstructedMaze-1Dlhb-v0"
+
+
+def obstructed_script_case(copies: int = 1):
+    """`(states, actions)`: a doctored ObstructedMaze-1Dlhb batch (a state
+    dictionary as `utils.convert.state_to_numpy` gives it) of two layouts,
+    tiled `copies` times, and the `(10, 2·copies)` int32 actions that drive
+    it through the locked door at (5, dy).
+
+    Each layout is the port's generator's (`reset_batch(key(0))`) with both
+    rooms emptied, the agent at (3, dy) facing the door, a grey box holding
+    the door's key at (4, dy) and the blue ball at (7, dy).
+      * lane 0: toggle the box (the key appears), pick the key up, step
+        forward, unlock the door, walk through it, drop the key beside the
+        path and pick the ball up: the pickup-target reward.
+      * lane 1: pick the box up with the key inside, drop it beside the
+        path, toggle it, pick the key up, unlock the door, walk through it.
+    """
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.envs.registry import make
+    from minigrid_tpu_torch.utils.convert import state_to_numpy
+
+    s = state_to_numpy(make(OBSTRUCTED_ID).reset_batch(key(0, device=torch.device("cpu")), 2)[0])
+    g = s["grid"]
+    actions = np.zeros((10, 2), np.int32)
+    for b in range(2):
+        dy = int(np.flatnonzero(g[b, :, 5, 0] == C.DOOR)[0])
+        color = g[b, dy, 5, 1]
+        for x0, x1 in ((1, 5), (6, 10)):
+            g[b, 1:5, x0:x1] = (C.EMPTY, 0, 0, 0, 0)
+        g[b, dy, 4] = (C.BOX, C.GREY, 0, C.KEY, color)
+        g[b, dy, 7] = (C.BALL, C.BLUE, 0, 0, 0)
+        s["agent_pos"][b] = (3, dy)
+        s["agent_dir"][b] = 0
+        side, back = (0, 1) if dy >= 2 else (1, 0)  # turn towards the free row beside the path and back
+        if b == 0:
+            actions[:, b] = (5, 3, 2, 5, 2, 2, side, 4, back, 3)
+        else:
+            actions[:, b] = (3, side, 4, 5, 3, back, 2, 5, 2, 2)
+    s["carrying"][:] = 0
+    s["step_count"][:] = 0
+    s = {k: np.concatenate([v] * copies) for k, v in s.items()}
+    return s, np.tile(actions, (1, copies))

@@ -1,17 +1,20 @@
 """Write the JAX package's generator outputs that
 `tests/port/test_torch_doorkey.py`, `tests/port/test_torch_hooks.py`,
 `tests/port/test_torch_dynamicobstacles.py`,
-`tests/port/test_torch_memory_unlock.py` and
-`tests/port/test_torch_rooms_crossings.py` hold the port's generators
+`tests/port/test_torch_memory_unlock.py`,
+`tests/port/test_torch_rooms_crossings.py`,
+`tests/port/test_torch_obstructedmaze.py` and
+`tests/port/test_torch_engine.py` hold the port's generators
 against (`data/family_generators_b32.npz`), and recompute them live for
 those files' `slow` tests.
 
-For each of the 47 ids of Empty-Random, DoorKey, Fetch, GoToDoor,
+For each of the 55 ids of Empty-Random, DoorKey, Fetch, GoToDoor,
 GoToObject, PutNear, RedBlueDoors, DynamicObstacles, Memory, Unlock,
 UnlockPickup, BlockedUnlockPickup, LavaGap, FourRooms, Lava and Simple
-Crossing, LockedRoom and Playground: `jax.vmap(generate)` on the 32 keys
-`split(key(21), 32)`, every state field stored as `<env id>/<field>`.
-Each generator takes one to four seconds to compile on a CPU; the tier-1
+Crossing, LockedRoom, Playground and ObstructedMaze: `jax.vmap(generate)`
+on the 32 keys `split(key(21), 32)`, every state field stored as
+`<env id>/<field>`. Each generator takes one to six seconds to compile on
+a CPU (ObstructedMaze's are the deepest); the tier-1
 run compiles none of them, which keeps its worker processes clear of
 jaxlib's crash after many compiles in one process (pyproject.toml).
 
@@ -50,7 +53,8 @@ ROOMS_CROSSINGS_IDS = (
     + [f"MiniGrid-{o}CrossingS{n}-v0" for o in ("Lava", "Simple") for n in ("9N1", "9N2", "9N3", "11N5")]
     + ["MiniGrid-LockedRoom-v0", "MiniGrid-Playground-v0"]
 )
-ALL_IDS = DOORKEY_IDS + HOOKED_IDS + DYNOBST_IDS + MEMORY_UNLOCK_IDS + ROOMS_CROSSINGS_IDS
+OBSTRUCTED_IDS = [f"MiniGrid-ObstructedMaze-{n}-v0" for n in ("1Dl", "1Dlh", "1Dlhb", "2Dlh", "2Dlhb", "1Q", "2Q", "Full")]
+ALL_IDS = DOORKEY_IDS + HOOKED_IDS + DYNOBST_IDS + MEMORY_UNLOCK_IDS + ROOMS_CROSSINGS_IDS + OBSTRUCTED_IDS
 
 
 def keys():

@@ -18,6 +18,14 @@ carries and summed metrics stored as `<case>/call<c>/...`:
 
 Each case compiles both members' chunked regen on a CPU (tens of seconds).
 
+A fourth case, `mixed_env`, holds the per-env `MixedEnv` that
+`tests/port/test_torch_engine.py` checks: `MixedEnv.reset_batch(
+PRNGKey(MIXED_ENV_SEEDS[0]), member_ids())` (states and observation
+images, `mixed_env/reset/...`), then `build_mixed_rollout(menv, T)` under
+`PRNGKey(MIXED_ENV_SEEDS[1])` from those states with every step count
+moved within T of its member's `max_steps` (`doctor_mixed`), its final
+states and metrics (`mixed_env/final/...`, `mixed_env/metrics/...`).
+
     JAX_PLATFORMS=cpu python tests/port/make_mixed_reference.py
 """
 
@@ -41,6 +49,8 @@ CALLS = 4
 CARRY_SEEDS = (30, 31)
 KEY_SEEDS = (50, 51, 52, 53)
 PARAMS_SEEDS = (3, 4)
+MIXED_ENV_CASE = "mixed_env"
+MIXED_ENV_SEEDS = (40, 41)
 # name -> (surface, mode)
 CASES = {
     "random_cached": ("random", "cached"),
@@ -120,6 +130,43 @@ def port_case(name: str, plain: bool = True, device: str = "cpu") -> dict:
     return out
 
 
+def member_ids() -> np.ndarray:
+    """The `MixedEnv` case's member per lane: 2·B lanes, alternating."""
+    return (np.arange(2 * B) % len(IDS)).astype(np.int32)
+
+
+def doctor_mixed(states: dict) -> dict:
+    """A state dictionary with each lane's step count drawn within T of its
+    member's `max_steps` (LavaCrossingS9N1: 324, FourRooms: 100), so every
+    lane truncates inside the rollout."""
+    max_steps = np.array([324, 100], np.int64)[member_ids()]
+    s = dict(states)
+    s["step_count"] = (max_steps - np.random.default_rng(2).integers(1, T + 1, len(max_steps))).astype(np.int32)
+    return s
+
+
+def jax_mixed_env_case() -> dict:
+    """The `mixed_env` case's arrays, from the JAX package's `MixedEnv`."""
+    import jax
+    import jax.numpy as jnp
+
+    from minigrid_tpu.core.state import EnvState
+    from minigrid_tpu.parallel import mixed as jmixed
+
+    menv = jmixed.MixedEnv.create(IDS)
+    states, obs = jax.jit(menv.reset_batch)(jax.random.PRNGKey(MIXED_ENV_SEEDS[0]), jnp.asarray(member_ids()))
+    fields = mref.STATE_FIELDS
+    s = {k: np.asarray(getattr(states, k)) for k in fields}
+    out = {f"{MIXED_ENV_CASE}/reset/{k}": v for k, v in s.items()}
+    out[f"{MIXED_ENV_CASE}/reset/image"] = np.asarray(obs["image"])
+    start = EnvState(**{k: jnp.asarray(v) for k, v in doctor_mixed(s).items()})
+    final, metrics = jmixed.build_mixed_rollout(menv, T)(jax.random.PRNGKey(MIXED_ENV_SEEDS[1]), start)
+    out.update({f"{MIXED_ENV_CASE}/final/{k}": np.asarray(getattr(final, k)) for k in fields})
+    for k in ("episodes", "total_reward", "total_steps", "obs_checksum"):
+        out[f"{MIXED_ENV_CASE}/metrics/{k}"] = np.asarray(getattr(metrics, k))
+    return out
+
+
 def case_arrays(name: str, path: Path = PATH) -> dict:
     """Case `name`'s arrays from the file."""
     return {k: v for k, v in mref.load(path).items() if k.startswith(name + "/")}
@@ -129,6 +176,7 @@ def main() -> int:
     arrays = {}
     for name in CASES:
         arrays.update(jax_case(name))
+    arrays.update(jax_mixed_env_case())
     PATH.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(PATH, **arrays)
     print(f"wrote {PATH} ({PATH.stat().st_size} bytes)")

@@ -126,7 +126,7 @@ def port_carry(env_id: str, b: int, seed: int, max_steps=None, mode: str = "rege
 
     env = with_max_steps(make(env_id), max_steps)
     if states is None:
-        states = env.reset_batch(key(seed, device="cpu"), b)
+        states, _ = env.reset_batch(key(seed, device="cpu"), b)
     else:
         states = state_from_numpy(states, device="cpu")
     return tfr.packed_init(env, states, mode)

@@ -97,7 +97,7 @@ def port_carry(name: str):
     env_id, _, mode, b, _, max_steps, _, seed, _, planted = CASES[name]
     states = None
     if planted:
-        states = plant_pickup_target(state_to_numpy(make(env_id).reset_batch(key(seed, device="cpu"), b)))
+        states = plant_pickup_target(state_to_numpy(make(env_id).reset_batch(key(seed, device="cpu"), b)[0]))
     return mref.port_carry(env_id, b, seed, max_steps, mode, states)
 
 

@@ -53,7 +53,7 @@ def _env(max_steps=None, env_id=ENV_ID):
 
 
 def _states(env_id=ENV_ID, b=B, seed=5):
-    return plant_pickup_target(state_to_numpy(make(env_id).reset_batch(key(seed, device="cpu"), b)))
+    return plant_pickup_target(state_to_numpy(make(env_id).reset_batch(key(seed, device="cpu"), b)[0]))
 
 
 def _actions(b=B, t=T, seed=0):
@@ -158,7 +158,7 @@ def test_random_layout_regen_needs_a_packed_generator():
         return dataclasses.replace(env, config=dataclasses.replace(env.config, agent_start_pos=None, max_steps=6))
 
     env, jenv = random_start(make("MiniGrid-Empty-8x8-v0")), random_start(minigrid_tpu.make("MiniGrid-Empty-8x8-v0"))
-    carry = tfr.packed_init(env, env.reset_batch(key(4, device="cpu"), 64), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(4, device="cpu"), 64)[0], "regen")
     acts = _actions(64, 16)
     jc = jfr.PackedCarry(**carry_to_numpy(carry))
     jstep = jax.jit(jfr.build_packed_xla_rollout(jenv, 16, mode="regen", regen_chunk=4, as_carry=True,

@@ -76,7 +76,7 @@ def test_regen_matches_jax_packed_xla_rollout(env_id, chunk, max_steps):
         env, jenv = (dataclasses.replace(e, config=dataclasses.replace(e.config, max_steps=max_steps))
                      for e in (env, jenv))
     acts = np.random.default_rng(chunk).integers(0, 7, (T, B)).astype(np.int32)
-    carry = tfr.packed_init(env, env.reset_batch(key(8, device="cpu"), B), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(8, device="cpu"), B)[0], "regen")
     step = tfr.build_packed_plain_rollout(env, T, mode="regen", regen_chunk=chunk, as_carry=True,
                                           actions_override=acts)
     jstep = jax.jit(jfr.build_packed_xla_rollout(jenv, T, mode="regen", regen_chunk=chunk, as_carry=True,

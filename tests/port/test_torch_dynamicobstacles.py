@@ -153,7 +153,7 @@ def test_plain_rollout_matches_jax_cached(env_id):
     _, case = _case(env_id)
     got = _two_cached_calls(env, _carry(case), 0)
     assert sum(float(m.total_reward) for m in got) < 0  # collisions
-    states = env.reset_batch(key(9, device="cpu"), B)
+    states, _ = env.reset_batch(key(9, device="cpu"), B)
     _two_cached_calls(env, tfr.packed_init(env, states, "cached"), 1)
 
 
@@ -200,7 +200,7 @@ def _placed(env_id, b, seed, agent, spots):
     """The family's own states (cached carry) with every agent at `agent`
     facing right and obstacle i at `spots[i]`, the step counts spread."""
     env = make(env_id)
-    carry = tfr.packed_init(env, env.reset_batch(key(seed, device="cpu"), b), "cached")
+    carry = tfr.packed_init(env, env.reset_batch(key(seed, device="cpu"), b)[0], "cached")
     st = tfr.packed_finish(env, carry)
     grid, aux = st.grid.clone(), st.aux.clone()
     lanes = torch.arange(b)

@@ -69,7 +69,7 @@ def _mixed_outputs(device, monkeypatch):
     from minigrid_tpu_torch.parallel import mixed
     from minigrid_tpu_torch.testing import dyadic_flax_params
 
-    carries = tuple(packed_init(make(e), make(e).reset_batch(key(i, device=device), 32), "regen")
+    carries = tuple(packed_init(make(e), make(e).reset_batch(key(i, device=device), 32)[0], "regen")
                     for i, e in enumerate(MIXED_IDS))
 
     def no_default(device=None):
@@ -105,6 +105,64 @@ def test_mixed_surfaces_stay_on_the_card(monkeypatch):
     assert {t.device.type for t in outputs} == {"cuda"}
 
 
+ENGINE_IDS = ("MiniGrid-ObstructedMaze-1Dlhb-v0", "MiniGrid-DoorKey-5x5-v0")
+
+
+def _engine_outputs(device, monkeypatch):
+    """`make`, `reset_batch`, `step`, `build_rollout` (both modes),
+    `MixedEnv.create`, its `reset_batch` and `build_mixed_rollout` from a
+    key on `device`, with the port's default device made to raise: nothing
+    inside may fall back to it. Returns every output tensor."""
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.core.rollout import build_rollout
+    from minigrid_tpu_torch.parallel import mixed
+
+    k0, k1 = key(0, device=device), key(1, device=device)
+
+    def no_default(device=None):
+        if device is None:
+            raise AssertionError("the per-env engine asked for the default device")
+        return torch.device(device)
+
+    monkeypatch.setattr(prng, "default_device", no_default)
+    out = []
+    for env_id in ENGINE_IDS:
+        env = make(env_id)
+        states, obs = env.reset_batch(k0, 8)
+        out += list(vars(states).values()) + list(obs.values())
+        out += [t for t in env.step(states, torch.full((8,), 2, dtype=torch.int32, device=device))[2:]]
+        for mode in ("regen", "cached"):
+            final, metrics = build_rollout(env, 4, autoreset_mode=mode)(k1, states)
+            out += list(vars(final).values()) + list(metrics)
+    menv = mixed.MixedEnv.create(MIXED_IDS)
+    states, obs = menv.reset_batch(k0, torch.tensor([0, 1, 1, 0], device=device))
+    final, metrics = mixed.build_mixed_rollout(menv, 4)(k1, states)
+    return out + list(vars(states).values()) + [obs["image"]] + list(vars(final).values()) + list(metrics)
+
+
+def test_engine_entry_points_default_to_the_card(monkeypatch):
+    """The per-env engine makes its tensors where its key lies: on the CPU
+    when the caller names it (as here), on the card by default (`key`),
+    which raises without one."""
+    outputs = _engine_outputs(torch.device("cpu"), monkeypatch)
+    assert len(outputs) > 100 and {t.device.type for t in outputs} == {"cpu"}
+    monkeypatch.undo()
+    env = make(ENGINE_IDS[0])
+    if torch.cuda.is_available():
+        assert env.reset_batch(key(0), 4)[0].grid.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            env.reset_batch(key(0), 4)
+
+
+@pytest.mark.gpu
+def test_engine_entry_points_stay_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    outputs = _engine_outputs(torch.device("cuda"), monkeypatch)
+    assert {t.device.type for t in outputs} == {"cuda"}
+
+
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "minigrid_tpu_torch")):
@@ -128,7 +186,9 @@ def test_no_port_module_imports_jax_flax_or_the_jax_package():
     assert len(paths) >= 20, paths
     for module in ("envs/dynamicobstacles.py", "envs/memory.py", "envs/unlock.py", "envs/unlockpickup.py",
                    "envs/roomgrid.py", "ops/packed_hooks.py", "envs/lavagap.py", "envs/fourrooms.py",
-                   "envs/crossing.py", "envs/lockedroom.py", "envs/playground.py", "parallel/mixed.py"):
+                   "envs/crossing.py", "envs/lockedroom.py", "envs/playground.py", "parallel/mixed.py",
+                   "envs/obstructedmaze.py", "core/grid.py", "core/view.py", "core/vision.py", "core/obs.py",
+                   "core/step.py", "core/autoreset.py", "core/rollout.py", "envs/base.py"):
         assert os.path.join(REPO, "minigrid_tpu_torch", module) in paths, module
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths

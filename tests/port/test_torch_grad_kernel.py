@@ -223,7 +223,7 @@ def test_cuda_train_step_launches_each_kernel_once_per_step():
     dev = _cuda()
     env = make("MiniGrid-Empty-8x8-v0")
     ts = TT.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
-    carry = tfr.packed_init(env, env.reset_batch(key(0), 1024), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(0), 1024)[0], "regen")
     step = TT.build_fused_train_step(env, 32, mode="regen")
     p0 = TT.flatten_params(ts.params.flax_params())
     before = (tpr.policy_kernel_launches, tgk.grad_kernel_launches)

@@ -130,7 +130,7 @@ def _same(a, b):
 def _family_carry(env_id, dev, max_steps=5, b=B):
     env = make(env_id)
     env = dataclasses.replace(env, config=dataclasses.replace(env.config, max_steps=max_steps))
-    return env, tfr.packed_init(env, env.reset_batch(prng.key(3, device=dev), b), "regen")
+    return env, tfr.packed_init(env, env.reset_batch(prng.key(3, device=dev), b)[0], "regen")
 
 
 FAMILY_IDS = ["MiniGrid-DoorKey-8x8-v0", "MiniGrid-Empty-Random-6x6-v0"] + [e for e, _ in HOOKED.values()] + [

@@ -159,7 +159,7 @@ def test_hook_matches_jax_packed_xla_rollout(family):
     base = _two_calls(env, carry, T, "cached", 4, 0, transition="base")
     assert _outcome(got) != _outcome(base)  # the hook fired
     assert sum(float(m.total_reward) for m in got) > 0
-    states = env.reset_batch(key(9, device="cpu"), B)
+    states, _ = env.reset_batch(key(9, device="cpu"), B)
     _two_calls(env, tfr.packed_init(env, states, "cached"), T, "cached", 4, 0)
 
 
@@ -167,7 +167,7 @@ def test_hook_matches_jax_packed_xla_rollout(family):
 def test_fetch_regen_matches_jax_at_two_chunks(chunk):
     env = make(SMALL["fetch"])
     env = dataclasses.replace(env, config=dataclasses.replace(env.config, max_steps=5))
-    carry = tfr.packed_init(env, env.reset_batch(key(5, device="cpu"), B), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(5, device="cpu"), B)[0], "regen")
     got = _two_calls(env, carry, 16, "regen", chunk, 1, max_steps=5)
     assert sum(int(m.episodes) for m in got) > 0
     assert sum(int(m.reset_overlaps) for m in got) > 0

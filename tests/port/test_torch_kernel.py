@@ -111,7 +111,7 @@ def test_cuda_carry_surface_matches_plain_twin():
     plain twin under the same generator seed, rng chain included."""
     dev = _cuda()
     env = make("MiniGrid-Empty-8x8-v0")
-    carry = tfr.packed_init(env, env.reset_batch(key(0, device=dev), 8192), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device=dev), 8192)[0], "regen")
     out = []
     for build in (tfr.build_fused_rollout, tfr.build_packed_plain_rollout):
         step = build(env, 128, mode="regen", as_carry=True)
@@ -218,7 +218,7 @@ def family_case(env_id, size, b, dev, seed=0):
     crossings = cfg.num_crossings and min(cfg.num_crossings, 2 * len(range(2, size - 2, 2)))
     cfg = dataclasses.replace(cfg, width=size, height=size, max_steps=12, num_crossings=crossings)
     env = dataclasses.replace(env, config=cfg)
-    carry = tfr.packed_init(env, env.reset_batch(key(seed, device=dev), b), "cached")
+    carry = tfr.packed_init(env, env.reset_batch(key(seed, device=dev), b)[0], "cached")
     return cfg, [carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs]
 
 
@@ -249,6 +249,44 @@ def test_cuda_rollout_kernel_on_the_new_families_matches_plain(env_id, ctl, size
     for name, g, w in zip(("words", "regs", "rsum", "episodes", "checksum", "ctl"), got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
     assert int(want[3].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cached", "regen"])
+def test_cuda_rollout_kernel_on_the_obstructed_script_matches_plain(mode):
+    """`testing.obstructed_script_case` (a key boxed, toggled out or
+    carried in its box; the locked door; the blue ball) in 64 copies: the
+    kernel under the script's actions against the plain twin, byte for
+    byte, and the per-env step's rewards and final states (cached: the
+    template is the doctored state itself)."""
+    from minigrid_tpu_torch.core.rollout import build_rollout
+    from minigrid_tpu_torch.testing import OBSTRUCTED_ID, obstructed_script_case
+    from minigrid_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    dev = _cuda()
+    env = make(OBSTRUCTED_ID)
+    s, script = obstructed_script_case(copies=64)
+    states = state_from_numpy(s, device=dev)
+    carry = tfr.packed_init(env, states, mode)
+    actions = torch.from_numpy(script).to(dev)
+    args = [carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs]
+    before = tfr.rollout_kernel_launches
+    got = tfr.run_rollout_kernel(*args, actions, env.config, env.transition)
+    want = tfr.plain_rollout(*args, actions, env.config, env.transition)
+    torch.cuda.synchronize()
+    assert tfr.rollout_kernel_launches == before + 1
+    for name, g, w in zip(("words", "regs", "rsum", "episodes", "checksum"), got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+    assert int(want[3].sum()) == 64 and float(want[2].sum()) > 0
+    if mode == "cached":
+        steps = iter(actions)
+        final, metrics = build_rollout(env, len(script), policy=lambda k, obs: next(steps), autoreset_mode=mode)(
+            key(0, device=dev), states)
+        packed = tfr.packed_finish(env, tfr.PackedCarry(got[0], got[1], carry.tmpl_words, carry.tmpl_regs, carry.rng))
+        a, b = state_to_numpy(final), state_to_numpy(packed)
+        for name in a:
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+        assert int(metrics.episodes) == 64
 
 
 _MISFIT = """

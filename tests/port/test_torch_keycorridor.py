@@ -68,7 +68,7 @@ def test_generate_packed_and_reset_batch_match_jax_vmap_generate_s3r1():
     _, words, regs = _port_packed("MiniGrid-KeyCorridorS3R1-v0")
     np.testing.assert_array_equal(words, want_w)
     np.testing.assert_array_equal(regs, want_r)
-    got = state_to_numpy(make("MiniGrid-KeyCorridorS3R1-v0").reset_batch(key(SEED, device="cpu"), B))
+    got = state_to_numpy(make("MiniGrid-KeyCorridorS3R1-v0").reset_batch(key(SEED, device="cpu"), B)[0])
     for name in STATE_FIELDS:
         assert got[name].dtype == want[name].dtype, name
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
@@ -80,7 +80,7 @@ def test_generate_packed_and_reset_batch_match_jax_generate_packed_s6r3():
     np.testing.assert_array_equal(words, want_w)
     np.testing.assert_array_equal(regs, want_r)
     env = make("MiniGrid-KeyCorridorS6R3-v0")
-    states = env.reset_batch(key(SEED, device="cpu"), B)
+    states, _ = env.reset_batch(key(SEED, device="cpu"), B)
     assert tuple(states.grid.shape) == (B, 16, 16, 5)
     words, regs = tfr._pack_rolled(env.config, states)
     np.testing.assert_array_equal(words.numpy(), want_w)

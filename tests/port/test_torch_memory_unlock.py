@@ -118,7 +118,7 @@ def test_hook_matches_jax_packed_xla_rollout(family):
     got = _two_calls(env, carry, 0)
     assert got != _two_calls(env, carry, 0, transition="base")  # the hook fired
     assert sum(r for _, r in got) > 0
-    _two_calls(env, tfr.packed_init(env, env.reset_batch(key(9, device="cpu"), B), "cached"), 0)
+    _two_calls(env, tfr.packed_init(env, env.reset_batch(key(9, device="cpu"), B)[0], "cached"), 0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -83,7 +83,7 @@ def test_members_step_under_fold_in_and_the_metrics_add_up():
 def test_state_surface_resets_packs_and_unpacks_each_member():
     """`as_carry=False`: one batched `EnvState` per member in and out, the
     same finals as the carry surface's, unpacked."""
-    states = tuple(make(e).reset_batch(key(s, device="cpu"), 32) for e, s in zip(mx.IDS, mx.CARRY_SEEDS))
+    states = tuple(make(e).reset_batch(key(s, device="cpu"), 32)[0] for e, s in zip(mx.IDS, mx.CARRY_SEEDS))
     k = key(2, device="cpu")
     finals, total = mixed.build_packed_mixed_plain_rollout(mx.IDS, 8, mode="regen")(k, states)
     carries = tuple(tfr.packed_init(make(e), st, "regen") for e, st in zip(mx.IDS, states))

@@ -208,7 +208,7 @@ def _actions(b=REGEN_B, t=REGEN_T, seed=0):
 
 
 def _port_carry(env, b, device=CPU, seed=5):
-    return tfr.packed_init(env, env.reset_batch(key(seed, device=device), b), "regen")
+    return tfr.packed_init(env, env.reset_batch(key(seed, device=device), b)[0], "regen")
 
 
 def _two_calls(step, carry, source):

@@ -235,7 +235,7 @@ def _jax_rollout(env_id, mode, steps, states_np, seed):
 
 
 def _port_states(env, mode, seed):
-    states = env.reset_batch(prng.key(seed, device=CPU), ROLLOUT_B)
+    states, _ = env.reset_batch(prng.key(seed, device=CPU), ROLLOUT_B)
     if mode == "regen":
         rng = np.random.default_rng(seed)
         sc = rng.integers(0, env.config.max_steps, size=ROLLOUT_B).astype(np.int32)

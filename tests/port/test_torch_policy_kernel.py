@@ -215,7 +215,7 @@ def test_actor_critic_init_is_seeded_and_round_trips():
 def test_eval_rollout_on_cpu_runs_the_twin():
     env = make("MiniGrid-Empty-5x5-v0")
     model = ActorCritic(env.config.num_actions, generator=torch.Generator().manual_seed(0))
-    carry = tfr.packed_init(env, env.reset_batch(key(0, device=CPU), 16), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device=CPU), 16)[0], "regen")
     step = tpr.build_policy_eval_rollout(env, model, 20, mode="regen", as_carry=True)
     before = tpr.policy_kernel_launches
     runs = [step(key(s, device=CPU), carry) for s in (1, 1, 2)]
@@ -234,7 +234,7 @@ def test_eval_rollout_sees_in_place_weight_updates():
     evaluated with its new weights by the same `step`."""
     env = make("MiniGrid-Empty-5x5-v0")
     model = ActorCritic(env.config.num_actions, generator=torch.Generator().manual_seed(0))
-    carry = tfr.packed_init(env, env.reset_batch(key(0, device=CPU), 16), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device=CPU), 16)[0], "regen")
     step = tpr.build_policy_eval_rollout(env, model, 20, mode="regen", as_carry=True)
     before, _ = step(key(1, device=CPU), carry)
     with torch.no_grad():  # forward, always
@@ -280,7 +280,7 @@ def test_cuda_eval_surface_matches_cpu_twin():
     params = dyadic_flax_params(6)
     out = []
     for d in (dev, CPU):
-        carry = tfr.packed_init(env, env.reset_batch(key(0, device=d), 512), "regen")
+        carry = tfr.packed_init(env, env.reset_batch(key(0, device=d), 512)[0], "regen")
         step = tpr.build_policy_eval_rollout(env, params, 64, mode="regen", as_carry=True)
         out.append(step(key(3, device=d), carry))
     (ck, mk), (cp, mp) = out
@@ -401,3 +401,42 @@ def test_cuda_kernel_on_the_new_families_matches_plain_twin(env_id, collect, siz
             m = committed if g.ndim == 2 else committed[:, None, :]
             assert torch.equal(torch.where(m, bits(g), 0), torch.where(m, bits(x), 0)), name
     assert int(want[3].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [False, True])
+def test_cuda_kernel_on_the_obstructed_script_matches_plain_twin(collect):
+    """The policy kernel with the pickup-target hook on
+    `testing.obstructed_script_case`'s doctored ObstructedMaze-1Dlhb states
+    (boxed keys in front of the agents, a locked door two cells ahead), 1,024
+    copies, dyadic weights, eval and collect: byte for byte against the
+    plain twin."""
+    from minigrid_tpu_torch.testing import OBSTRUCTED_ID, obstructed_script_case
+    from minigrid_tpu_torch.utils.convert import state_from_numpy
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = make(OBSTRUCTED_ID)
+    cfg = env.config
+    s, _ = obstructed_script_case(copies=1024)
+    carry = tfr.packed_init(env, state_from_numpy(s, device=dev), "cached")
+    args = [carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs]
+    b, t = carry.words.shape[1], 32
+    seeds = torch.from_numpy(np.random.default_rng(5).integers(-(2**31), 2**31, (t, b)).astype(np.int32)).to(dev)
+    to_weights = tpr.train_weights_from_params if collect else tpr.eval_weights_from_params
+    w = to_weights(dyadic_flax_params(9), cfg.agent_view_size, device=dev)
+    before = tpr.policy_kernel_launches
+    got = tpr.run_policy_kernel(*args, seeds, w, cfg, collect=collect, transition=env.transition)
+    want = tpr.plain_policy_rollout(*args, seeds, w, cfg, collect=collect, transition=env.transition)
+    torch.cuda.synchronize()
+    assert tpr.policy_kernel_launches == before + 1
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for name, g, x in zip(("words", "regs", "rsum", "episodes", "checksum"), got[:5], want[:5]):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert torch.equal(bits(g), bits(x)), name
+    if collect:
+        for name, g, x in zip(("obs_w", "actions", "logp", "value", "reward", "done"), got[5], want[5]):
+            assert torch.equal(bits(g), bits(x)), name

@@ -1,12 +1,11 @@
 """Every env id the JAX package registers, against the port's registry and
 the rollout kernel's limits: the configuration carries across unchanged,
 the kernel takes its grid and view, the offset tables agree, and `make`
-either returns that configuration or names ROADMAP.md; on every ported id
-and both auto-reset modes, `fused_rollout_supported` is the JAX
-package's; and on every cell of `tests/test_support_matrix.py`'s
-`FAMILY_REPS` that the port covers (21 of the 22 families), both modes
-and all three surfaces, the port's support predicates are the JAX
-package's, and all true."""
+returns that configuration (all 70 ids are ported); on every id and both
+auto-reset modes, `fused_rollout_supported` is the JAX package's; and on
+every cell of `tests/test_support_matrix.py`'s `FAMILY_REPS` (all 22
+families), both modes and all three surfaces, the port's support
+predicates are the JAX package's, and all true."""
 
 import ast
 import dataclasses
@@ -20,6 +19,7 @@ from minigrid_tpu.envs.registry import env_list as jax_env_list
 from minigrid_tpu.ops import packing as jpk
 from minigrid_tpu_torch import env_list, make
 from minigrid_tpu_torch.core.state import EnvConfig
+from minigrid_tpu_torch.envs.base import STEP_FNS
 from minigrid_tpu_torch.ops import packing as tpk
 from minigrid_tpu_torch.ops.fused_rollout import fused_rollout_supported, kernel_lane_block
 
@@ -30,9 +30,9 @@ def test_ported_ids_keep_the_jax_registration_order():
     # DoorKey (4), LavaCrossing (4), SimpleCrossing (4), DynamicObstacles
     # (6), Memory (6), Fetch (3), GoToDoor (3), GoToObject (2), PutNear
     # (2), RedBlueDoors (2), MultiRoom (3), LockedRoom, Playground, Unlock,
-    # UnlockPickup, BlockedUnlockPickup, KeyCorridor (6).
-    assert len(env_list) == 62
-    assert [e for e in jax_env_list if e not in env_list] == [e for e in jax_env_list if "ObstructedMaze" in e]
+    # UnlockPickup, BlockedUnlockPickup, KeyCorridor (6), ObstructedMaze (8).
+    assert len(env_list) == 70
+    assert env_list == jax_env_list
 
 
 @pytest.mark.parametrize("mode", ["cached", "regen"])
@@ -53,11 +53,8 @@ def test_every_jax_id_carries_across(env_id):
     dims = (cfg.width, cfg.height, cfg.agent_view_size)
     for got, want in zip(tpk._dir_tables(*dims), jpk._dir_tables(*dims)):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    if env_id in env_list:
-        assert make(env_id).config == cfg
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make(env_id)
+    assert make(env_id).config == cfg
+    assert make(env_id).transition in STEP_FNS
 
 
 def _family_reps():
@@ -74,8 +71,9 @@ PORTED_REPS = [e for e in _family_reps() if e in env_list]
 
 
 def test_twenty_one_of_the_support_matrix_families_are_ported():
-    assert len(_family_reps()) == 22 and len(PORTED_REPS) == 21
-    assert [e for e in _family_reps() if e not in env_list] == ["MiniGrid-ObstructedMaze-1Dl-v0"]
+    """All 22 of them, now: the name stays, as its count does."""
+    assert len(_family_reps()) == 22 and PORTED_REPS == _family_reps()
+    assert "MiniGrid-ObstructedMaze-1Dl-v0" in PORTED_REPS
 
 
 @pytest.mark.parametrize("surface", ["fused", "eval", "collect"])

@@ -120,12 +120,13 @@ ENV_IDS = ["MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-8x8-v0", "MiniGrid-DistShift
 # families ported with DynamicObstacles, Memory and Unlock hold their
 # generators against `data/family_generators_b32.npz`
 # (test_torch_dynamicobstacles.py, test_torch_memory_unlock.py), so that
-# the tier-1 run compiles none of their JAX generators.
+# the tier-1 run compiles none of their JAX generators; so do
+# ObstructedMaze's (test_torch_obstructedmaze.py), the deepest of all.
 @pytest.mark.parametrize("env_id", [e for e in env_list if "KeyCorridor" not in e and "MultiRoom" not in e
-                                    and e not in fref.DYNOBST_IDS + fref.MEMORY_UNLOCK_IDS])
+                                    and e not in fref.DYNOBST_IDS + fref.MEMORY_UNLOCK_IDS + fref.OBSTRUCTED_IDS])
 def test_reset_batch_matches_jax(env_id):
     _, jstates = _jax_states(env_id, 5)
-    got = state_to_numpy(make(env_id).reset_batch(key(5, device="cpu"), B))
+    got = state_to_numpy(make(env_id).reset_batch(key(5, device="cpu"), B)[0])
     _assert_same(got, _np_state(jstates), env_id)
 
 
@@ -134,7 +135,7 @@ def test_reset_batch_matches_jax(env_id):
 def test_two_call_rollout_matches_jax(env_id, mode):
     seed = len(env_id) + len(mode)
     env = make(env_id)
-    carry = tfr.packed_init(env, env.reset_batch(key(seed, device="cpu"), B), mode)
+    carry = tfr.packed_init(env, env.reset_batch(key(seed, device="cpu"), B)[0], mode)
     out, final = _port_two_calls(env, carry, seed, mode=mode)
     for backend in ("xla", "pallas"):
         jcarry0, jout, jfinal = _jax_two_calls(env_id, mode, seed, backend)
@@ -167,7 +168,7 @@ def test_doorkey_cached_from_converted_jax_carry():
 
 def test_plain_twin_and_legacy_surface_agree_with_carry_surface():
     env = make("MiniGrid-DistShift1-v0")
-    states = env.reset_batch(key(2, device="cpu"), B)
+    states, _ = env.reset_batch(key(2, device="cpu"), B)
     actions = _actions(2)
     fused = tfr.build_fused_rollout(env, T, actions_override=actions)
     plain = tfr.build_packed_plain_rollout(env, T, actions_override=actions)
@@ -184,7 +185,7 @@ def test_plain_twin_and_legacy_surface_agree_with_carry_surface():
 
 def test_random_policy_draws_from_the_generator():
     env = make("MiniGrid-Empty-8x8-v0")
-    carry = tfr.packed_init(env, env.reset_batch(key(0, device="cpu"), B), "regen")
+    carry = tfr.packed_init(env, env.reset_batch(key(0, device="cpu"), B)[0], "regen")
     step = tfr.build_fused_rollout(env, 16, as_carry=True)
     runs = [step(torch.Generator().manual_seed(s), carry) for s in (1, 1, 2)]
     assert torch.equal(runs[0][0].words, runs[1][0].words)
@@ -194,14 +195,16 @@ def test_random_policy_draws_from_the_generator():
 
 
 def test_unported_paths_raise():
-    """An id the port lacks, regen mode on an env without a generator, and
-    a transition whose hook is not ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make("MiniGrid-ObstructedMaze-1Dl-v0")
-    jcfg = minigrid_tpu.make("MiniGrid-ObstructedMaze-1Dl-v0").config
-    maze = Env("MiniGrid-ObstructedMaze-1Dl-v0", EnvConfig(**dataclasses.asdict(jcfg)), generate=None)
+    """An id that no registry holds, regen mode on an env without a
+    generator, and a transition whose hook is not ported, on an id that
+    exists."""
+    with pytest.raises(KeyError, match="unknown env id"):
+        make("MiniGrid-NoSuchEnv-v0")
+    maze = dataclasses.replace(make("MiniGrid-ObstructedMaze-1Dl-v0"), generate=None)
     with pytest.raises(NotImplementedError, match="no generator"):
         tfr.build_fused_rollout(maze, 8, mode="regen")
+    with pytest.raises(NotImplementedError, match="no generator"):
+        maze.reset_batch(key(0, device="cpu"), 4)
     with pytest.raises(NotImplementedError, match="hooks"):
         tfr.build_fused_rollout(dataclasses.replace(maze, transition="lavagap"), 8, mode="cached")
 
@@ -212,6 +215,8 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "assert len(mods) >= 15, mods\n"
+        "new = ('core.obs', 'core.view', 'core.vision', 'core.step', 'core.autoreset', 'envs.obstructedmaze')\n"
+        "assert all(p.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'minigrid_tpu.')))\n"
         "assert not bad, bad\n"
     )
@@ -228,7 +233,7 @@ def test_row_reader_values_match_the_jax_packages():
     env_id = "MiniGrid-Dynamic-Obstacles-5x5-v0"
     env = make(env_id)
     acts = _actions(2)
-    carry0 = tfr.packed_init(env, env.reset_batch(key(2, device="cpu"), B), "cached")
+    carry0 = tfr.packed_init(env, env.reset_batch(key(2, device="cpu"), B)[0], "cached")
     with pytest.raises(ValueError, match="unknown row_reader"):
         tfr.build_fused_rollout(env, T, mode="cached", row_reader="gather")
     runs = {}

@@ -67,7 +67,8 @@ def test_rollout_plan_takes_more_threads_only_where_warps_are_short():
 
 def test_rollout_plan_runs_int32_cells_off_the_16_bit_configurations():
     cfg = make("MiniGrid-Empty-8x8-v0").config
-    for other in (dataclasses.replace(cfg, agent_view_size=5), dataclasses.replace(cfg, family="obstructedmaze")):
+    assert "babyai" not in {make(e).config.family for e in env_list}
+    for other in (dataclasses.replace(cfg, agent_view_size=5), dataclasses.replace(cfg, family="babyai")):
         plan = fr.rollout_plan(other, 32_768)
         assert (plan.cell_bits, plan.threads_per_lane) == (32, 1)
         assert plan.lanes <= fr.kernel_lane_block(other)
@@ -113,7 +114,7 @@ def test_cell16_codec_round_trips_each_familys_plain_rollout(env_id):
     family's first id (64 lanes, cached mode: every reset reloads the
     template) fits and round-trips."""
     env = make(env_id)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device="cpu"), 64), "cached")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device="cpu"), 64)[0], "cached")
     words, regs = carry.words, carry.regs
     actions = torch.from_numpy(np.random.default_rng(0).integers(0, 7, (16, 1, 64)).astype(np.int32))
     for a in actions:

@@ -28,7 +28,7 @@ FAMILIES = ("lavagap", "fourrooms", "crossing", "lockedroom", "playground")
 
 def test_ids_are_the_jax_packages_in_order():
     assert IDS == [e for e in env_list if make(e).config.family in FAMILIES]
-    assert len(env_list) == 62
+    assert len(env_list) == 70
 
 
 def test_missions_are_the_jax_packages():
@@ -71,7 +71,7 @@ def test_crossing_rivers_each_keep_one_opening_on_the_path(env_id):
     cross counts once)."""
     env = make(env_id)
     cfg = env.config
-    s = state_to_numpy(env.reset_batch(key(4, device="cpu"), 64))
+    s = state_to_numpy(env.reset_batch(key(4, device="cpu"), 64)[0])
     obst = C.WALL if cfg.obstacle_type == "wall" else C.LAVA
     inner = s["grid"][:, 1:-1, 1:-1, 0] == obst
     goal = s["grid"][:, cfg.height - 2, cfg.width - 2, 0]
@@ -87,7 +87,7 @@ def test_crossing_rivers_each_keep_one_opening_on_the_path(env_id):
 
 def test_lockedroom_key_opens_the_locked_door_and_the_goal_is_behind_it():
     env = make("MiniGrid-LockedRoom-v0")
-    s = state_to_numpy(env.reset_batch(key(5, device="cpu"), 64))
+    s = state_to_numpy(env.reset_batch(key(5, device="cpu"), 64)[0])
     g = s["grid"]
     for lane in range(64):
         doors = np.argwhere(g[lane, :, :, 0] == C.DOOR)
@@ -105,7 +105,7 @@ def test_lockedroom_key_opens_the_locked_door_and_the_goal_is_behind_it():
 
 def test_playground_places_twelve_objects_and_no_goal():
     env = make("MiniGrid-Playground-v0")
-    s = state_to_numpy(env.reset_batch(key(6, device="cpu"), 64))
+    s = state_to_numpy(env.reset_batch(key(6, device="cpu"), 64)[0])
     kinds = s["grid"][..., 0]
     assert ((kinds == C.KEY) | (kinds == C.BALL) | (kinds == C.BOX)).sum(axis=(1, 2)).tolist() == [12] * 64
     assert not (kinds == C.GOAL).any() and (kinds == C.DOOR).sum(axis=(1, 2)).tolist() == [12] * 64

@@ -94,7 +94,7 @@ def _port_states(seed):
     """Empty-5x5 states with step counts spread over the episode, so that
     truncation resets fire within T steps."""
     env = make(ENV_ID)
-    states = env.reset_batch(prng.key(seed, device=CPU), B)
+    states, _ = env.reset_batch(prng.key(seed, device=CPU), B)
     sc = np.random.default_rng(seed).integers(0, env.config.max_steps, size=B).astype(np.int32)
     return states.replace(step_count=torch.from_numpy(sc))
 

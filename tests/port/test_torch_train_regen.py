@@ -406,7 +406,7 @@ def test_cuda_policy_kernel_hook_and_collect_match_twin(config, collect, ctl):
 def _train_case(name, dev, b):
     env_id = ref.KC if name == "kc" else MR.N4
     env = MR.with_max_steps(make(env_id), 5 if name == "kc" else None)
-    states = env.reset_batch(prng.key(5, device=dev), b)
+    states, _ = env.reset_batch(prng.key(5, device=dev), b)
     return env, tfr.packed_init(env, states, "regen")
 
 

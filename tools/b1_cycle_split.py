@@ -153,7 +153,7 @@ def case_args(dev, env_id, b, t, ctl):
     from minigrid_tpu_torch.ops import fused_rollout as fr
 
     env = make(env_id)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), b), "cached")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), b)[0], "cached")
     rng = np.random.default_rng(0)
     actions = torch.from_numpy(rng.integers(0, 7, (t, b)).astype(np.int32)).to(dev)
     ctl_rows = torch.zeros((3, b), dtype=torch.int32, device=dev) if ctl else None

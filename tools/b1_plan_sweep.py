@@ -66,7 +66,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     for env_id, b, t, ctl, check in CASES:
         env = make(env_id)
-        carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), b), "cached")
+        carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), b)[0], "cached")
         actions = torch.from_numpy(np.random.default_rng(0).integers(0, 7, (t, b)).astype(np.int32)).to(dev)
         ctl_rows = torch.zeros((3, b), dtype=torch.int32, device=dev) if ctl else None
         args = (carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, actions, env.config, env.transition,

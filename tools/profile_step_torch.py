@@ -181,7 +181,7 @@ def _static_mode(env) -> str:
 def main_train(dev, card, env_id: str = ENV_ID, batch: int = TRAIN_BATCH) -> int:
     env = make(env_id)
     mode = _static_mode(env)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), mode)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch)[0], mode)
     ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
     step = tr.build_fused_train_step(env, NUM_STEPS, mode=mode)
     keys = iter([key(100 + i, device=dev) for i in range(WARMUP + 2 * CALLS + 1)])
@@ -250,7 +250,7 @@ def _regen_counts():
 
 def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int, batch: int = REGEN_BATCH) -> int:
     env = make(env_id)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch)[0], "regen")
     ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(0))
     step = tr.build_fused_train_step(env, num_steps, mode="regen", regen_chunk=chunk)
     seeds = iter(range(100, 10**6))
@@ -293,7 +293,7 @@ def main_train_regen(dev, card, env_id: str, num_steps: int, chunk: int, batch: 
 
 def main_regen(dev, card, env_id: str, num_steps: int, chunk: int, policy: bool, batch: int = REGEN_BATCH) -> int:
     env = make(env_id)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), "regen")
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch)[0], "regen")
     if policy:
         model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
         step = pr.build_policy_eval_rollout(env, model, num_steps, mode="regen", as_carry=True, regen_chunk=chunk)
@@ -391,7 +391,7 @@ def main() -> int:
     env_id, batch = opt("--env", ENV_ID), int(opt("--batch", BATCH))
     env = make(env_id)
     mode = _static_mode(env)
-    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch), mode)
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), batch)[0], mode)
     if policy:
         model = ActorCritic(env.config.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
         weights = pr.eval_weights_from_params(model, env.config.agent_view_size)
