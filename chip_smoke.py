@@ -310,6 +310,42 @@ result line):
      `max_steps`) on the card against the same call on the CPU: states
      and integer metrics byte for byte, reward to rtol 1e-5; its rate.
 
+ 20. `parallel/` over two meshes, M1 (every visible card) and M2 (two
+     shards of the card), TF32 off; every window prints env-steps/s at M1
+     and M2 beside the unsharded call's, and each window's kernels are held
+     against their plain versions at a stated shard-sized shape: (a)
+     `build_sharded_rollout`, Empty-8x8 regen, carry surface, B=2**21,
+     T=256 (phase 2's cell), and (b) `build_sharded_policy_eval`, Empty-8x8
+     cached (phase 4's cell), each mesh's call byte for byte (the metrics'
+     f32 sum bit for bit) against the per-shard replay of the one-device
+     build function under `fold_in(key, i)`; B1 on 65,536 of a shard's lanes at
+     T=256, B2 at T=64 under dyadic weights; (c) the fused train step over
+     M2 against the unsharded step on the same carry and key at Empty-8x8
+     regen, B=131,072, T=256 (phase 6's cell) and KeyCorridorS6R3 regen,
+     B=32,768, T=256, chunk 32 (phase 12b's): the collecting rollout on
+     each shard's columns of the whole batch's seed stream, carries and
+     trajectory byte for byte; the shards' gradient-kernel sums within
+     phase 7's bounds; two chained steps unsharded, over M1 and over M2
+     (the carry after step 1 byte for byte, the params within 2·lr a step;
+     every step count within 2·T of `max_steps`, so half the lanes reset);
+     B2 collect, B3 and B4 on a shard's lanes against their plain versions;
+     (d) `build_train_step` and `build_packed_train_step` (plain PyTorch,
+     as the JAX package's are plain XLA), Empty-8x8 cached and DoorKey-8x8
+     regen, B=32,768, T=64, dyadic weights: M2 against one shard on every
+     integer, and the two steps' updates within 1e-6 of each other on
+     Empty-8x8; (e) config 5 (LavaCrossingS9N1 + FourRooms, 32,768 lanes a
+     member, T=256, chunk 32): the packed mixed rollout cached and regen
+     and mixed policy evaluation over M1 and M2 against the per-member
+     sharded replay (member i, shard j under `fold_in(fold_in(key, i),
+     j)`), each member's kernel against its plain version at a shard's
+     lanes, T=32; (f) in a process of its own, one NCCL process group of
+     world size 1 (`parallel/distributed.py`): `make_global_batch` over two
+     shards of the card, the sharded rollout and `psum_metrics` through
+     `all_reduce`, equal to 20a's path from `reset_batch` at B=262,144
+     (that process's first library load launches the probe kernel, as
+     does the first use of each card of M1 but the first); (g)
+     `parallel/dryrun.py::dryrun_multichip` over M1.
+
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
 version's, its bound on this card (`bound_ms`: the larger of its bytes
@@ -503,6 +539,34 @@ ENGINE_B = 32_768
 ENGINE_T = 64
 ENGINE_MIXED_B = 8192
 ENGINE_MIXED_T = 64
+# Phase 20: parallel/ over M1 (every visible card) and M2 (two shards of the card).
+P20_B = MAIN_B  # 20a, 20b: phases 2's and 4's cells
+P20_T = 256
+P20_CHECK_B = 65_536  # the lanes of the kernels' checks against their plain versions in 20a-20b
+P20_CHECK_T = 64  # 20b's check's steps
+P20_TRAIN_CELLS = (("MiniGrid-Empty-8x8-v0", 131_072, 256, 32), ("MiniGrid-KeyCorridorS6R3-v0", 32_768, 256, 32))
+P20_STEP_B = 32_768  # 20d
+P20_STEP_T = 64
+P20_STEP_CELLS = (("MiniGrid-Empty-8x8-v0", "cached"), ("MiniGrid-DoorKey-8x8-v0", "regen"))
+P20_MIXED_B = 32_768  # 20e: a member
+P20_DIST_B = 262_144  # 20f
+P20_DIST_TIMEOUT = 300
+# Adam's mu and nu after a step over a mesh against the reference step's,
+# per flax layer, relative to the leaf's largest entry (`_p20_moment_gaps`):
+# they hold the gradient each step used, after the sum over the shards and
+# the clip. The fused step (20c) adds the shards' f32 kernel sums in
+# another order, then rounds the torso's to bf16 once: an f32 difference
+# that straddles a bf16 rounding moves an entry by one bf16 ulp, 2^-8 to
+# 2^-7 of it, so up to 2^-7 in mu and 2^-6 in nu: the torso's bound is
+# 2^-6. The heads stay f32, but the clip scales every leaf by the global
+# norm, which those flips move (by 1.04e-5 at Empty-8x8 on an H100): 1e-4,
+# phase 7's head bound. The autograd steps (20d) round every time chunk's
+# torso cotangents to bf16 per shard; they are held to the bounds the CPU
+# tests hold them to against the JAX package
+# (tests/port/test_torch_parallel_train.py, AUTOGRAD_TOL). A wrong
+# denominator or a shard's sum left out moves the moments by about half.
+P20_FUSED_MOMENT_TOL = {"actor": GRAD_HEAD_TOL, "critic": GRAD_HEAD_TOL, "torso_0": 2**-6, "torso_1": 2**-6}
+P20_AUTOGRAD_MOMENT_TOL = {"actor": 1e-3, "critic": 1e-3, "torso_0": 0.05, "torso_1": 0.05}
 
 # Times under the previous design of the rollout kernel (one thread a lane,
 # int32 grids) and of the Mosaic probe (the forward recomputed by every
@@ -799,7 +863,7 @@ def phase_kernel_vs_plain(dev, card):
     return max_err
 
 
-def phase_probe(dev, card):
+def phase_probe(dev, card, phase="3"):
     """The probe kernel against `x + 1` on a random (8, 128) int32 block,
     exact; both, and `torch.add(x, 1)`, timed with CUDA events; then like
     with like: raw `mg_probe_launch` calls against `torch.add` calls
@@ -824,14 +888,15 @@ def phase_probe(dev, card):
     add_device_ms = torch_add_device_time(x)
     slower = ("not measured" if device_ms is None or add_device_ms is None
               else "the kernel" if device_ms > add_device_ms else "its wrapper (the kernel is not)")
-    print(f"phase 3: probe kernel {tuple(x.shape)} {ms:.6f} ms/call through its wrapper, plain x+1 {plain_ms:.6f} "
+    print(f"phase {phase}: probe kernel on {dev}, {tuple(x.shape)}: {ms:.6f} ms/call through its wrapper, plain x+1 "
+          f"{plain_ms:.6f} "
           f"ms/call; like with like: raw launches {raw_ms:.6f} ms/call against torch.add {library_ms:.6f} ms/call "
           f"(events), the kernel's device time {device_ms if device_ms is not None else 'not measured'} ms/launch "
           f"against torch.add's {add_device_ms if add_device_ms is not None else 'not measured'} ms (profiler); "
           f"the slower against torch.add: {slower} (it runs once per process, in load_library); "
           f"mismatches={mismatches} max_abs_err={err} [{card}]", flush=True)
     if mismatches:
-        raise RuntimeError("phase 3 failed: the probe kernel differs from x + 1")
+        raise RuntimeError(f"phase {phase} failed: the probe kernel differs from x + 1 on {dev}")
     return (err, device_ms if device_ms is not None else raw_ms, plain_ms,
             add_device_ms if add_device_ms is not None else library_ms)
 
@@ -3251,6 +3316,547 @@ def phase_slice13(dev, card):
     return rows
 
 
+def _p20_timed(fn):
+    """`fn()` between two synchronizes: (seconds, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _p20_launched(what, path_kernels):
+    """The kernels' launches since the counts were last set to 0; raises
+    unless each of `path_kernels` and no other kernel launched (but the
+    probe kernel, which the first use of a card launches once)."""
+    kernels = {n: c for n, c in _counts().items() if n.endswith("_kernel")}
+    path = set(path_kernels) | {"probe_kernel"}
+    if any(kernels[n] == 0 for n in path_kernels) or any(c for n, c in kernels.items() if n not in path):
+        raise RuntimeError(f"phase {what}: launches {kernels}; the path runs {path_kernels} and no other kernel")
+    return kernels
+
+
+def _p20_metrics_differ(got, want):
+    """Names of the metrics that differ (the f32 sum bit for bit)."""
+    import torch
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    return [n for n, a, b in zip(got._fields, got, want) if not torch.equal(bits(a), bits(b))]
+
+
+def _p20_moment_gaps(ts, ref, tol):
+    """`testing.moment_gaps(ts, ref)` and the leaves above `tol[layer]`."""
+    from minigrid_tpu_torch.testing import moment_gaps
+
+    gaps = moment_gaps(ts, ref)
+    return gaps, [leaf for leaf, g in gaps.items() if max(g) > tol[leaf.split("/")[0]]]
+
+
+def _p20_meshes(dev):
+    """M1: every visible card; M2: two shards of `dev`."""
+    from minigrid_tpu_torch.parallel.sharding import make_env_mesh
+
+    return {"M1": make_env_mesh(), "M2": make_env_mesh([dev, dev])}
+
+
+def _p20_replay_window(tag, what, one, sharded, carry, meshes, b, card, path_kernel, k):
+    """Phases 20a and 20b: the unsharded `one(k, carry)` timed after a
+    warm-up, then over each mesh one `sharded(mesh)(k, shards)` call timed
+    with every count set to 0 just before it, held byte for byte (the
+    metrics' f32 sum bit for bit) to the per-shard replay `one(fold_in(k,
+    i), shard_i)`. Returns (launches over the meshes' calls, M2's shards)."""
+    import torch
+
+    from minigrid_tpu_torch.core.prng import fold_in
+    from minigrid_tpu_torch.parallel import packed as pk
+
+    one(k, carry)
+    secs, _ = _p20_timed(lambda: one(k, carry))
+    unsharded = b * P20_T / secs
+    launches, shards = 0, None
+    for name, mesh in meshes.items():
+        shards = pk.shard_carry(carry, mesh)
+        step = sharded(mesh)
+        _zero_counts()
+        secs, (got, total) = _p20_timed(lambda: step(k, shards))
+        launches += _p20_launched(f"20{tag} ({name})", (path_kernel,))[path_kernel]
+        replay = [one(fold_in(k, i), s) for i, s in enumerate(shards)]
+        bad = [f"shard {i} {n}" for i, (c, _) in enumerate(replay)
+               for n, x, y in zip(c._fields, c, got[i]) if not torch.equal(x, y)]
+        bad += _p20_metrics_differ(total, pk.sum_metrics([m for _, m in replay]))
+        print(f"phase 20{tag}: {what} over {name} ({[str(d) for d in mesh.shard_devices]}): {secs:.4f} s, "
+              f"{b * P20_T / secs:.6e} env-steps/s (the unsharded call {unsharded:.6e}); episodes "
+              f"{int(total.episodes)}, reset_overlaps {int(total.reset_overlaps)}; against the per-shard replay "
+              f"under fold_in(key, i): differing {bad or 'none'} [{card}]", flush=True)
+        if bad or int(total.total_steps) != b * P20_T or int(total.obs_checksum) == 0:
+            raise RuntimeError(f"phase 20{tag}: {name} differs from its per-shard replay: {bad}")
+        del replay, got
+    return launches, shards
+
+
+def _p20_rollout_and_eval(dev, card, meshes):
+    """20a and 20b. Returns their kernel rows."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import packed as pk
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    env = make(ENV_ID)
+    cfg = env.config
+    rows = {}
+    carry = fr.packed_init(env, env.reset_batch(key(0, device=dev), P20_B)[0], "regen")
+    launches, shards = _p20_replay_window(
+        "a", f"build_sharded_rollout, {ENV_ID} regen, carry surface, B={P20_B} T={P20_T}",
+        fr.build_fused_rollout(env, P20_T, mode="regen", as_carry=True),
+        lambda mesh: pk.build_sharded_rollout(env, P20_T, mesh, mode="regen", as_carry=True), carry, meshes, P20_B,
+        card, "rollout_kernel", key(2000, device=dev))
+    b1 = _time_pass("20a", cfg, _slice_carry(shards[0], P20_CHECK_B), P20_T, dev, card, env.transition, "random",
+                    ctl=False)
+    rows["rollout_kernel_sharded"] = [launches, b1[0], b1[1], b1[2], b1[3], KERNEL_SOURCE]
+    del carry, shards
+    torch.cuda.empty_cache()
+
+    carry = fr.packed_init(env, env.reset_batch(key(1, device=dev), P20_B)[0], "cached")
+    model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+    launches, shards = _p20_replay_window(
+        "b", f"build_sharded_policy_eval, {ENV_ID} cached, B={P20_B} T={P20_T}",
+        pr.build_policy_eval_rollout(env, model, P20_T, mode="cached", as_carry=True),
+        lambda mesh: pk.build_sharded_policy_eval(env, model, P20_T, mesh, mode="cached", as_carry=True), carry,
+        meshes, P20_B, card, "policy_kernel", key(2001, device=dev))
+    ew = pr.eval_weights_from_params(dyadic_flax_params(20), cfg.agent_view_size, device=dev)
+    b2 = _time_pass("20b", cfg, _slice_carry(shards[0], P20_CHECK_B), P20_CHECK_T, dev, card, env.transition, "eval",
+                    ew, ctl=False)
+    rows["policy_kernel_sharded"] = [launches, b2[0], b2[1], b2[2], b2[3], POLICY_SOURCE]
+    del carry, shards
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _p20_connect_row(cfg, b, dev, card):
+    """B4 on KeyCorridor's generator plan at `b` lanes against its plain
+    version, timed: (max_abs_err, ms, plain_ms, bound)."""
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+
+    args = kc_connect_inputs(cfg, b, dev)
+    got, want = gk.run_connect_kernel(*args), gk.plain_connect_plan(*args)
+    bad = {n: int((g != w).sum()) for n, g, w in zip(("doors", "colors", "draws"), got, want)}
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    ms, _ = time_events(lambda: gk.run_connect_kernel(*args), KC_TIMED)
+    plain_ms, _ = time_events(lambda: gk.plain_connect_plan(*args), 1)
+    rows, cols = cfg.num_rows, cfg.num_cols
+    ops = (CONNECT_OPS_PER_DRAW_BASE + CONNECT_OPS_PER_FLOOD_STEP * rows * cols) * float(want[2].double().sum())
+    bnd = bound(4 * (2 + 3 + 4) * b + 4 * (4 + rows * cols * 4 + 1) * b, ops, int_issue_rate(dev))
+    print(f"phase 20c: connect kernel on the generator plan at a shard's B={b}: {ms:.6f} ms/call (mean of "
+          f"{KC_TIMED}), plain {plain_ms:.4f} ms; mismatches {bad}; bound {bnd} [{card}]", flush=True)
+    if any(bad.values()):
+        raise RuntimeError(f"phase 20c: the connect kernel differs from its plain version: {bad}")
+    return err, ms, plain_ms, bnd
+
+
+def _p20_collect_and_grads(env, model, carry, t, chunk, mesh, dev, card):
+    """20c's collection and gradient pass: the collecting rollout on the
+    whole batch and on each shard (its columns of the whole batch's seed
+    stream), byte for byte; the shards' gradient-kernel sums, added in shard
+    order, against the unsharded pass within phase 7's bounds. Returns
+    (max_abs_err, the first shard's carry and trajectory)."""
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import packed as pk
+    from minigrid_tpu_torch.parallel import train as tr
+
+    cfg = env.config
+    b = carry.words.shape[1]
+    tw = tr._train_weights(model, cfg.agent_view_size, dev)
+    w = pr.EvalWeights(*(x.detach() for x in tw.w))
+    roll = pr.build_fused_train_rollout(env, t, mode="regen", regen_chunk=chunk)
+    k = key(2100, device=dev)
+    part = b // mesh.n_env
+    c_un, traj_un, _ = roll(w, k, carry)
+    outs = [roll(w, k, s, lane0=i * part, total=b) for i, s in enumerate(pk.shard_carry(carry, mesh))]
+    bad = [f"carry {n}" for n, x, y in zip(c_un._fields, c_un, pk.gather_carry([o[0] for o in outs]))
+           if not torch.equal(x, y)]
+    bad += [f"trajectory {n}" for j, n in enumerate(("obs_words", "actions", "logp", "value", "reward", "done"))
+            if not torch.equal(traj_un[j], torch.cat([o[1][j] for o in outs], dim=-1))]
+    print(f"phase 20c: {env.env_id} regen B={b} T={t} chunk {chunk}: the collecting rollout over M2 against the "
+          f"unsharded one: differing {bad or 'none'} [{card}]", flush=True)
+    if bad:
+        raise RuntimeError(f"phase 20c: {env.env_id}: the sharded collection differs: {bad}")
+    denom = float(t * b)
+    gw, sums = tr._kernel_grad_sums(w, traj_un, cfg.num_actions, denom)[:2]
+    parts = [tr._kernel_grad_sums(w, o[1], cfg.num_actions, denom)[:2] for o in outs]
+    got_gw, got_sums = tr._add_in_order([p[0] for p in parts], dev), tr._add_in_order([p[1] for p in parts], dev)
+    rel = {n: float((g - x).abs().max() / (x.abs().max() + 1e-9))
+           for n, g, x in zip(pr.EvalWeights._fields, got_gw, gw)}
+    sums_rel = float(((got_sums - sums).abs() / sums.abs()).max())
+    err = max(float((g.double() - x.double()).abs().max()) for g, x in zip((*got_gw, got_sums), (*gw, sums)))
+    print(f"phase 20c: the shards' gradient-kernel sums against the unsharded pass: rel-to-max {rel}, loss sums rel "
+          f"{sums_rel:.3e} [{card}]", flush=True)
+    if not _grad_within_bounds(rel, sums_rel, True, got_sums):
+        raise RuntimeError(f"phase 20c: {env.env_id}: the sharded gradients are outside phase 7's bounds")
+    return err, outs[0]
+
+
+def _p20_chained_steps(env, model, carry, t, chunk, meshes, dev, card, kernels):
+    """20c's two chained train steps, unsharded, over M1 and over M2, from
+    the same carry, weights and keys: the carry after step 1 byte for byte,
+    Adam's moments after each step to `P20_FUSED_MOMENT_TOL` of the
+    unsharded ones per leaf, the params within 2·lr a step. Returns M2's
+    launches."""
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.parallel import packed as pk
+    from minigrid_tpu_torch.parallel import train as tr
+
+    b = carry.words.shape[1]
+    opt0 = tr.make_optimizer().init(tr.flatten_params(model.flax_params()))
+    tr.build_fused_train_step(env, t, mode="regen", regen_chunk=chunk)(tr.TrainState(model, opt0), carry,
+                                                                       key(2109, device=dev))  # warm-up
+    runs = {}
+    for name, mesh in (("unsharded", None), ("M1", meshes["M1"]), ("M2", meshes["M2"])):
+        step = tr.build_fused_train_step(env, t, mode="regen", regen_chunk=chunk, mesh=mesh)
+        ts, value = tr.TrainState(model, opt0), carry if mesh is None else pk.shard_carry(carry, mesh)
+        seconds, first, params, states = 0.0, None, [], []
+        _zero_counts()
+        for s in range(2):
+            secs, (ts, value, metrics) = _p20_timed(lambda: step(ts, value, key(2110 + s, device=dev)))
+            seconds += secs
+            if s == 0:
+                first = value if mesh is None else pk.gather_carry(value)
+            params.append(tr.flatten_params(ts.params.flax_params()))
+            states.append(ts)
+            if int(metrics["env_steps"]) != b * t or not math.isfinite(float(metrics["loss"])):
+                raise RuntimeError(f"phase 20c: {name}: env_steps {int(metrics['env_steps'])}, loss "
+                                   f"{float(metrics['loss'])}")
+        runs[name] = (first, params, _p20_launched(f"20c ({name})", kernels), 2 * b * t / seconds, states)
+        del ts, value
+        torch.cuda.empty_cache()
+    base_c, base_p, _, base_rate, base_s = runs["unsharded"]
+    for name in ("M1", "M2"):
+        c, p, launched, rate, states = runs[name]
+        same = all(torch.equal(x, y) for x, y in zip(c, base_c))
+        gap = [float((x - y).abs().max()) for x, y in zip(p, base_p)]
+        moments = [_p20_moment_gaps(x, y, P20_FUSED_MOMENT_TOL) for x, y in zip(states, base_s)]
+        print(f"phase 20c: {env.env_id} fused train step over {name}, 2 steps B={b} T={t}: {rate:.6e} env-steps/s "
+              f"(unsharded {base_rate:.6e}); launches {launched}; carry after step 1 equal: {same}; Adam's "
+              f"[mu, nu] per leaf against the unsharded step's, rel to the leaf's max, after steps 1 and 2: "
+              f"{[g for g, _ in moments]} (bounds {P20_FUSED_MOMENT_TOL}); the params' largest gap: {gap} (bound "
+              f"2·lr a step) [{card}]", flush=True)
+        outside = [m for _, m in moments]
+        if not same or any(outside) or any(g > 2 * tr.LR * (s + 1) * (1 + 1e-3) for s, g in enumerate(gap)):
+            raise RuntimeError(f"phase 20c: {env.env_id}: the step over {name} differs from the unsharded step: "
+                               f"carry equal {same}, moments outside their bounds {outside}, params {gap}")
+    return runs["M2"][2]
+
+
+def _p20_train(dev, card, meshes):
+    """20c: the sharded fused train step over M2 against the unsharded step
+    at two cells. Returns the kernel rows."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import train as tr
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    rows = {}
+    for env_id, b, t, chunk in P20_TRAIN_CELLS:
+        env = make(env_id)
+        cfg = env.config
+        hooked = env_id == KC_ENV_ID
+        states = env.reset_batch(key(0, device=dev), b)[0]
+        states = states.replace(step_count=_near_the_end(states.step_count, cfg.max_steps, 2 * t, dev, 21))
+        carry = fr.packed_init(env, states, "regen")
+        model = ActorCritic(cfg.num_actions, generator=torch.Generator(device=dev).manual_seed(0))
+        grad_err, (c0, traj0, _) = _p20_collect_and_grads(env, model, carry, t, chunk, meshes["M2"], dev, card)
+        wd = pr.train_weights_from_params(dyadic_flax_params(21), cfg.agent_view_size, device=dev)
+        b2 = _time_pass("20c", cfg, c0, chunk, dev, card, env.transition, "collect", wd, ctl=hooked)
+        w = pr.EvalWeights(*(x.detach() for x in tr._train_weights(model, cfg.agent_view_size, dev).w))
+        b3 = _grad_vs_plain("20c", cfg, w, traj0, card)
+        del c0, traj0
+        torch.cuda.empty_cache()
+        kernels = ("policy_kernel", "grad_kernel") + (("connect_kernel",) if hooked else ())
+        launched = _p20_chained_steps(env, model, carry, t, chunk, meshes, dev, card, kernels)
+        row = _row_name(env_id)
+        rows[f"policy_kernel_collect_sharded_{row}"] = [launched["policy_kernel"], b2[0], b2[1], b2[2], b2[3],
+                                                        POLICY_SOURCE]
+        rows[f"grad_kernel_sharded_{row}"] = [launched["grad_kernel"], max(b3[0], grad_err), b3[1], b3[2], b3[3],
+                                              GRAD_SOURCE]
+        if hooked:
+            c4 = _p20_connect_row(cfg, b // meshes["M2"].n_env, dev, card)
+            rows[f"connect_kernel_sharded_{row}"] = [launched["connect_kernel"], c4[0], c4[1], c4[2], c4[3],
+                                                     GEN_SOURCE]
+        del carry
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _p20_steps(dev, card, meshes):
+    """20d: `build_train_step` and `build_packed_train_step` over M2 against
+    one shard, equal on every integer, Adam's moments per leaf to
+    `P20_AUTOGRAD_MOMENT_TOL`; the two steps' updates equal on Empty-8x8."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.parallel import train as tr
+    from minigrid_tpu_torch.parallel.sharding import gather_states, make_env_mesh, shard_states
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    one_shard = make_env_mesh([dev])
+    steps = P20_STEP_B * P20_STEP_T
+    for env_id, mode in P20_STEP_CELLS:
+        env = make(env_id)
+        states = env.reset_batch(key(0, device=dev), P20_STEP_B)[0]
+        states = states.replace(step_count=_near_the_end(states.step_count, env.config.max_steps, 2 * P20_STEP_T,
+                                                         dev, 20))
+        model = ActorCritic.from_flax(dyadic_flax_params(22), device=dev)
+        ts0 = tr.TrainState(model, tr.make_optimizer().init(tr.flatten_params(model.flax_params())))
+        k = key(2200, device=dev)
+        params = {}
+        for build in (tr.build_train_step, tr.build_packed_train_step):
+            outs = {}
+            for name, mesh in (("one shard", one_shard), ("M2", meshes["M2"])):
+                step = build(env, P20_STEP_T, mesh=mesh, mode=mode)
+                shards = shard_states(states, mesh)
+                _zero_counts()
+                secs, (ts, st, m) = _p20_timed(lambda: step(ts0, shards, k))
+                launched = {n: c for n, c in _counts().items() if n.endswith("_kernel") and c}
+                outs[name] = (gather_states(st), m, tr.flatten_params(ts.params.flax_params()), secs, launched, ts)
+            (a, ma, pa, sa, la, ta), (b, mb, pb, sb, lb, tb) = outs["one shard"], outs["M2"]
+            bad = [f.name for f in dataclasses.fields(a) if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+            bad += [] if torch.equal(ma["episodes"], mb["episodes"]) else ["episodes"]
+            gap = float((pa - pb).abs().max())
+            moments, outside = _p20_moment_gaps(tb, ta, P20_AUTOGRAD_MOMENT_TOL)
+            print(f"phase 20d: {build.__name__}, {env_id} {mode} B={P20_STEP_B} T={P20_STEP_T}: one shard "
+                  f"{sa:.4f} s, {steps / sa:.6e} env-steps/s; M2 {sb:.4f} s, {steps / sb:.6e} env-steps/s; loss "
+                  f"{float(mb['loss']):.6f}, episodes {float(mb['episodes'])}; differing {bad or 'none'}; Adam's "
+                  f"[mu, nu] per leaf against one shard's, rel to the leaf's max: {moments} (bounds "
+                  f"{P20_AUTOGRAD_MOMENT_TOL}); the params' largest gap {gap:.3e}; kernels launched {la or 'none'} "
+                  f"and {lb or 'none'} (plain PyTorch by design: the JAX package's step is plain XLA) [{card}]",
+                  flush=True)
+            if bad or outside or gap > 2 * tr.LR or float(mb["episodes"]) == 0:
+                raise RuntimeError(f"phase 20d: {build.__name__} at {env_id}: M2 differs from one shard: {bad}, "
+                                   f"moments outside their bounds {outside}, params {gap}")
+            params[build.__name__] = pa
+        if env_id == ENV_ID:
+            gap = float((params["build_train_step"] - params["build_packed_train_step"]).abs().max())
+            print(f"phase 20d: {env_id}: build_train_step's and build_packed_train_step's updates differ by "
+                  f"{gap:.3e} at most [{card}]", flush=True)
+            if gap > 1e-6:
+                raise RuntimeError(f"phase 20d: the per-env and packed train steps' updates differ by {gap}")
+        torch.cuda.empty_cache()
+
+
+def _p20_mixed(dev, card, meshes):
+    """20e: config 5's mixed surfaces over M1 and M2 against the per-member
+    sharded replay. Returns the kernel rows, one per member and surface,
+    each with the member's launches in M2's call."""
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import fold_in, key
+    from minigrid_tpu_torch.models.policy import ActorCritic
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.ops import policy_rollout as pr
+    from minigrid_tpu_torch.parallel import mixed
+    from minigrid_tpu_torch.parallel import packed as pk
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    envs = [make(e) for e in MIXED_IDS]
+    models = [ActorCritic(e.config.num_actions, generator=torch.Generator(device=dev).manual_seed(i))
+              for i, e in enumerate(envs)]
+    rows = {}
+    b, t = P20_MIXED_B * len(envs), MIXED_T
+    for surface, mode, kernel in (("random", "cached", "rollout_kernel"), ("random", "regen", "rollout_kernel"),
+                                  ("policy", "regen", "policy_kernel")):
+        carries = tuple(fr.packed_init(e, e.reset_batch(key(30 + i, device=dev), P20_MIXED_B)[0], mode)
+                        for i, e in enumerate(envs))
+        if surface == "random":
+            build = lambda mesh: mixed.build_packed_mixed_rollout(MIXED_IDS, t, mode=mode, as_carry=True, mesh=mesh)  # noqa: E731
+            members = [fr.build_fused_rollout(e, t, mode=mode, as_carry=True) for e in envs]
+        else:
+            build = lambda mesh: mixed.build_mixed_policy_eval(MIXED_IDS, models, t, mode=mode,  # noqa: E731
+                                                               regen_chunk=MIXED_CHUNK, mesh=mesh)
+            members = [pr.build_policy_eval_rollout(e, m, t, mode=mode, as_carry=True, regen_chunk=MIXED_CHUNK)
+                       for e, m in zip(envs, models)]
+        k = key(2300, device=dev)
+        one = build(None)
+        one(k, carries)
+        secs, _ = _p20_timed(lambda: one(k, carries))
+        unsharded = b * t / secs
+        for name, mesh in meshes.items():
+            sharded = tuple(pk.shard_carry(c, mesh) for c in carries)
+            _zero_counts()
+            secs, (got, total) = _p20_timed(lambda: build(mesh)(k, sharded))
+            window = _p20_launched(f"20e ({name})", (kernel,))[kernel]
+            bad, metrics, member_launches = [], [], []
+            for i, inner in enumerate(members):
+                _zero_counts()
+                replay = [inner(fold_in(fold_in(k, i), j), s) for j, s in enumerate(sharded[i])]
+                member_launches.append(_counts()[kernel])
+                metrics.append(pk.sum_metrics([m for _, m in replay]))
+                bad += [f"member {i} shard {j} {n}" for j, (c, _) in enumerate(replay)
+                        for n, x, y in zip(c._fields, c, got[i][j]) if not torch.equal(x, y)]
+            bad += _p20_metrics_differ(total, pk.sum_metrics(metrics))
+            print(f"phase 20e: config 5 {surface} {mode} over {name}, B={b} T={t}: {secs:.4f} s, {b * t / secs:.6e} "
+                  f"env-steps/s (the unsharded call {unsharded:.6e}); episodes {int(total.episodes)}, reset_overlaps "
+                  f"{int(total.reset_overlaps)}; {kernel} launches {window} (the members' replays "
+                  f"{member_launches}); against the per-member sharded replay: differing {bad or 'none'} [{card}]",
+                  flush=True)
+            if bad or int(total.episodes) == 0 or sum(member_launches) != window:
+                raise RuntimeError(f"phase 20e: {surface} {mode} over {name} differs from its replay: {bad}, "
+                                   f"{window} vs {member_launches}")
+        # Each member's kernel against its plain version at a shard's lanes.
+        for i, e in enumerate(envs):
+            part = pk.shard_carry(carries[i], meshes["M2"])[0]
+            if surface == "random":
+                res = _time_pass("20e", e.config, part, MIXED_CHECK_T, dev, card, e.transition, "random",
+                                 ctl=mode == "regen")
+            else:
+                wd = pr.eval_weights_from_params(dyadic_flax_params(23 + i), e.config.agent_view_size, device=dev)
+                res = _time_pass("20e", e.config, part, MIXED_CHECK_T, dev, card, e.transition, "eval", wd)
+            rows[f"{kernel}_mixed_sharded_{mode}_{_row_name(MIXED_IDS[i])}"] = [
+                member_launches[i], res[0], res[1], res[2], res[3],
+                KERNEL_SOURCE if kernel == "rollout_kernel" else POLICY_SOURCE]
+        del carries
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase20_distributed_child() -> None:
+    """Phase 20f's own process: one NCCL process group of world size 1 on
+    the card (`distributed.initialize`), `make_global_batch` over two
+    shards of it (`global_env_mesh`), the sharded rollout and
+    `psum_metrics` through `all_reduce`. Prints one `P20F` JSON line: the
+    metrics, the kernels' launches in this process (its first library
+    load launches the probe kernel, which `load_library` holds against
+    `x + 1`), and after them `phase_probe`'s reading in this process."""
+    import socket
+
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.parallel import distributed, packed
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", 1, 0, timeout_s=120)
+    try:
+        mesh = distributed.global_env_mesh([dev, dev])
+        env = make(ENV_ID)
+        _zero_counts()
+        states, _ = distributed.make_global_batch(env, key(2400, device=dev), P20_DIST_B, mesh)
+        _, m = packed.build_sharded_rollout(env, P20_T, mesh, mode="regen")(key(2401, device=dev), states)
+        m = distributed.psum_metrics(m, mesh)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in _counts().items() if n.endswith("_kernel")}
+        info = distributed.process_info(mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    probe = phase_probe(dev, "this process", phase="20f")
+    print("P20F " + json.dumps({"metrics": [int(m.episodes), int(m.total_steps), int(m.obs_checksum),
+                                            int(m.reset_overlaps), float(m.total_reward)],
+                                "reward_bits": int(m.total_reward.view(torch.int32)), "counts": counts,
+                                "info": info, "probe": list(probe)}), flush=True)
+
+
+def _p20_distributed(dev, card, meshes):
+    """20f: the child process's run against 20a's path (the sharded rollout
+    over M2 from `reset_batch` of the same key) at `P20_DIST_B`. Returns
+    the child's launch counts and its probe reading (error, ms, plain ms,
+    `torch.add`'s ms)."""
+    import os
+
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.parallel import packed as pk
+    from minigrid_tpu_torch.parallel.sharding import shard_states
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.phase20_distributed_child()"],
+                         capture_output=True, text=True, timeout=P20_DIST_TIMEOUT, cwd=here,
+                         env={**os.environ, "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")})
+    lines = [x for x in res.stdout.splitlines() if x.startswith("P20F ")]
+    if res.returncode != 0 or not lines:
+        raise RuntimeError(f"phase 20f: the process-group run failed ({res.returncode}):\n{res.stderr[-3000:]}")
+    child = json.loads(lines[-1][5:])
+    env = make(ENV_ID)
+    states = shard_states(env.reset_batch(key(2400, device=dev), P20_DIST_B)[0], meshes["M2"])
+    _, m = pk.build_sharded_rollout(env, P20_T, meshes["M2"], mode="regen")(key(2401, device=dev), states)
+    want = [int(m.episodes), int(m.total_steps), int(m.obs_checksum), int(m.reset_overlaps), float(m.total_reward)]
+    same = child["metrics"] == want and child["reward_bits"] == int(m.total_reward.view(torch.int32))
+    print(f"phase 20f: one NCCL process group of world size 1 ({child['info']}): make_global_batch, "
+          f"build_sharded_rollout over two shards and psum_metrics (all_reduce), B={P20_DIST_B} T={P20_T}: metrics "
+          f"{child['metrics']}, launches in that process {child['counts']}; 20a's path in this one {want}: equal "
+          f"{same}; that process's probe kernel against x + 1 (error, ms, plain ms, torch.add ms): "
+          f"{child['probe']} [{card}]", flush=True)
+    if not same or child["counts"]["rollout_kernel"] != 2 or child["counts"]["probe_kernel"] != 1:
+        raise RuntimeError(f"phase 20f: the distributed run differs from 20a's path or launched {child['counts']}")
+    return child["counts"], child["probe"]
+
+
+def phase_slice14(dev, card):
+    """Phase 20 (module docstring): `parallel/` over two meshes. Returns
+    (`{row name: [launches, max_abs_err, ms, plain_ms, bound, source]}`,
+    `{probe row name: [launches, max_abs_err, ms, plain_ms, library_ms]}`:
+    the probe in 20f's process, and on a machine with more than one card
+    on the cards the meshes used first, each measured where it launched)."""
+    import torch
+
+    from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    from minigrid_tpu_torch.ops import _build
+
+    meshes = _p20_meshes(dev)
+    checked = set(_build._checked_devices)
+    print(f"phase 20: M1 {[str(d) for d in meshes['M1'].shard_devices]}, M2 "
+          f"{[str(d) for d in meshes['M2'].shard_devices]} [{card}]", flush=True)
+    rows = _p20_rollout_and_eval(dev, card, meshes)
+    rows.update(_p20_train(dev, card, meshes))
+    _p20_steps(dev, card, meshes)
+    rows.update(_p20_mixed(dev, card, meshes))
+    child, child_probe = _p20_distributed(dev, card, meshes)
+    rows["rollout_kernel_sharded"][0] += child["rollout_kernel"]
+    _zero_counts()
+    out = dryrun_multichip(torch.cuda.device_count())
+    launched = {n: c for n, c in _counts().items() if n.endswith("_kernel") and c}
+    print(f"phase 20g: dryrun_multichip over M1 ({torch.cuda.device_count()} card(s)): {out}; launches {launched} "
+          f"[{card}]", flush=True)
+    if not {"rollout_kernel", "policy_kernel", "grad_kernel"} <= launched.keys():
+        raise RuntimeError(f"phase 20g: the dry run launched {launched}")
+    # The probe: once in 20f's process, and once here on each card the
+    # meshes first used (every card of M1 but the first, on a machine
+    # with more than one), each row read where its launches ran.
+    probes = {"probe_kernel_distributed": [child["probe_kernel"], *child_probe]}
+    cards = sorted(set(_build._checked_devices) - checked)
+    if cards:
+        readings = [phase_probe(torch.device("cuda", i), card, phase="20") for i in cards]
+        probes["probe_kernel_mesh_cards"] = [len(cards), *(max(r[j] for r in readings) for j in range(4))]
+    return rows, probes
+
+
 def run_phase(label, fn, *args):
     """`fn(*args)`, then the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -3338,6 +3944,9 @@ def main() -> int:
     new_rows.update(run_phase("18", phase_slice12, dev, card))
     torch.cuda.empty_cache()
     new_rows.update(run_phase("19", phase_slice13, dev, card))
+    torch.cuda.empty_cache()
+    rows20, probes20 = run_phase("20", phase_slice14, dev, card)
+    new_rows.update(rows20)
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():
@@ -3412,6 +4021,19 @@ def main() -> int:
             "bound_by": probe_bound[1],
             "library_ms": probe_library_ms,
         },
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": PROBE_REPLACES,
+            "launches": launches_,
+            "max_abs_err": err_,
+            "ms": ms_,
+            "plain_ms": plain_ms_,
+            "bound_ms": probe_bound[0],
+            "bound_by": probe_bound[1],
+            "library_ms": library_ms_,
+        } for name, (launches_, err_, ms_, plain_ms_, library_ms_) in probes20.items()),
         {
             "name": "policy_kernel",
             "route": "cuda",
@@ -3575,7 +4197,7 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": source,
-            "replaces": GRAD_REPLACES if name.startswith("grad") else (
+            "replaces": GRAD_REPLACES if name.startswith("grad") else GEN_REPLACES if name.startswith("connect") else (
                 KERNEL_REPLACES if name.startswith("rollout") else POLICY_REPLACES),
             "launches": launches_,
             "max_abs_err": err_,

@@ -24,8 +24,14 @@ families, with two engines:
     merged across chunked regen's passes), a third one
     (`ops/csrc/grad_kernel.cu`) runs the actor-critic gradient pass, then
     clip + Adam; and mixed batches of member envs, one lane block each
-    (`parallel/mixed.py`, on one device). `tools/` holds the Mosaic
-    bisection probe, a fourth.
+    (`parallel/mixed.py`). `tools/` holds the Mosaic bisection probe, a
+    fourth.
+
+Every path also runs over a mesh of devices (`parallel/sharding.py`: one
+device may hold several shards): the sharded rollouts and policy
+evaluation (`parallel/packed.py`), the three train steps and the mixed
+batches with `mesh=`, and several processes on `torch.distributed`
+(`parallel/distributed.py`).
 
 Entry points make their tensors on the card unless the caller names a
 device. See ROADMAP.md for what is still to come.

@@ -119,21 +119,32 @@ def hash_u31(k0, k1, counter) -> torch.Tensor:
     return (h0 & 0x7FFFFFFF).to(torch.int32)
 
 
-def random_bits(key: torch.Tensor, shape, dtype=torch.int64) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, dtype=torch.int64, lane0: int = 0, total=None) -> torch.Tensor:
     """`jax.random.bits(key, shape, uint32)` on `key.device`: as int64
     uint32 values, or with `dtype=torch.int32` as their int32 bit patterns
-    (`lax.bitcast_convert_type`). Threefry runs over at most `_BITS_CHUNK`
-    counters at a time, so its int64 temporaries stay a few hundred MB
-    whatever the shape."""
+    (`lax.bitcast_convert_type`). With `lane0` (and `total`, the whole
+    batch's width, default `lane0 + shape[-1]`), columns `lane0` to `lane0 +
+    shape[-1]` of the draw over `shape[:-1] + (total,)`, computed without
+    the rest (word `i` depends on `i` alone): a shard's lanes of a draw
+    over the whole batch. Threefry runs over at most `_BITS_CHUNK` counters
+    at a time, so its int64 temporaries stay a few hundred MB whatever the
+    shape."""
     shape = tuple(int(n) for n in shape)
-    n = math.prod(shape)
-    out = torch.empty(n, dtype=dtype, device=key.device)
+    n = shape[-1] if shape else 1
+    width = lane0 + n if total is None else int(total)
+    if lane0 < 0 or lane0 + n > width:
+        raise ValueError(f"lanes {lane0}..{lane0 + n} outside a last axis of {width}")
+    rows = math.prod(shape[:-1])
+    out = torch.empty((rows, n), dtype=dtype, device=key.device)
     k0, k1 = key[0], key[1]
-    for start in range(0, n, _BITS_CHUNK):
-        i = torch.arange(start, min(n, start + _BITS_CHUNK), dtype=torch.int64, device=key.device)
+    cols = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=key.device)
+    step = max(1, _BITS_CHUNK // max(n, 1))
+    for start in range(0, rows, step):
+        r = torch.arange(start, min(rows, start + step), dtype=torch.int64, device=key.device)
+        i = r[:, None] * width + cols
         x0, x1 = threefry2x32(k0, k1, i >> 32, i & MASK32)
         bits = x0 ^ x1
-        out[start : start + i.numel()] = _as_int32(bits) if dtype == torch.int32 else bits
+        out[start : start + r.numel()] = _as_int32(bits) if dtype == torch.int32 else bits
     return out.reshape(shape)
 
 
@@ -183,21 +194,23 @@ def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, lo, hi) -> torc
     return (lo + off % span).to(torch.int32)
 
 
-def _randint_rows(halves: torch.Tensor, batch: int, lo, hi) -> torch.Tensor:
+def _randint_rows(halves: torch.Tensor, batch: int, lo, hi, lane0: int = 0) -> torch.Tensor:
     """`jax.random.randint(k, (batch,), lo, hi)` per row, from `halves`
     `(..., 2, 2)`: the two children of `split(k)` of each row's key. A
     shaped `randint` draws `bits(k, (batch,))` of both children (counters
-    `(0, i)` for lane `i`) and reduces them as `randint_from_bits` does."""
-    lanes = torch.arange(batch, dtype=torch.int64, device=halves.device)
+    `(0, i)` for lane `i`) and reduces them as `randint_from_bits` does;
+    with `lane0`, lanes `lane0` to `lane0 + batch` of a larger draw."""
+    lanes = torch.arange(lane0, lane0 + batch, dtype=torch.int64, device=halves.device)
     x0, x1 = threefry2x32(halves[..., 0:1], halves[..., 1:2], lanes >> 32, lanes & MASK32)  # (..., 2, B)
     words = x0 ^ x1
     return randint_from_bits(words[..., 0, :], words[..., 1, :], lo, hi)
 
 
-def randint_lanes(key: torch.Tensor, batch: int, lo: int, hi: int) -> torch.Tensor:
+def randint_lanes(key: torch.Tensor, batch: int, lo: int, hi: int, lane0: int = 0) -> torch.Tensor:
     """`jax.random.randint(key, (batch,), lo, hi)` for one `(2,)` key:
-    `(batch,)` int32, one row of `randint_stream`."""
-    return _randint_rows(split(key, 2), batch, lo, hi)
+    `(batch,)` int32, one row of `randint_stream`; with `lane0`, lanes
+    `lane0` to `lane0 + batch` of a draw over a larger batch (a shard's)."""
+    return _randint_rows(split(key, 2), batch, lo, hi, lane0)
 
 
 def randint_stream(key: torch.Tensor, num_steps: int, batch: int, lo: int, hi: int) -> torch.Tensor:
@@ -236,6 +249,35 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
         score = torch.where(torch.isfinite(logits[start : start + rows]), m * n + (n - 1 - idx), -1)
         out[start : start + rows] = score.argmax(dim=1)
     return out
+
+
+def gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """jax 0.9's f32 gumbel (`_gumbel`, mode "low") of uint32 `bits` (int64
+    values): `-log(-log(u))` with `u = max(tiny, f·(1 - tiny) + tiny)` and
+    `f = (bits >> 9) · 2^-23`, each operation in f32 as jax takes it. The
+    two `log`s are torch's: on an x86 CPU about a quarter of the 2^23
+    values of `bits >> 9` give a gumbel that rounds apart from XLA's, by at
+    most 2^-22 of max(1, |g|) (counted in
+    tests/port/test_torch_parallel_train.py)."""
+    m = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = m.view(torch.float32) - 1.0
+    tiny = torch.tensor(np.finfo(np.float32).tiny, dtype=torch.float32, device=bits.device)
+    u = torch.maximum(tiny, floats * (torch.tensor(1.0, dtype=torch.float32, device=bits.device) - tiny) + tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical_logits(key: torch.Tensor, logits: torch.Tensor, lane0: int = 0) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` for one `(2,)` key and `(B, N)`
+    f32 logits: `argmax(logits + gumbel(bits(key, (B, N))))` along the
+    last axis, the first index of a tie, as `(B,)` int64. With `lane0`,
+    the rows are lanes `lane0` to `lane0 + B` of a draw over a larger batch
+    (a shard's lanes: word `(b, a)` is counter `b·N + a`), computed
+    without the rest. Unlike `categorical`'s integer argmax over 0/-inf
+    masks, this adds float gumbels, so an action can differ from XLA's
+    where a `log` rounds apart and the logits nearly tie."""
+    b, n = logits.shape
+    bits = random_bits(key.to(logits.device), (1, b * n), lane0=lane0 * n).reshape(b, n)
+    return torch.argmax(logits.to(torch.float32) + gumbel(bits), dim=1)
 
 
 def sort_key_val(sort_keys: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

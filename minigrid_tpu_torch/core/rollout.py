@@ -58,13 +58,14 @@ def generator_policy(num_actions: int) -> GeneratorPolicyFn:
     return policy
 
 
-def random_policy(num_actions: int) -> PolicyFn:
+def random_policy(num_actions: int, lane0: int = 0) -> PolicyFn:
     """`policy(key, obs_images) -> (B,)` int32 actions, uniform in `[0,
     num_actions)`: the JAX package's `jax.random.randint(key, (B,), 0,
-    num_actions)` for a `(2,)` key."""
+    num_actions)` for a `(2,)` key; with `lane0`, the actions of lanes
+    `lane0` onwards of a larger batch (a shard's)."""
 
     def policy(key: torch.Tensor, obs_image: torch.Tensor) -> torch.Tensor:
-        return prng.randint_lanes(key, obs_image.shape[0], 0, num_actions)
+        return prng.randint_lanes(key, obs_image.shape[0], 0, num_actions, lane0)
 
     return policy
 

@@ -248,10 +248,11 @@ def sample_categorical_with_logp(logits: torch.Tensor, seed_row: torch.Tensor, n
     return action, (l_a - m) - torch.log(cum)
 
 
-def _seeds_for(key: torch.Tensor, num_steps: int, b: int) -> torch.Tensor:
+def _seeds_for(key: torch.Tensor, num_steps: int, b: int, lane0: int = 0, total=None) -> torch.Tensor:
     """The `(T, B)` int32 sampling seeds: `jax.random.bits(key, (T, B))`
-    as int32 bit patterns."""
-    return random_bits(key, (num_steps, b), dtype=torch.int32)
+    as int32 bit patterns. With `lane0` and `total`, the `b` columns from
+    `lane0` of the `(T, total)` draw of a whole batch (a shard's lanes)."""
+    return random_bits(key, (num_steps, b), dtype=torch.int32, lane0=lane0, total=total)
 
 
 def pack_obs_words(vw: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
@@ -668,10 +669,13 @@ def build_fused_train_rollout(env: Env, num_steps: int, mode: str = "cached", re
     plain twin for CPU tensors.
 
     Cached mode and regen on a static layout take one pass, the
-    trajectory as views of its spill; `mark` is called after the seeds
-    ("seeds"), the pass ("collect") and the rng replay ("replay"). Regen on
-    a random layout (KeyCorridor, MultiRoom) installs a fresh layout at
-    every reset, as the reference does: exact chunked regen with passes of
+    trajectory as views of its spill. With `lane0` and `total` the carry
+    holds lanes `lane0` to `lane0 + B` of a `total`-lane batch, and lane
+    `b` draws the seeds lane `lane0 + b` of the whole batch would draw
+    (`_seeds_for`): the shard of a train step over a mesh. `mark` is
+    called after the seeds ("seeds"), the pass ("collect") and the rng
+    replay ("replay"). Regen on a random layout (KeyCorridor, MultiRoom)
+    installs a fresh layout at every reset, as the reference does: exact chunked regen with passes of
     `regen_chunk` steps (the largest divisor of `num_steps` up to it), the
     seeds pre-shifted per lane, each pass's spill merged to the lanes'
     commit cursors (`chunked_regen._merge_spill`); `mark` is called at
@@ -690,8 +694,9 @@ def build_fused_train_plain_rollout(env: Env, num_steps: int, mode: str = "cache
 def _build_train_rollout(env: Env, num_steps: int, mode: str, regen_chunk: int, run):
     _check_policy_path(env, mode, collect=True)
 
-    def seeds_for(key, b, dev):
-        return _seeds_for(key.to(dev), num_steps, b)
+    def seeds_for(source, b, dev):
+        key, lane0, total = source
+        return _seeds_for(key.to(dev), num_steps, b, lane0, total)
 
     if mode == "regen" and not _regen_is_static(env):
 
@@ -702,16 +707,17 @@ def _build_train_rollout(env: Env, num_steps: int, mode: str, regen_chunk: int, 
         step_carry = _chunked(env, num_steps, regen_chunk, run, chunk_fn, seeds_for, collect=True)
 
         @torch.no_grad()
-        def regen_rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark):
-            carry, metrics, traj = step_carry(key, carry, mark, ctx=weights)
+        def regen_rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark, lane0=0,
+                          total=None):
+            carry, metrics, traj = step_carry((key, lane0, total), carry, mark, ctx=weights)
             return carry, traj, metrics
 
         return regen_rollout
 
     @torch.no_grad()
-    def rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark):
+    def rollout(weights: EvalWeights, key: torch.Tensor, carry: PackedCarry, mark=_no_mark, lane0=0, total=None):
         b, dev = carry.words.shape[1], carry.words.device
-        seeds = seeds_for(key, b, dev)
+        seeds = seeds_for((key, lane0, total), b, dev)
         mark("seeds")
         words_f, regs_f, rsum, epi, csum, traj = run(
             carry.words, carry.regs, carry.tmpl_words, carry.tmpl_regs, seeds, weights, env.config, collect=True,

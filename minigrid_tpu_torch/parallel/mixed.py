@@ -1,5 +1,5 @@
-"""Heterogeneous env batches on one device (counterpart of
-`minigrid_tpu/parallel/mixed.py`, without a mesh).
+"""Heterogeneous env batches, on one device or over a mesh (counterpart
+of `minigrid_tpu/parallel/mixed.py`).
 
 `MixedEnv` and `build_mixed_rollout` step one batch of lanes of several
 member envs through the per-env engine: each grid is padded to the
@@ -20,8 +20,14 @@ member order. Each member's block runs in its kernel for CUDA carries and
 in the plain twin for CPU carries; the `*_plain` builders run the plain
 twins on any device.
 
-The sharded form (the JAX builders' `mesh`) is not ported yet; see
-ROADMAP.md.
+With a mesh (`parallel/sharding.py`), `build_mixed_rollout` is, as the
+JAX package's `jax.jit` with shardings, the unsharded rollout on the whole
+batch: each shard steps its lanes with the actions those lanes draw in
+the whole batch. The packed build functions run each member through
+`parallel/packed.py`'s per-shard replay (`build_sharded_rollout`,
+`build_sharded_policy_eval`) under `fold_in(key, i)`, as the JAX package
+does (`mixed.py:236-241`, `:311-316`): a member's value is then a sharded
+one, a tuple of per-shard states or carries.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core import prng
 from minigrid_tpu_torch.core.autoreset import put_lanes, reset_finished, take_lanes
 from minigrid_tpu_torch.core.obs import gen_obs
-from minigrid_tpu_torch.core.rollout import RolloutMetrics, random_policy, run_rollout
+from minigrid_tpu_torch.core.rollout import random_policy, run_rollout
 from minigrid_tpu_torch.core.state import AUX_LEN, EnvState
 from minigrid_tpu_torch.core.step import StepResult, as_actions
 from minigrid_tpu_torch.envs.base import Env, step_fn
@@ -43,6 +49,8 @@ from minigrid_tpu_torch.envs.registry import make
 from minigrid_tpu_torch.ops.chunked_regen import _no_mark
 from minigrid_tpu_torch.ops.fused_rollout import build_fused_rollout, build_packed_plain_rollout
 from minigrid_tpu_torch.ops.policy_rollout import build_policy_eval_plain_rollout, build_policy_eval_rollout
+from minigrid_tpu_torch.parallel.packed import build_sharded_policy_eval, build_sharded_rollout, sum_metrics
+from minigrid_tpu_torch.parallel import sharding
 
 
 # The aux slot that holds a lane's member index (families use low slots).
@@ -175,23 +183,35 @@ class MixedEnv:
         return step
 
 
-def build_mixed_rollout(menv: MixedEnv, num_steps: int):
+def build_mixed_rollout(menv: MixedEnv, num_steps: int, mesh=None):
     """The random policy over a `MixedEnv` batch: `rollout(key, states) ->
     (states, RolloutMetrics)`, step t's actions `randint(split(key, T)[t],
     (B,), 0, menv.num_actions)` as in the JAX package (`core/rollout.py::
-    run_rollout`)."""
-    auto_step, policy = menv.autoreset_step(), random_policy(menv.num_actions)
+    run_rollout`). With a mesh, `states` is a sharded `EnvState`
+    (`sharding.shard_states`) and shard `i` takes the actions of its lanes
+    in the whole batch: the states and integer totals of the unsharded
+    call, the reward summed in shard order."""
+    auto_step = menv.autoreset_step()
 
     def rollout(key: torch.Tensor, states: EnvState):
-        return run_rollout(auto_step, menv.observe, policy, num_steps, key, states)
+        return run_rollout(auto_step, menv.observe, random_policy(menv.num_actions), num_steps, key, states)
 
-    return rollout
+    if mesh is None:
+        return rollout
 
+    def sharded(key: torch.Tensor, shards):
+        if len(shards) != mesh.n_env:
+            raise ValueError(f"{len(shards)} shards for a mesh of {mesh.n_env} env shards")
+        b = shards[0].step_count.shape[0]
 
-def _sum_metrics(total: RolloutMetrics, m: RolloutMetrics) -> RolloutMetrics:
-    """Two calls' totals added field by field; int32 sums wrap, as the JAX
-    package's do."""
-    return RolloutMetrics(*(a + b for a, b in zip(total, m)))
+        def shard(i):
+            policy = random_policy(menv.num_actions, (mesh.shard_offset + i) * b)
+            return run_rollout(auto_step, menv.observe, policy, num_steps, key.to(mesh.shard_devices[i]), shards[i])
+
+        out = sharding.map_shards(mesh, shard)
+        return tuple(f for f, _ in out), sum_metrics([m for _, m in out])
+
+    return sharded
 
 
 def _mixed_step(env_ids: Sequence[str], inners):
@@ -204,20 +224,28 @@ def _mixed_step(env_ids: Sequence[str], inners):
     def step(key: torch.Tensor, members, mark=_no_mark):
         if len(members) != len(inners):
             raise ValueError(f"{len(members)} member blocks for {len(inners)} members {tuple(env_ids)}")
-        finals, total = [], None
+        finals, metrics = [], []
         for i, (inner, member) in enumerate(zip(inners, members)):
             f, m = inner(prng.fold_in(key, i), member, mark=mark)
             finals.append(f)
-            total = m if total is None else _sum_metrics(total, m)
+            metrics.append(m)
             mark(f"member {i}")
-        return tuple(finals), total
+        return tuple(finals), sum_metrics(metrics)
 
     return step
 
 
-def _packed_mixed(env_ids, num_steps, mode, as_carry, build):
-    inners = [build(make(e), num_steps, mode=mode, as_carry=as_carry) for e in env_ids]
-    return _mixed_step(env_ids, inners)
+def _packed_mixed(env_ids, num_steps, mode, as_carry, mesh, backend):
+    """`backend` "auto" (the kernels) or "plain" (the plain twins); with a
+    mesh, `parallel/packed.py`'s backend of the same name."""
+
+    def build(env):
+        if mesh is not None:
+            return build_sharded_rollout(env, num_steps, mesh, mode=mode, backend=backend, as_carry=as_carry)
+        one = build_packed_plain_rollout if backend == "plain" else build_fused_rollout
+        return one(env, num_steps, mode=mode, as_carry=as_carry)
+
+    return _mixed_step(env_ids, [build(make(e)) for e in env_ids])
 
 
 def build_packed_mixed_rollout(
@@ -225,6 +253,7 @@ def build_packed_mixed_rollout(
     num_steps: int,
     mode: str = "regen",
     as_carry: bool = False,
+    mesh=None,
 ):
     """The random policy over a mixed batch: `rollout(key, states_tuple) ->
     (states_tuple, RolloutMetrics)` over one batched `EnvState` per member
@@ -232,8 +261,10 @@ def build_packed_mixed_rollout(
     surface `step(key, carries) -> (carries, RolloutMetrics)` over one
     `PackedCarry` per member (`packed_init`; `packed_finish` unpacks).
     Member `i` is `build_fused_rollout(make(env_ids[i]), ...)` driven by
-    the key `fold_in(key, i)`: the JAX package's random-policy actions."""
-    return _packed_mixed(env_ids, num_steps, mode, as_carry, build_fused_rollout)
+    the key `fold_in(key, i)`: the JAX package's random-policy actions.
+    With a mesh each member's value is sharded and its rollout is
+    `build_sharded_rollout` (the kernels on a CUDA shard)."""
+    return _packed_mixed(env_ids, num_steps, mode, as_carry, mesh, "auto")
 
 
 def build_packed_mixed_plain_rollout(
@@ -241,20 +272,26 @@ def build_packed_mixed_plain_rollout(
     num_steps: int,
     mode: str = "regen",
     as_carry: bool = False,
+    mesh=None,
 ):
     """`build_packed_mixed_rollout` on the plain twins
     (`build_packed_plain_rollout`), on any device."""
-    return _packed_mixed(env_ids, num_steps, mode, as_carry, build_packed_plain_rollout)
+    return _packed_mixed(env_ids, num_steps, mode, as_carry, mesh, "plain")
 
 
-def _mixed_policy(env_ids, params_list, num_steps, mode, regen_chunk, build):
+def _mixed_policy(env_ids, params_list, num_steps, mode, regen_chunk, mesh, backend):
+    """`backend` as in `_packed_mixed`."""
     if len(params_list) != len(env_ids):
         raise ValueError(f"{len(params_list)} params for {len(env_ids)} members: one per member")
-    inners = [
-        build(make(e), p, num_steps, mode=mode, as_carry=True, regen_chunk=regen_chunk)
-        for e, p in zip(env_ids, params_list)
-    ]
-    return _mixed_step(env_ids, inners)
+
+    def build(env, params):
+        if mesh is not None:
+            return build_sharded_policy_eval(env, params, num_steps, mesh, mode=mode, backend=backend, as_carry=True,
+                                             regen_chunk=regen_chunk)
+        one = build_policy_eval_plain_rollout if backend == "plain" else build_policy_eval_rollout
+        return one(env, params, num_steps, mode=mode, as_carry=True, regen_chunk=regen_chunk)
+
+    return _mixed_step(env_ids, [build(make(e), p) for e, p in zip(env_ids, params_list)])
 
 
 def build_mixed_policy_eval(
@@ -263,14 +300,16 @@ def build_mixed_policy_eval(
     num_steps: int,
     mode: str = "cached",
     regen_chunk: int = 32,
+    mesh=None,
 ):
     """Policy-in-the-loop evaluation over a mixed batch, each member with its
     own actor-critic (`params_list[i]`: an `ActorCritic`, or a flax params
     tree of numpy arrays as `build_policy_eval_rollout` takes it). Carry
     form only: `step(key, carries) -> (carries, RolloutMetrics)` over one
     `PackedCarry` per member; member `i` is `build_policy_eval_rollout(...,
-    as_carry=True)` under `fold_in(key, i)`."""
-    return _mixed_policy(env_ids, params_list, num_steps, mode, regen_chunk, build_policy_eval_rollout)
+    as_carry=True)` under `fold_in(key, i)`, or with a mesh
+    `build_sharded_policy_eval` over a sharded carry."""
+    return _mixed_policy(env_ids, params_list, num_steps, mode, regen_chunk, mesh, "auto")
 
 
 def build_mixed_policy_eval_plain(
@@ -279,7 +318,8 @@ def build_mixed_policy_eval_plain(
     num_steps: int,
     mode: str = "cached",
     regen_chunk: int = 32,
+    mesh=None,
 ):
     """`build_mixed_policy_eval` on the plain twins
     (`build_policy_eval_plain_rollout`), on any device."""
-    return _mixed_policy(env_ids, params_list, num_steps, mode, regen_chunk, build_policy_eval_plain_rollout)
+    return _mixed_policy(env_ids, params_list, num_steps, mode, regen_chunk, mesh, "plain")

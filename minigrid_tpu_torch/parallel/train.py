@@ -1,20 +1,41 @@
-"""The fused train step on the steady carry surface (counterpart of the
-parts of `minigrid_tpu/parallel/train.py` that
-`build_fused_train_step` runs, on one device; sharding is not ported yet).
+"""The train steps (counterpart of `minigrid_tpu/parallel/train.py`), on
+one device or over a mesh (`parallel/sharding.py`).
 
-One `train_step(train_state, carry, key)` call:
-  1. the policy kernel in collect mode (`build_fused_train_rollout`) runs
-     T steps of every lane with the actor in the loop and spills the
-     trajectory: obs words, actions, logp, the critic's value, rewards and
-     done;
-  2. the discounted returns and advantages (`_trajectory_returns`);
-  3. the gradient pass over the trajectory: the hand-written CUDA kernel
-     (`ops/grad_kernel.py::build_grad_kernel`) in the `EvalWeights` layout,
-     whose cotangents are pulled back once through
-     `train_weights_from_params` to the flax layout with autograd, as JAX
-     does with `jax.vjp`;
-  4. optax's `flatten(chain(clip_by_global_norm(0.5), adam(3e-4)))`, as
-     plain torch ops on one flat f32 vector in `ravel_pytree`'s order.
+Three steps, each `train_step(train_state, states or carry, key) ->
+(train_state, states or carry, metrics)`:
+
+  * `build_train_step`: the per-env engine (`core/autoreset.py`) with the
+    `ActorCritic` in the loop, actions from `jax.random.categorical(key_t,
+    logits)` (`prng.categorical_logits`), `key_t` from `split(key, T)`;
+    gradients by autograd through the module, accumulated over time chunks
+    (`_trajectory_grads`);
+  * `build_packed_train_step`: the same loop on the packed step
+    (`ops/fused_rollout.py::step_core` with its view), on a random layout
+    with a template refresh after every 32-step chunk; the same gradient
+    pass, so on one trajectory the two give the same update. The JAX
+    package runs this step as plain XLA with no Pallas kernel, and so it is
+    plain PyTorch here on every device;
+  * `build_fused_train_step`, the fast path:
+    1. the policy kernel in collect mode (`build_fused_train_rollout`) runs
+       T steps of every lane with the actor in the loop and spills the
+       trajectory: obs words, actions, logp, the critic's value, rewards and
+       done;
+    2. the discounted returns and advantages (`_trajectory_returns`);
+    3. the gradient pass over the trajectory: the hand-written CUDA kernel
+       (`ops/grad_kernel.py`) in the `EvalWeights` layout, whose cotangents
+       are pulled back once through `train_weights_from_params` to the flax
+       layout with autograd, as JAX does with `jax.vjp`;
+  then optax's `flatten(chain(clip_by_global_norm(0.5), adam(3e-4)))`, as
+  plain torch ops on one flat f32 vector in `ravel_pytree`'s order.
+
+Over a mesh the three steps are, as in the JAX package (`jax.jit` with
+shardings), the unsharded program on the whole batch: each shard steps its
+lanes with the draws those lanes take in the whole batch (the categorical's
+words of its rows, the fused step's seed columns), each shard's loss sums
+are divided by the whole batch's `T·B`, the per-shard gradient sums are
+added on the first shard's device in shard order (and across processes by
+`all_reduce`, `parallel/distributed.py`), and one clip + Adam update runs
+there. Only the order of float sums depends on the mesh.
 
 CPU tensors take the plain versions of both kernels. `_trajectory_grads_packed`,
 the JAX package's `grad_backend="xla"` pass, is here as torch autograd of
@@ -26,27 +47,49 @@ JAX package's defaults, as module constants.
 from __future__ import annotations
 
 import copy
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from minigrid_tpu_torch.core import prng
+from minigrid_tpu_torch.core.autoreset import make_autoreset_step
 from minigrid_tpu_torch.envs.base import Env
 from minigrid_tpu_torch.models.policy import ActorCritic
-from minigrid_tpu_torch.ops.grad_kernel import build_grad_kernel
+from minigrid_tpu_torch.ops import grad_kernel as grad_ops
+from minigrid_tpu_torch.ops.chunked_regen import masked_template_refresh, refresh_block_size
+from minigrid_tpu_torch.ops.fused_rollout import (
+    PackedCarry,
+    _fit_chunk,
+    _regen_is_static,
+    _replay_rng_chain,
+    fused_rollout_supported,
+    hook_kwargs,
+    obs_core,
+    packed_finish,
+    packed_init,
+    step_core,
+)
+from minigrid_tpu_torch.ops.packed_gen import packed_generator
+from minigrid_tpu_torch.ops.packing import R_RNG, rows_key
 from minigrid_tpu_torch.ops.policy_rollout import (
     EvalWeights,
     _no_mark,
     _params_tree,
     _tree_tensor,
     build_fused_train_rollout,
+    obs_words_to_images,
+    pack_obs_words,
     policy_logits,
     train_weights_from_params,
 )
+from minigrid_tpu_torch.parallel import sharding
+from minigrid_tpu_torch.parallel.sharding import Mesh, make_env_mesh, replicated
 
 GAMMA = 0.99
 ENTROPY_COEF = 0.01
 VALUE_COEF = 0.5
-PACKED_TIME_CHUNK = 4  # steps a chunk of `_trajectory_grads_packed`
+PACKED_TIME_CHUNK = 4  # steps a chunk of `_trajectory_grads_packed` and `_trajectory_grads`
+REFRESH_CHUNK = 32  # steps between the packed train step's template refreshes on a random layout
 LR = 3e-4
 MAX_GRAD_NORM = 0.5
 ADAM_B1 = 0.9
@@ -142,10 +185,17 @@ def _apply_updates(model: ActorCritic, flat: torch.Tensor) -> ActorCritic:
     return model
 
 
-def init_train_state(env: Env, generator=None, device=None) -> TrainState:
+def init_train_state(env: Env, generator=None, device=None, mesh: Optional[Mesh] = None) -> TrainState:
     """A seeded `ActorCritic` (flax's initialisers; `generator` default: a
     generator seeded with 0 on `device`, itself the card by default) and
-    the optimizer's zero state beside it."""
+    the optimizer's zero state beside it. With a mesh, on its first
+    shard's device, where the train steps update it (they replicate the
+    weights to the other shards' devices on every step)."""
+    if mesh is not None:
+        first = mesh.shard_devices[0]
+        if device is not None and torch.device(device) != first:
+            raise ValueError(f"device {device} is not the mesh's first device {first}")
+        device = first
     model = make_model(env, generator, device)
     return TrainState(model, make_optimizer().init(flatten_params(model.flax_params())))
 
@@ -201,16 +251,23 @@ def _pullback(tw: _TrainWeights, cotangents: EvalWeights):
     return out
 
 
-def _metrics(sums, denom, reward, done):
+def _metrics(sums, denom, reward_sum, episodes):
+    """The step's metrics from its loss sums `(3,)`, `denom = T·B` and its
+    f32 reward sum and episode count."""
     pg_loss, v_loss, ent = sums[0] / denom, sums[1] / denom, sums[2] / denom
     return {
         "loss": pg_loss + VALUE_COEF * v_loss - ENTROPY_COEF * ent,
         "pg_loss": pg_loss,
         "v_loss": v_loss,
         "entropy": ent,
-        "reward_per_step": torch.mean(reward),
-        "episodes": torch.sum(done.to(torch.float32)),
+        "reward_per_step": reward_sum / denom,
+        "episodes": episodes,
     }
+
+
+def _traj_totals(reward, done):
+    """A trajectory's f32 reward sum and episode count."""
+    return torch.sum(reward), torch.sum(done.to(torch.float32))
 
 
 def _trajectory_grads_packed(tw: _TrainWeights, traj, view, num_actions):
@@ -244,29 +301,276 @@ def _trajectory_grads_packed(tw: _TrainWeights, traj, view, num_actions):
         g = torch.autograd.grad(loss, w)
         gw = [a + x for a, x in zip(gw, g)]
         sums = sums + torch.stack([pg_sum, v_sum, ent_sum]).detach()
-    return _pullback(tw, EvalWeights(*gw)), _metrics(sums, denom, reward, done)
+    return _pullback(tw, EvalWeights(*gw)), _metrics(sums, denom, *_traj_totals(reward, done))
+
+
+def _kernel_grad_sums(w: EvalWeights, traj, num_actions: int, denom: float, mark=_no_mark):
+    """The gradient kernel over one trajectory (`grad_kernel.run_grad_kernel`,
+    its plain version on the CPU), each loss term divided by `denom`:
+    `(gw, sums, reward_sum, episodes)` with `gw` the f32 cotangent sums in
+    the `EvalWeights` layout and `sums` the `(3,)` f32 loss sums. `mark`
+    as in `train_step` ("returns")."""
+    obs_w, actions, _logp, value, reward, done = traj
+    returns = _trajectory_returns(reward, done, GAMMA)
+    adv = returns - value
+    mark("returns")
+    gw, sums = grad_ops.run_grad_kernel(EvalWeights(*(x.detach() for x in w)), obs_w, actions, adv, returns,
+                                        num_actions, denom, VALUE_COEF, ENTROPY_COEF)
+    return (gw, sums, *_traj_totals(reward, done))
+
+
+def _round_cotangents(tw: _TrainWeights, gw: EvalWeights) -> EvalWeights:
+    """f32 cotangent sums rounded once to the weights' dtypes (the torso's
+    to bf16), as the JAX package's kernel wrapper returns them."""
+    return EvalWeights(*(g.to(x.dtype) for g, x in zip(gw, tw.w)))
 
 
 def _trajectory_grads_kernel(tw: _TrainWeights, traj, view, num_actions, mark=_no_mark):
     """`_trajectory_grads_packed` through the gradient kernel
-    (`build_grad_kernel`): its f32 cotangent sums, the torso's rounded once
-    to bf16 as the JAX wrapper rounds them, pulled back to the flax
-    layout. Returns `(grads tree, metrics)`; `mark` as in `train_step`."""
-    obs_w, actions, _logp, value, reward, done = traj
-    t_total, b = reward.shape
+    (`grad_kernel.run_grad_kernel`): its f32 cotangent sums, the torso's
+    rounded once to bf16 as the JAX wrapper rounds them, pulled back to the
+    flax layout. Returns `(grads tree, metrics)`; `mark` as in `train_step`."""
+    t_total, b = traj[4].shape
+    denom = float(t_total * b)
+    gw, sums, reward_sum, episodes = _kernel_grad_sums(tw.w, traj, num_actions, denom, mark)
+    mark("grad")
+    grads = _pullback(tw, _round_cotangents(tw, gw))
+    mark("pullback")
+    return grads, _metrics(sums, denom, reward_sum, episodes)
+
+
+def _add_in_order(parts, device):
+    """Per-shard tensors (or tuples of them) added in shard order on
+    `device`."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = [a + b.to(device) for a, b in zip(total, p)] if isinstance(total, (list, tuple)) else (
+            total + p.to(device))
+    return total
+
+
+def _global_sum(tensors, mesh: Mesh):
+    """The sum over the job's processes of each tensor (in place, by
+    `all_reduce`), where the mesh spans more than this process."""
+    if mesh.n_global > mesh.n_env:
+        from minigrid_tpu_torch.parallel.distributed import all_reduce_sum
+
+        all_reduce_sum(tensors)
+    return tensors
+
+
+def _check_shards(values, mesh: Mesh, lanes_of) -> int:
+    """Each shard's lanes (equal over the shards), after checking that
+    there is one value per env shard."""
+    if len(values) != mesh.n_env:
+        raise ValueError(f"{len(values)} shards for a mesh of {mesh.n_env} env shards")
+    widths = {lanes_of(v) for v in values}
+    if len(widths) != 1:
+        raise ValueError(f"the shards hold different lane counts {sorted(widths)}")
+    return widths.pop()
+
+
+def _model_grad_sums(model: ActorCritic, traj, denom: float, time_chunk: int = PACKED_TIME_CHUNK):
+    """The gradient of the actor-critic loss over an `(obs images (T, B, V,
+    V, 3), actions, logp, value, reward, done)` trajectory, each term
+    divided by `denom`, by autograd through `model` (the JAX package's
+    `_trajectory_grads`): the loss of every `time_chunk` steps is
+    differentiated alone and the f32 gradients are accumulated in chunk
+    order. Returns `(grads, sums, reward_sum, episodes)`: `grads` a flax
+    params tree of f32 tensors, `sums` the `(3,)` f32 `[pg_sum, v_sum,
+    ent_sum]`; `model` is left as it was."""
+    obs, actions, _logp, value, reward, done = traj
+    t_total = reward.shape[0]
+    tc = _fit_time_chunk(t_total, time_chunk)
     returns = _trajectory_returns(reward, done, GAMMA)
     adv = returns - value
-    mark("returns")
+    names = [n for n, _ in model.named_parameters()]
+    leaves = [p.detach().clone().requires_grad_(True) for _, p in model.named_parameters()]
+    acc = [torch.zeros_like(x) for x in leaves]
+    sums = torch.zeros(3, dtype=torch.float32, device=reward.device)
+    for c0 in range(0, t_total, tc):
+        c = slice(c0, c0 + tc)
+        logits, value_now = torch.func.functional_call(model, dict(zip(names, leaves)), (obs[c],))
+        logp_all = torch.log_softmax(logits, dim=-1)
+        logp = torch.gather(logp_all, -1, actions[c, :, None].long())[..., 0]
+        entropy = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+        pg_sum = -torch.sum(logp * adv[c])
+        v_sum = torch.sum((value_now - returns[c]) ** 2)
+        ent_sum = torch.sum(entropy)
+        loss = (pg_sum + VALUE_COEF * v_sum - ENTROPY_COEF * ent_sum) / denom
+        acc = [a + g for a, g in zip(acc, torch.autograd.grad(loss, leaves))]
+        sums = sums + torch.stack([pg_sum, v_sum, ent_sum]).detach()
+    grads = {"params": {}}
+    for name, g in zip(names, acc):
+        layer, kind = name.split(".")
+        grads["params"].setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = g.T if kind == "weight" else g
+    return (grads, sums, *_traj_totals(reward, done))
+
+
+def _trajectory_grads(model: ActorCritic, traj, time_chunk: int = PACKED_TIME_CHUNK):
+    """Parameter gradients and metrics of the actor-critic loss over a
+    trajectory with `(T, B)` leading axes (`_model_grad_sums` over `T·B`),
+    shared by `build_train_step` and `build_packed_train_step`, so their
+    updates are the same given the same trajectory. Returns `(grads tree,
+    metrics)`."""
+    t_total, b = traj[4].shape
     denom = float(t_total * b)
-    gk = build_grad_kernel(view, num_actions, t_total, b, denom, VALUE_COEF, ENTROPY_COEF)
-    gw, sums = gk(EvalWeights(*(x.detach() for x in tw.w)), obs_w, actions, adv, returns)
-    mark("grad")
-    grads = _pullback(tw, gw)
-    mark("pullback")
-    return grads, _metrics(sums, denom, reward, done)
+    grads, sums, reward_sum, episodes = _model_grad_sums(model, traj, denom, time_chunk)
+    return grads, _metrics(sums, denom, reward_sum, episodes)
 
 
-def build_fused_train_step(env: Env, num_steps: int, mode: str = "cached", regen_chunk: int = 32):
+def _act(model: ActorCritic, img: torch.Tensor, key_t: torch.Tensor, lane0: int):
+    """One step of the actor: `(actions (B,) int32, logp, value)` on `(B, V,
+    V, 3)` observations, the actions `jax.random.categorical(key_t,
+    logits)` of lanes `lane0` onwards of the whole batch."""
+    with torch.no_grad():
+        logits, value = model(img)
+    actions = prng.categorical_logits(key_t, logits, lane0)
+    logp = torch.gather(torch.log_softmax(logits, dim=-1), 1, actions[:, None])[:, 0]
+    return actions.to(torch.int32), logp, value
+
+
+def _stack(steps):
+    """Per-step tuples -> one tuple of `(T, ...)` tensors."""
+    return tuple(torch.stack(x) for x in zip(*steps))
+
+
+def _mesh_train_step(mesh: Optional[Mesh], num_steps: int, rollout, lanes_of, time_chunk: int):
+    """A train step over the mesh (or, without one, one shard on the
+    input's device) from a per-shard `rollout(model, value, key, lane0) ->
+    (value, traj)`: every shard's lanes, then `_model_grad_sums` over the
+    whole batch's `T·B`, the sums added in shard order on the first shard's
+    device (and across processes), one clip + Adam update there."""
+    optimizer = make_optimizer()
+
+    def train_step(train_state: TrainState, values, key: torch.Tensor):
+        shards = values if mesh is not None else (values,)
+        m = mesh or make_env_mesh([lanes_of(shards[0])[1]])
+        b = _check_shards(shards, m, lambda v: lanes_of(v)[0])
+        total = b * m.n_global
+        denom = float(num_steps * total)
+        dev0 = m.shard_devices[0]
+        models = dict(zip(m.shard_devices, replicated(train_state.params, m)))
+
+        def shard(i):
+            dev = m.shard_devices[i]
+            value, traj = rollout(models[dev], shards[i], key.to(dev), (m.shard_offset + i) * b)
+            return (value,) + _model_grad_sums(models[dev], traj, denom, time_chunk)
+
+        out = sharding.map_shards(m, shard)
+        grads = _add_in_order([flatten_params(o[1]) for o in out], dev0)
+        sums = _add_in_order([o[2] for o in out], dev0)
+        scalars = _add_in_order([torch.stack([o[3], o[4]]) for o in out], dev0)
+        _global_sum([grads, sums, scalars], m)
+        updates, opt_state = optimizer.update(grads, train_state.opt_state)
+        new_state = TrainState(_apply_updates(train_state.params, updates), opt_state)
+        finals = tuple(o[0] for o in out)
+        return new_state, finals if mesh is not None else finals[0], _metrics(sums, denom, scalars[0], scalars[1])
+
+    return train_step
+
+
+def build_train_step(env: Env, num_steps: int, mesh: Optional[Mesh] = None, mode: str = "regen",
+                     time_chunk: int = PACKED_TIME_CHUNK):
+    """`train_step(train_state, states, key) -> (train_state, states,
+    metrics)` on the per-env engine (the JAX package's `build_train_step`):
+    T steps of `make_autoreset_step(env, mode)` with the `ActorCritic` in
+    the loop, step t's actions `jax.random.categorical(split(key, T)[t],
+    logits)` on the observation the step before returned; then
+    `_trajectory_grads` and clip + Adam. `states` is a batched `EnvState`
+    on one device, or with a mesh a sharded one
+    (`sharding.shard_states`), and the step is the unsharded one on the
+    whole batch (module docstring). The state passed in is left as it
+    was; `metrics` holds `loss`, `pg_loss`, `v_loss`, `entropy`,
+    `reward_per_step` and `episodes`."""
+    auto_step = make_autoreset_step(env, mode=mode)
+
+    def rollout(model, states, key, lane0):
+        keys = prng.split(key, num_steps)
+        img = env.observe(states, env.config)["image"]
+        steps = []
+        for t in range(num_steps):
+            actions, logp, value = _act(model, img, keys[t], lane0)
+            states, obs, reward, terminated, truncated = auto_step(states, actions)
+            steps.append((img, actions, logp, value, reward, terminated | truncated))
+            img = obs["image"]
+        return states, _stack(steps)
+
+    return _mesh_train_step(mesh, num_steps, rollout, lambda s: (s.step_count.shape[0], s.step_count.device),
+                            time_chunk)
+
+
+def build_packed_train_step(env: Env, num_steps: int, mesh: Optional[Mesh] = None, mode: str = "regen",
+                            as_carry: bool = False, time_chunk: int = PACKED_TIME_CHUNK):
+    """`build_train_step` on the packed step (the JAX package's
+    `build_packed_train_step`): the same contract, update math and
+    categorical draws, the env in the packed `(H·W, B)` / `(NUM_REGS, B)`
+    layout, `step_core(..., with_obs=True)` giving each step's view, which
+    becomes the policy's `(B, V, V, 3)` input. On the families where both
+    run, the two steps give the same update. With `as_carry=True` the step
+    takes and returns a `PackedCarry` (`packed_init` / `packed_finish`), or
+    over a mesh a sharded one.
+
+    In regen mode on a random layout every lane's template is refreshed
+    after each chunk of `REFRESH_CHUNK` steps (the largest divisor of T up
+    to it), as the JAX package does (`train.py:455-530`): only the lanes
+    that reset in the chunk, their reset chain advanced by the resets they
+    took; a lane that resets twice in a chunk reuses the chunk's template,
+    that surface's documented approximation of regen. The template refresh
+    runs the generation kernels on a CUDA carry. Elsewhere this step is
+    plain PyTorch on every device, as the JAX package's is plain XLA.
+    Raises where `fused_rollout_supported` is false."""
+    if not fused_rollout_supported(env, mode=mode):
+        raise ValueError(f"packed train step (mode={mode!r}) does not support {env.env_id!r}; use build_train_step")
+    cfg = env.config
+    view = cfg.agent_view_size
+    geom = dict(width=cfg.width, height=cfg.height, view=view, see_through_walls=cfg.see_through_walls)
+    hooks = hook_kwargs(env.transition, cfg)
+    refresh = mode == "regen" and not _regen_is_static(env)
+    tc = _fit_chunk(num_steps, REFRESH_CHUNK) if refresh else num_steps
+    generate = packed_generator(env)
+
+    def image(vw, vis):
+        return obs_words_to_images(pack_obs_words(vw, vis), view)
+
+    def rollout_packed(model, pc: PackedCarry, key, lane0):
+        keys = prng.split(key, num_steps)
+        words, regs, rng = pc.words, pc.regs, pc.rng
+        tw, tr = (pc.tmpl_words.clone(), pc.tmpl_regs.clone()) if refresh else (pc.tmpl_words, pc.tmpl_regs)
+        img = image(*obs_core(words, regs, **geom))
+        steps = []
+        for c0 in range(0, num_steps, tc):
+            for t in range(c0, c0 + tc):
+                actions, logp, value = _act(model, img, keys[t], lane0)
+                words, regs, reward, done, _, vw, vis = step_core(
+                    words, regs, actions[None, :], tw, tr, max_steps=cfg.max_steps, with_obs=True, **geom, **hooks
+                )
+                steps.append((img, actions, logp, value, reward[0], done[0]))
+                img = image(vw, vis)
+            if refresh:
+                epi = torch.stack([s[5] for s in steps[c0:]]).sum(0, dtype=torch.int64)
+                consumed = epi >= 1
+                rng = torch.where(consumed[:, None], rows_key(tr[R_RNG : R_RNG + 2]), rng)
+                rng = _replay_rng_chain(env, rng, torch.clamp(epi - 1, min=0))
+                masked_template_refresh(env, tw, tr, rng, consumed, refresh_block_size(rng.shape[0]), generate)
+        traj = _stack(steps)
+        if mode == "regen" and not refresh:
+            rng = _replay_rng_chain(env, rng, traj[5].sum(0, dtype=torch.int64))
+        return PackedCarry(words, regs, tw, tr, rng), traj
+
+    def rollout_states(model, states, key, lane0):
+        pc, traj = rollout_packed(model, packed_init(env, states, mode), key, lane0)
+        return packed_finish(env, pc), traj
+
+    if as_carry:
+        return _mesh_train_step(mesh, num_steps, rollout_packed, lambda c: (c.words.shape[1], c.words.device),
+                                time_chunk)
+    return _mesh_train_step(mesh, num_steps, rollout_states, lambda s: (s.step_count.shape[0], s.step_count.device),
+                            time_chunk)
+
+
+def build_fused_train_step(env: Env, num_steps: int, mode: str = "cached", regen_chunk: int = 32,
+                           mesh: Optional[Mesh] = None):
     """`train_step(train_state, carry, key) -> (train_state, carry,
     metrics)` over a steady `PackedCarry` (`packed_init(env, states,
     mode)`): the collecting policy kernel, the returns, the gradient
@@ -281,25 +585,60 @@ def build_fused_train_step(env: Env, num_steps: int, mode: str = "cached", regen
     through exact chunked regen with passes of `regen_chunk` steps
     (`build_fused_train_rollout`).
 
+    With a mesh the carry is a sharded `PackedCarry` (one per env shard,
+    `parallel/packed.py::shard_carry`) and the step is the unsharded one on
+    the whole batch (module docstring): shard `i` collects its lanes with
+    the columns of the whole batch's `(T, B)` seed stream, runs the
+    gradient kernel on its trajectory with the loss over the whole batch's
+    `T·B`, and the f32 sums are added in shard order on the first shard's
+    device, rounded and pulled back once there. The train state lives on
+    that device (`init_train_state(..., mesh=mesh)`). Without a mesh the
+    step runs the same code over one shard on the carry's device.
+
     `mark`, if given, is called with each piece's name as the host reaches
-    its end ("weights", then the rollout's pieces — "seeds", "collect",
-    "replay", or on a random layout chunked regen's "actions", "kernel",
-    "refresh", "reentry", "sums" — then "returns", "grad", "pullback",
-    "optimizer"); `tools/profile_step_torch.py --train` records a CUDA
-    event there."""
+    its end ("weights", then on one shard the rollout's pieces — "seeds",
+    "collect", "replay", or on a random layout chunked regen's "actions",
+    "kernel", "refresh", "reentry", "sums" — and "returns"; then "grad",
+    "pullback", "optimizer"; over several shards the shards' pieces are not
+    marked and "grad" closes them all); `tools/profile_step_torch.py
+    --train` records a CUDA event there."""
     roll = build_fused_train_rollout(env, num_steps, mode=mode, regen_chunk=regen_chunk)
     optimizer = make_optimizer()
     view = env.config.agent_view_size
+    num_actions = env.config.num_actions
 
-    def train_step(train_state: TrainState, carry, key: torch.Tensor, mark=_no_mark):
-        tw = _train_weights(train_state.params, view, carry.words.device)
+    def train_step(train_state: TrainState, carries, key: torch.Tensor, mark=_no_mark):
+        m = mesh or make_env_mesh([carries.words.device])
+        shards = carries if mesh is not None else (carries,)
+        b = _check_shards(shards, m, lambda c: c.words.shape[1])
+        total = b * m.n_global
+        denom = float(num_steps * total)
+        dev0 = m.shard_devices[0]
+        tw = _train_weights(train_state.params, view, dev0)
+        weights = dict(zip(m.shard_devices, replicated(EvalWeights(*(x.detach() for x in tw.w)), m)))
         mark("weights")
-        carry, traj, roll_metrics = roll(tw.w, key, carry, mark)  # under no_grad
-        grads, metrics = _trajectory_grads_kernel(tw, traj, view, env.config.num_actions, mark)
+        shard_mark = mark if m.n_env == 1 else _no_mark
+
+        def shard(i):
+            dev = m.shard_devices[i]
+            carry, traj, rm = roll(weights[dev], key.to(dev), shards[i], shard_mark, lane0=(m.shard_offset + i) * b,
+                                   total=total)
+            return (carry, rm.total_steps) + _kernel_grad_sums(weights[dev], traj, num_actions, denom, shard_mark)
+
+        out = sharding.map_shards(m, shard)
+        gw = _add_in_order([o[2] for o in out], dev0)
+        scalars = _add_in_order([torch.stack([o[4], o[5]]) for o in out], dev0)
+        sums = _add_in_order([o[3] for o in out], dev0)
+        steps = _add_in_order([o[1] for o in out], dev0)
+        _global_sum(list(gw) + [sums, scalars, steps], m)
+        mark("grad")
+        grads = _pullback(tw, _round_cotangents(tw, EvalWeights(*gw)))
+        mark("pullback")
         updates, opt_state = optimizer.update(flatten_params(grads), train_state.opt_state)
         params = _apply_updates(train_state.params, updates)
         mark("optimizer")
-        metrics = dict(metrics, env_steps=roll_metrics.total_steps)
-        return TrainState(params, opt_state), carry, metrics
+        metrics = dict(_metrics(sums, denom, scalars[0], scalars[1]), env_steps=steps)
+        finals = tuple(o[0] for o in out)
+        return TrainState(params, opt_state), finals if mesh is not None else finals[0], metrics
 
     return train_step

@@ -26,6 +26,9 @@ or two, an obstacle in its forward cell.
 `obstructed_script_case` is a doctored ObstructedMaze-1Dlhb batch and a
 forced action script through its locked door: a key in a grey box toggled
 out or carried in its box, the door unlocked, the blue ball picked up.
+
+`moment_gaps` compares two train states' Adam moments leaf by leaf: the
+gradient a step used, after the sum over its shards and the clip.
 """
 
 from __future__ import annotations
@@ -295,3 +298,23 @@ def obstructed_script_case(copies: int = 1):
     s["step_count"][:] = 0
     s = {k: np.concatenate([v] * copies) for k, v in s.items()}
     return s, np.tile(actions, (1, copies))
+
+
+def moment_gaps(ts, ref) -> Dict[str, list]:
+    """Adam's `mu` and `nu` in train state `ts` against those in `ref`
+    (`parallel/train.py::TrainState`), per flax leaf `"layer/leaf"`: `[mu
+    gap, nu gap]`, each the largest gap relative to the leaf's largest
+    entry in `ref`."""
+    from minigrid_tpu_torch.parallel.train import _flax_names
+
+    tree, off, gaps = ref.params.flax_params(), 0, {}
+    for n, k in _flax_names(tree):
+        size = tree["params"][n][k].numel()
+        sl = slice(off, off + size)
+        off += size
+        gaps[f"{n}/{k}"] = [
+            float((getattr(ts.opt_state, m)[sl] - getattr(ref.opt_state, m)[sl]).abs().max()
+                  / getattr(ref.opt_state, m)[sl].abs().max().clamp_min(1e-30))
+            for m in ("mu", "nu")
+        ]
+    return gaps

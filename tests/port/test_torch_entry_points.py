@@ -163,6 +163,76 @@ def test_engine_entry_points_stay_on_the_card(monkeypatch):
     assert {t.device.type for t in outputs} == {"cuda"}
 
 
+def test_mesh_entry_points_default_to_the_card():
+    """A mesh, a process group and the dry run take every visible card by
+    default and raise without one: CPU shards are asked for by name."""
+    from minigrid_tpu_torch.parallel import distributed
+    from minigrid_tpu_torch.parallel.dryrun import dryrun_multichip
+    from minigrid_tpu_torch.parallel.sharding import make_env_mesh
+
+    if torch.cuda.is_available():
+        assert {d.type for d in make_env_mesh().shard_devices} == {"cuda"}
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_env_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize("localhost:1", 2, 0)
+    with pytest.raises(RuntimeError, match="CUDA devices needed"):
+        dryrun_multichip(2)
+    distributed.initialize()  # one process: nothing to join
+    assert make_env_mesh(["cpu"] * 2).shard_devices == (torch.device("cpu"),) * 2
+
+
+def _sharded_outputs(device, monkeypatch):
+    """One call of each sharded surface and train step over two shards on
+    `device`, with the port's default device made to raise. Returns every
+    output tensor."""
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.ops.fused_rollout import packed_init
+    from minigrid_tpu_torch.parallel import packed, sharding, train
+    from minigrid_tpu_torch.testing import dyadic_flax_params
+
+    env = make("MiniGrid-Empty-5x5-v0")
+    mesh = sharding.make_env_mesh([device] * 2)
+    states = sharding.shard_states(env.reset_batch(key(0, device=device), 128)[0], mesh)
+    carries = tuple(packed_init(env, s, "regen") for s in states)
+    ts = train.init_train_state(env, device=device, mesh=mesh)
+
+    def no_default(device=None):
+        if device is None:
+            raise AssertionError("a sharded surface asked for the default device")
+        return torch.device(device)
+
+    monkeypatch.setattr(prng, "default_device", no_default)
+    k = key(1, device=device)
+    out = []
+    for step, value in ((packed.build_sharded_rollout(env, 4, mesh, as_carry=True), carries),
+                        (packed.build_sharded_policy_eval(env, dyadic_flax_params(0), 4, mesh, mode="regen",
+                                                          as_carry=True), carries)):
+        finals, metrics = step(k, value)
+        out += [t for c in finals for t in c] + list(metrics)
+    for step, value in ((train.build_train_step(env, 4, mesh=mesh), states),
+                        (train.build_packed_train_step(env, 4, mesh=mesh, as_carry=True), carries),
+                        (train.build_fused_train_step(env, 4, mode="regen", mesh=mesh), carries)):
+        new_ts, finals, metrics = step(ts, value, k)
+        out += list(new_ts.params.parameters()) + list(new_ts.opt_state) + list(metrics.values())
+        out += [t for f in finals for t in (f if isinstance(f, tuple) else vars(f).values())]
+    return out
+
+
+def test_sharded_surfaces_follow_their_inputs_onto_the_cpu(monkeypatch):
+    outputs = _sharded_outputs("cpu", monkeypatch)
+    assert len(outputs) > 50 and {t.device.type for t in outputs} == {"cpu"}
+
+
+@pytest.mark.gpu
+def test_sharded_surfaces_stay_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    outputs = _sharded_outputs("cuda:0", monkeypatch)
+    assert {t.device.type for t in outputs} == {"cuda"}
+
+
 def _port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "minigrid_tpu_torch")):
@@ -188,7 +258,8 @@ def test_no_port_module_imports_jax_flax_or_the_jax_package():
                    "envs/roomgrid.py", "ops/packed_hooks.py", "envs/lavagap.py", "envs/fourrooms.py",
                    "envs/crossing.py", "envs/lockedroom.py", "envs/playground.py", "parallel/mixed.py",
                    "envs/obstructedmaze.py", "core/grid.py", "core/view.py", "core/vision.py", "core/obs.py",
-                   "core/step.py", "core/autoreset.py", "core/rollout.py", "envs/base.py"):
+                   "core/step.py", "core/autoreset.py", "core/rollout.py", "envs/base.py", "parallel/sharding.py",
+                   "parallel/packed.py", "parallel/train.py", "parallel/distributed.py", "parallel/dryrun.py"):
         assert os.path.join(REPO, "minigrid_tpu_torch", module) in paths, module
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths
