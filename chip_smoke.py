@@ -345,6 +345,34 @@ result line):
      (that process's first library load launches the probe kernel, as
      does the first use of each card of M1 but the first); (g)
      `parallel/dryrun.py::dryrun_multichip` over M1.
+ 21. The user-facing surfaces on the card (`compat/`, `wrappers/`,
+     `render/`, `utils/ascii.py`, `utils/checkpoint.py`,
+     `tools/profile.py`): (a) all 63 trajectory fixtures of
+     `tests/golden/` through `Env.step` on the card, the start states from
+     the port's `CompatEnv` and `state_to_device`, DynamicObstacles through
+     `dynobst_step` (the host MT19937 walk): images and flags byte for
+     byte, rewards to rtol 1e-6; (b) the three `wrappers_*` fixtures: full
+     obs, one-hot, `render_state` at tile 8 without highlight,
+     `render_obs_image`, and the flat vector of the adapter's path through
+     `host_env.flat_obs`, byte for byte; (c) DoorKey-8x8, B=32,768: a regen
+     carry through B1 (T=64, chunk 32, every count set to 0 just before:
+     B1 must launch), `packed_finish`, then `full_obs`,
+     `one_hot_partial_obs`, `rgb_img_partial_obs` and `rgb_img_obs` (tile
+     8) and `render_state` with the highlight on the final states, each
+     against the same function on a CPU copy on every lane, byte for byte,
+     with its ms a call and frames/s, and B1 against its plain version at
+     a 32-step pass; (d) `state_bonus` and `action_bonus` over those
+     lanes, 16 steps, against the CPU: counts equal, rewards bit for bit;
+     (e) the checkpoint round trip: the carry, a `TrainState` and M2's two
+     shards of the carry, each restored byte for byte and the restored
+     carry and shards taking one B1 call to the same carries as the
+     originals, with the files' sizes; (f) one env through the adapter's
+     per-step path (`compat/host_env.py::HostEnv`, whose `gymnasium`
+     subclass this machine cannot load): reset, `Env.step` on a batch of
+     one, `render_state` at tile 32, `render_ascii` and the hash, on the
+     card and on the CPU, equal at every step, with the steps/s of each;
+     (g) `tools/profile.py::trace` around one B1 call writes a Chrome
+     trace whose events name the kernel.
 
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
@@ -364,6 +392,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -539,6 +568,17 @@ ENGINE_B = 32_768
 ENGINE_T = 64
 ENGINE_MIXED_B = 8192
 ENGINE_MIXED_T = 64
+# Phase 21: the user-facing surfaces.
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+SURF_ENV_ID = "MiniGrid-DoorKey-8x8-v0"
+SURF_B = 32_768
+SURF_T = 64
+SURF_CHUNK = 32
+SURF_TILE = 8
+SURF_REPS = 3
+BONUS_T = 16
+ADAPTER_ENV_ID = "MiniGrid-DoorKey-8x8-v0"
+ADAPTER_STEPS = 48
 # Phase 20: parallel/ over M1 (every visible card) and M2 (two shards of the card).
 P20_B = MAIN_B  # 20a, 20b: phases 2's and 4's cells
 P20_T = 256
@@ -3857,6 +3897,332 @@ def phase_slice14(dev, card):
     return rows, probes
 
 
+def _p21_golden(dev, card):
+    """21a: every trajectory fixture through `Env.step` on the card."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.compat.exact import CompatEnv, dynobst_step, state_to_device
+
+    fixtures = sorted(f for f in glob.glob(os.path.join(GOLDEN_DIR, "*.npz"))
+                      if not os.path.basename(f).startswith("wrappers_"))
+    families, steps, bad = set(), 0, []
+    t0 = time.perf_counter()
+    for path in fixtures:
+        env_id, seed = os.path.basename(path)[: -len(".npz")].rsplit("_s", 1)
+        data = np.load(path)
+        env = make(env_id)
+        families.add(env.config.family)
+        ce = CompatEnv(env_id, seed=int(seed))
+        layout = ce.reset()
+        if not (np.array_equal(layout["grid"], data["grid"]) and np.array_equal(layout["agent_pos"], data["agent_pos"])):
+            bad.append(f"{env_id} layout")
+            continue
+        state = state_to_device(layout, env.config, device=dev)
+        actions = torch.from_numpy(data["actions"].astype(np.int32)).to(dev)  # one copy: no sync a step
+        images, outs = [env.observe(state, env.config)["image"][0]], []
+        for t in range(len(actions)):
+            if env.config.family == "dynamicobstacles":
+                state, obs, r, te, tr = dynobst_step(ce, env, state, int(data["actions"][t]))
+            else:
+                state, obs, r, te, tr = env.step(state, actions[t : t + 1])
+            images.append(obs["image"][0])
+            outs.append(torch.stack([r[0], te[0].float(), tr[0].float()]))
+        # Read back once a trajectory; the first differing step names it.
+        images = torch.stack(images).cpu().numpy()
+        r, te, tr = torch.stack(outs).cpu().numpy().T
+        want_r = data["rewards"].astype(np.float32)
+        ok = ((images == data["images"]).reshape(len(images), -1).all(axis=1)[1:]
+              & (np.abs(r - want_r) <= 1e-6 * np.abs(want_r))
+              & (te.astype(bool) == data["terminated"].astype(bool)) & (tr.astype(bool) == data["truncated"].astype(bool)))
+        if not (images[0] == data["images"][0]).all() or not ok.all():
+            bad.append(f"{env_id} s{seed} step {int(np.argmin(ok)) if not ok.all() else 'start'}")
+        steps += len(actions)
+    seconds = time.perf_counter() - t0
+    print(f"phase 21a: {len(fixtures)} golden trajectories ({len(families)} families, DynamicObstacles through "
+          f"dynobst_step), {steps} steps through Env.step on {dev}: {seconds:.4f} s, {steps / seconds:.4f} steps/s; "
+          f"differing {bad or 'none'} [{card}]", flush=True)
+    if bad or len(fixtures) < 63 or len(families) != 21:
+        raise RuntimeError(f"phase 21a: {len(fixtures)} fixtures, {len(families)} families; differing {bad}")
+
+
+def _p21_wrapper_golden(dev, card):
+    """21b: the wrapper fixtures on the card."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make, wrappers
+    from minigrid_tpu_torch.compat.exact import CompatEnv, state_to_device
+    from minigrid_tpu_torch.compat.host_env import HostEnv, flat_obs
+    from minigrid_tpu_torch.render.render import render_obs_image, render_state
+
+    fixtures = sorted(glob.glob(os.path.join(GOLDEN_DIR, "wrappers_*.npz")))
+    bad = []
+    for path in fixtures:
+        env_id, seed = os.path.basename(path)[len("wrappers_"): -len(".npz")].rsplit("_s", 1)
+        data = np.load(path)
+        env = make(env_id)
+        state = state_to_device(CompatEnv(env_id, seed=int(seed)).reset(), env.config, device=dev)
+        for a in data["actions"]:
+            state, obs, *_ = env.step(state, torch.tensor([int(a)], dtype=torch.int32, device=dev))
+        got = {
+            "fullobs_image": wrappers.full_obs(env).observe(state, env.config)["image"],
+            "onehot_image": wrappers.one_hot_partial_obs(env).observe(state, env.config)["image"],
+            "rgb_full": render_state(state, env.config, tile_size=8, highlight=False),
+            "rgb_partial": render_obs_image(obs["image"], tile_size=8),
+        }
+        host = HostEnv(env, device=dev)
+        host_obs, _ = host.reset(seed=int(seed))
+        for a in data["actions"]:
+            host_obs = host.step(int(a))[0]
+        bad += [f"{env_id} {k}" for k, v in got.items() if v.device != dev or not np.array_equal(v[0].cpu().numpy(), data[k])]
+        if not np.array_equal(flat_obs(host_obs), data["flat_vec"]):
+            bad.append(f"{env_id} flat_vec")
+    print(f"phase 21b: {len(fixtures)} wrapper fixtures on {dev} (full obs, one-hot, render_state tile 8, "
+          f"render_obs_image; flat vector through the adapter's path): differing {bad or 'none'} [{card}]", flush=True)
+    if bad or len(fixtures) != 3:
+        raise RuntimeError(f"phase 21b: the wrapper fixtures differ: {bad}")
+
+
+def _p21_surfaces(dev, card):
+    """21c: B1 to the final states of a regen carry, then every surface on
+    them against the CPU. Returns (env, the carry, the final states, the
+    B1 row)."""
+    import torch
+
+    from minigrid_tpu_torch import make, wrappers
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.core.state import EnvState
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.render.render import render_state
+
+    env = make(SURF_ENV_ID)
+    cfg = env.config
+    carry = _om_carry(env, SURF_B, dev, 21, 4 * SURF_T)  # about a quarter of the lanes reset in each call
+    step = fr.build_fused_rollout(env, SURF_T, mode="regen", as_carry=True, regen_chunk=SURF_CHUNK)
+    step(key(2100, device=dev), carry)  # warm-up: the plan and the first launch
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    carry, metrics = step(key(2101, device=dev), carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    states = fr.packed_finish(env, carry)
+    launched = {n: c for n, c in counts.items() if n.endswith("_kernel") and c}
+    print(f"phase 21c: {SURF_ENV_ID} regen B={SURF_B} T={SURF_T} chunk {SURF_CHUNK}: {seconds:.4f} s, "
+          f"{SURF_B * SURF_T / seconds:.6e} env-steps/s; episodes {int(metrics.episodes)}; launches {launched} "
+          f"[{card}]", flush=True)
+    if launched.keys() != {"rollout_kernel"} or int(metrics.total_steps) != SURF_B * SURF_T or not int(metrics.episodes):
+        raise RuntimeError(f"phase 21c: launches {launched}; the path runs B1 and no other kernel")
+    cpu = torch.device("cpu")
+    host = EnvState(**{k: v.cpu() for k, v in vars(states).items()})
+    surfaces = {
+        "full_obs": lambda s: wrappers.full_obs(env).observe(s, cfg)["image"],
+        "one_hot_partial_obs": lambda s: wrappers.one_hot_partial_obs(env).observe(s, cfg)["image"],
+        "rgb_img_partial_obs": lambda s: wrappers.rgb_img_partial_obs(env, SURF_TILE).observe(s, cfg)["image"],
+        "rgb_img_obs": lambda s: wrappers.rgb_img_obs(env, SURF_TILE).observe(s, cfg)["image"],
+        "render_state_highlight": lambda s: render_state(s, cfg, SURF_TILE, highlight=True),
+    }
+    bad = []
+    for name, fn in surfaces.items():
+        fn(states)  # warm: the atlas on the card
+        ms, got = time_events(lambda: fn(states), SURF_REPS)
+        t0 = time.perf_counter()
+        want = fn(host)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        same = got.device == dev and want.device == cpu and torch.equal(got.cpu(), want)
+        print(f"phase 21c: {name} on {SURF_B} lanes, {tuple(got.shape[1:])} {got.dtype} a lane ({got.numel()} B in "
+              f"all): card {ms:.4f} ms/call (mean of {SURF_REPS}), {SURF_B / ms * 1e3:.6e} frames/s; CPU {cpu_ms:.4f} "
+              f"ms; every lane equal: {same} [{card}]", flush=True)
+        if not same:
+            bad.append(name)
+        del got, want
+    if bad:
+        raise RuntimeError(f"phase 21c: the card's surfaces differ from the CPU's: {bad}")
+    b1 = _time_pass("21c", cfg, fr.packed_init(env, states, "regen"), SURF_CHUNK, dev, card, env.transition, "random")
+    return env, carry, states, [counts["rollout_kernel"], *b1, KERNEL_SOURCE]
+
+
+def _p21_bonus(dev, card, env, states):
+    """21d: both count-bonus wrappers on the card against the CPU."""
+    import torch
+
+    from minigrid_tpu_torch import wrappers
+    from minigrid_tpu_torch.core.state import EnvState
+
+    cpu = torch.device("cpu")
+    g = torch.Generator(device=cpu).manual_seed(21)
+    actions = torch.randint(0, env.config.num_actions, (BONUS_T, SURF_B), dtype=torch.int32, generator=g)
+    for cenv in (wrappers.state_bonus(env), wrappers.action_bonus(env)):
+        runs = {}
+        for where, d, s in (("card", dev, states), ("cpu", cpu, EnvState(**{k: v.cpu() for k, v in vars(states).items()}))):
+            counts, rewards = cenv.init_counts(SURF_B, device=d), []
+            t0 = time.perf_counter()
+            for t in range(BONUS_T):
+                counts, s, _, r, _, _ = cenv.step(counts, s, actions[t].to(d))
+                rewards.append(r)
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+            runs[where] = (counts.cpu(), torch.stack(rewards).cpu(), time.perf_counter() - t0)
+        (c1, r1, s1), (c2, r2, s2) = runs["card"], runs["cpu"]
+        same = torch.equal(c1, c2) and torch.equal(r1.view(torch.int32), r2.view(torch.int32))
+        kind = "action_bonus" if cenv.keyed_on_action else "state_bonus"
+        print(f"phase 21d: {kind} over {SURF_B} lanes × {BONUS_T} steps ({cenv.size} counts a lane): card "
+              f"{s1:.4f} s ({SURF_B * BONUS_T / s1:.6e} env-steps/s), CPU {s2:.4f} s; counts sum {int(c1.sum())}, "
+              f"reward sum {float(r1.sum()):.6f}; counts equal and rewards bit for bit: {same} [{card}]", flush=True)
+        if not same or int(c1.sum()) != SURF_B * BONUS_T:
+            raise RuntimeError(f"phase 21d: {kind} on the card differs from the CPU")
+
+
+def _p21_checkpoint(dev, card, env, carry):
+    """21e: checkpoint round trips on the card; each restored carry takes
+    one B1 call to the original's carry."""
+    import tempfile
+
+    import torch
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.parallel import train as tr
+    from minigrid_tpu_torch.parallel.packed import shard_carry
+    from minigrid_tpu_torch.parallel.sharding import make_env_mesh
+    from minigrid_tpu_torch.utils import checkpoint as ck
+
+    step = fr.build_fused_rollout(env, SURF_CHUNK, mode="regen", as_carry=True, regen_chunk=SURF_CHUNK)
+    ts = tr.init_train_state(env, generator=torch.Generator(device=dev).manual_seed(21))
+    shards = shard_carry(carry, make_env_mesh([dev, dev]))  # M2: two shards of the card
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, value in (("carry", carry), ("train_state", ts), ("m2_shards", shards)):
+            path = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            (ck.save_sharded if name == "m2_shards" else ck.save_pytree)(path, value)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = ck.load_sharded(path, value) if name == "m2_shards" else ck.load_pytree(path, value)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            size = (sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) if os.path.isdir(path)
+                    else os.path.getsize(path))
+            pairs = list(zip(value, back)) if name == "m2_shards" else [(value, back)]
+            bad = []
+            if name == "train_state":
+                got, want = tr.flatten_params(back.params.flax_params()), tr.flatten_params(ts.params.flax_params())
+                bad += [] if torch.equal(got.view(torch.int32), want.view(torch.int32)) else ["params"]
+                bad += [f for f, a, b in zip(ts.opt_state._fields, ts.opt_state, back.opt_state) if not torch.equal(a, b)]
+                bad += [] if next(back.params.parameters()).device == dev else ["device"]
+            else:
+                for i, (a, b) in enumerate(pairs):
+                    bad += [f"{i}.{f}" for f, x, y in zip(a._fields, a, b) if x.device != y.device or not torch.equal(x, y)]
+                    k = key(2150 + i, device=dev)
+                    _zero_counts()
+                    restored = step(k, b)
+                    launches += _counts()["rollout_kernel"]
+                    bad += [f"{i}.step.{f}" for f in _same_carry_and_metrics(restored, step(k, a))]
+            print(f"phase 21e: {name}: {size} B on disk, save {save_s:.4f} s, load {load_s:.4f} s; restored byte for "
+                  f"byte{', and one B1 call from it equal to one from the original' if name != 'train_state' else ''}: "
+                  f"differing {bad or 'none'} [{card}]", flush=True)
+            if bad:
+                raise RuntimeError(f"phase 21e: {name} does not round-trip: {bad}")
+    if launches == 0:
+        raise RuntimeError("phase 21e: the restored carries' calls launched no B1")
+    return launches
+
+
+def _p21_adapter(dev, card):
+    """21f: one env through the adapter's per-step path, card and CPU."""
+    import numpy as np
+    import torch
+
+    from minigrid_tpu_torch import make
+    from minigrid_tpu_torch.compat.host_env import HostEnv
+
+    g = np.random.default_rng(21)
+    actions = g.integers(0, 7, size=ADAPTER_STEPS)
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        host = HostEnv(make(ADAPTER_ENV_ID), device=d)
+        t0 = time.perf_counter()
+        out = [host.reset(seed=1337)[0]["image"]]
+        reset_s = time.perf_counter() - t0
+        out.append(host.render(tile_size=32))  # warm: the tile-32 atlas
+        step_s = surf_s = 0.0
+        for a in actions:
+            t0 = time.perf_counter()
+            obs, r, te, tr, _ = host.step(int(a))
+            t1 = time.perf_counter()
+            frame, text, digest = host.render(tile_size=32), str(host), host.hash()
+            t2 = time.perf_counter()
+            step_s, surf_s = step_s + t1 - t0, surf_s + t2 - t1
+            out += [obs["image"], obs["mission"], r, te, tr, frame, text, digest]
+            if te or tr:
+                host.reset()
+        runs[where] = (out, reset_s, step_s, surf_s)
+    (a, reset_card, step_card, surf_card), (b, reset_cpu, step_cpu, surf_cpu) = runs["card"], runs["cpu"]
+    same = len(a) == len(b) and all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y for x, y in zip(a, b))
+    n = ADAPTER_STEPS
+    print(f"phase 21f: {ADAPTER_ENV_ID} through HostEnv ({n} steps of one env, each followed by render_state at tile "
+          f"32, render_ascii and the hash): card reset {reset_card * 1e3:.4f} ms, Env.step {n / step_card:.4f} "
+          f"steps/s, with the three surfaces {n / (step_card + surf_card):.4f} steps/s; CPU reset "
+          f"{reset_cpu * 1e3:.4f} ms, Env.step {n / step_cpu:.4f} steps/s, with the surfaces "
+          f"{n / (step_cpu + surf_cpu):.4f} steps/s; card and CPU equal at every step: {same} [{card}]", flush=True)
+    if not same:
+        raise RuntimeError("phase 21f: the adapter's path on the card differs from the CPU's")
+
+
+def _p21_trace(dev, card, env, carry):
+    """21g: `tools.profile.trace` around one B1 call."""
+    import tempfile
+
+    from minigrid_tpu_torch.core.prng import key
+    from minigrid_tpu_torch.ops import fused_rollout as fr
+    from minigrid_tpu_torch.tools import profile
+
+    step = fr.build_fused_rollout(env, SURF_CHUNK, mode="regen", as_carry=True, regen_chunk=SURF_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts()
+        with profile.trace(tmp):
+            with profile.annotate("mg_b1_call"):
+                step(key(2170, device=dev), carry)
+        launches = _counts()["rollout_kernel"]
+        path = os.path.join(tmp, profile.TRACE_FILE)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel" and "rollout" in e.get("name", "")})
+    annotated = any(e.get("name") == "mg_b1_call" for e in events)
+    print(f"phase 21g: trace of one B1 call: {size} B, {len(events)} events, the annotation present: {annotated}; "
+          f"kernel events naming B1 ({launches} launches): {kernels} [{card}]", flush=True)
+    if not kernels or not annotated or launches == 0:
+        raise RuntimeError(f"phase 21g: the trace names no B1 kernel ({kernels}) or lacks the annotation")
+    return launches
+
+
+def phase_slice15(dev, card):
+    """Phase 21 (module docstring): the user-facing surfaces. Returns
+    `{row name: [launches, max_abs_err, ms, plain_ms, bound, source]}`:
+    B1 making the states the surfaces render, its launches those of 21c's
+    call, 21e's restored carries and 21g's traced call."""
+    import torch
+
+    _p21_golden(dev, card)
+    _p21_wrapper_golden(dev, card)
+    env, carry, states, row = _p21_surfaces(dev, card)
+    _p21_bonus(dev, card, env, states)
+    del states
+    torch.cuda.empty_cache()
+    row[0] += _p21_checkpoint(dev, card, env, carry)
+    _p21_adapter(dev, card)
+    row[0] += _p21_trace(dev, card, env, carry)
+    return {"rollout_kernel_surfaces": row}
+
+
 def run_phase(label, fn, *args):
     """`fn(*args)`, then the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -3947,6 +4313,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows20, probes20 = run_phase("20", phase_slice14, dev, card)
     new_rows.update(rows20)
+    torch.cuda.empty_cache()
+    new_rows.update(run_phase("21", phase_slice15, dev, card))
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():

@@ -33,6 +33,15 @@ evaluation (`parallel/packed.py`), the three train steps and the mixed
 batches with `mesh=`, and several processes on `torch.distributed`
 (`parallel/distributed.py`).
 
+The user-facing surfaces sit on the per-env engine: `render/` (RGB
+frames by atlas gather), `wrappers/` (observation wrappers and count
+bonuses), `compat/` (the gymnasium adapter over a batch of one, the
+class-based wrappers, and the reference's exact MT19937 layouts), and
+`utils/ascii.py`, `utils/checkpoint.py`, `tools/profile.py`. Importing
+this package registers nothing into gymnasium and loads neither
+gymnasium nor matplotlib: `compat.register_all_gymnasium()` registers the
+ids under the `minigrid_tpu_torch/` namespace.
+
 Entry points make their tensors on the card unless the caller names a
 device. See ROADMAP.md for what is still to come.
 
@@ -56,6 +65,35 @@ device. See ROADMAP.md for what is still to come.
     states = packed_finish(env, carry)
 """
 
-from minigrid_tpu_torch.envs.registry import env_list, make
+from minigrid_tpu_torch.core.constants import (
+    COLOR_NAMES,
+    COLOR_TO_IDX,
+    COLORS,
+    DIR_TO_VEC,
+    IDX_TO_COLOR,
+    IDX_TO_OBJECT,
+    OBJECT_TO_IDX,
+    STATE_TO_IDX,
+    TILE_PIXELS,
+)
+from minigrid_tpu_torch.core.state import EnvState
+from minigrid_tpu_torch.envs.registry import env_list, make, register, registry
 
-__all__ = ["env_list", "make"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "COLORS",
+    "COLOR_NAMES",
+    "COLOR_TO_IDX",
+    "IDX_TO_COLOR",
+    "OBJECT_TO_IDX",
+    "IDX_TO_OBJECT",
+    "STATE_TO_IDX",
+    "DIR_TO_VEC",
+    "TILE_PIXELS",
+    "EnvState",
+    "make",
+    "registry",
+    "register",
+    "env_list",
+]

@@ -5,13 +5,14 @@ A template's id is its index in the JAX package's table, which assigns
 ids in the order in which its families register them. The port registers
 only the families it has ported, so it keeps a copy of that whole table
 instead of counting its own registrations: an id is then the same
-whichever families are ported.
+whichever families are ported. `detokenize` gives a vector's string.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from minigrid_tpu_torch.core import constants as C
 from minigrid_tpu_torch.core.state import MISSION_LEN
 
 # The JAX package's templates, in its id order (template 0: empty mission).
@@ -54,3 +55,18 @@ def encode(template_id: int, *slots: int) -> np.ndarray:
     for i, s in enumerate(slots):
         vec[1 + i] = s
     return vec
+
+
+def detokenize(mission) -> str:
+    """The reference's mission string of one `(MISSION_LEN,)` mission
+    vector (numpy, a list, or a tensor on any device)."""
+    if hasattr(mission, "cpu"):
+        mission = mission.cpu()
+    mission = np.asarray(mission)
+    out = TEMPLATES[int(mission[0])]
+    for i in range(MISSION_LEN - 1):
+        val = int(mission[1 + i])
+        out = out.replace("{c%d}" % i, C.IDX_TO_COLOR.get(val, "?"))
+        out = out.replace("{t%d}" % i, C.IDX_TO_OBJECT.get(val, "?"))
+        out = out.replace("{d%d}" % i, str(val))
+    return out

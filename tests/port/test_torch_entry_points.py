@@ -4,6 +4,8 @@ the JAX package. This file imports no JAX."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -259,7 +261,11 @@ def test_no_port_module_imports_jax_flax_or_the_jax_package():
                    "envs/crossing.py", "envs/lockedroom.py", "envs/playground.py", "parallel/mixed.py",
                    "envs/obstructedmaze.py", "core/grid.py", "core/view.py", "core/vision.py", "core/obs.py",
                    "core/step.py", "core/autoreset.py", "core/rollout.py", "envs/base.py", "parallel/sharding.py",
-                   "parallel/packed.py", "parallel/train.py", "parallel/distributed.py", "parallel/dryrun.py"):
+                   "parallel/packed.py", "parallel/train.py", "parallel/distributed.py", "parallel/dryrun.py",
+                   "render/__init__.py", "render/draw.py", "render/atlas.py", "render/render.py",
+                   "wrappers/__init__.py", "wrappers/wrappers.py", "utils/ascii.py", "utils/checkpoint.py",
+                   "compat/__init__.py", "compat/seeding.py", "compat/exact.py", "compat/host_env.py",
+                   "compat/gym_env.py", "compat/host_wrappers.py", "tools/profile.py", "tools/window.py"):
         assert os.path.join(REPO, "minigrid_tpu_torch", module) in paths, module
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths
@@ -267,3 +273,98 @@ def test_no_port_module_imports_jax_flax_or_the_jax_package():
     assert not {p: names for p, names in bad.items() if names}
     # The walk sees the port's own imports (so it would see a forbidden one).
     assert "minigrid_tpu_torch" in set(_imported_packages(os.path.join(REPO, "chip_smoke.py")))
+
+
+def test_importing_the_port_loads_no_gymnasium_matplotlib_or_orbax():
+    """A fresh process: `import minigrid_tpu_torch` (and the compat layer's
+    replayer, which the card's smoke test runs) leaves the three packages
+    the card's machine lacks unloaded."""
+    code = ("import sys, minigrid_tpu_torch, minigrid_tpu_torch.compat.exact, minigrid_tpu_torch.compat.host_env, "
+            "minigrid_tpu_torch.render, minigrid_tpu_torch.wrappers, minigrid_tpu_torch.utils.checkpoint, "
+            "minigrid_tpu_torch.tools.profile, minigrid_tpu_torch.tools.window; "
+            "loaded = {'gymnasium', 'matplotlib', 'orbax', 'jax'} & set(sys.modules); assert not loaded, loaded")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
+
+
+def _surface_outputs(device, monkeypatch):
+    """The surfaces of the compat layer, the wrappers, the renderer and the
+    checkpoint on `device`, with the port's default device made to raise:
+    nothing inside may fall back to it. Returns every output tensor."""
+    import tempfile
+
+    from minigrid_tpu_torch import wrappers
+    from minigrid_tpu_torch.compat.exact import CompatEnv, dynobst_step, state_to_device
+    from minigrid_tpu_torch.compat.host_env import HostEnv
+    from minigrid_tpu_torch.core import prng
+    from minigrid_tpu_torch.render.render import render_state
+    from minigrid_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    def no_default(device=None):
+        if device is None:
+            raise AssertionError("a surface asked for the default device")
+        return torch.device(device)
+
+    monkeypatch.setattr(prng, "default_device", no_default)
+    out = []
+    env = make("MiniGrid-Dynamic-Obstacles-5x5-v0")
+    ce = CompatEnv(env.env_id, seed=3)
+    state = state_to_device(ce.reset(), env.config, device=device)
+    state, obs, r, te, tr = dynobst_step(ce, env, state, 2)
+    out += list(vars(state).values()) + list(obs.values()) + [r, te, tr]
+    host = HostEnv(make("MiniGrid-DoorKey-5x5-v0"), device=device)
+    host.reset(seed=1)
+    host.step(2)
+    host.hash(), str(host), host.render(tile_size=8)
+    out += list(vars(host.state).values())
+    out.append(render_state(state, env.config, 8))
+    for wenv in (wrappers.full_obs(env), wrappers.one_hot_partial_obs(env), wrappers.rgb_img_partial_obs(env)):
+        out.append(wenv.observe(state, env.config)["image"])
+    cenv = wrappers.action_bonus(env)
+    counts = cenv.init_counts(1, device=device)
+    out += [t for t in cenv.step(counts, state, torch.tensor([1], device=device))[:1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(os.path.join(tmp, "s.pt"), state)
+        out += list(vars(load_pytree(os.path.join(tmp, "s.pt"), state, device=device)).values())
+    return out
+
+
+def test_surfaces_follow_their_device_onto_the_cpu(monkeypatch):
+    outputs = _surface_outputs(torch.device("cpu"), monkeypatch)
+    assert len(outputs) > 30 and {t.device.type for t in outputs} == {"cpu"}
+
+
+@pytest.mark.gpu
+def test_surfaces_stay_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    outputs = _surface_outputs(torch.device("cuda"), monkeypatch)
+    assert {t.device.type for t in outputs} == {"cuda"}
+
+
+def test_surface_entry_points_default_to_the_card(tmp_path):
+    """`gym_make`, `state_to_device`, `load_pytree`, the count tables and
+    the profiler's trace run on the card by default and raise without
+    one."""
+    from minigrid_tpu_torch import wrappers
+    from minigrid_tpu_torch.compat.exact import CompatEnv, state_to_device
+    from minigrid_tpu_torch.compat.gym_env import gym_make
+    from minigrid_tpu_torch.tools import profile
+    from minigrid_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    env = make("MiniGrid-Empty-5x5-v0")
+    layout = CompatEnv(env.env_id, seed=0).reset()
+    path = str(tmp_path / "t.pt")
+    save_pytree(path, [torch.zeros(2)])
+    calls = (lambda: gym_make(env.env_id).device, lambda: state_to_device(layout, env.config).grid.device,
+             lambda: load_pytree(path, [torch.zeros(2)])[0].device,
+             lambda: wrappers.state_bonus(env).init_counts(2).device)
+    if torch.cuda.is_available():
+        assert {c().type for c in calls} == {"cuda"}
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with profile.trace(str(tmp_path)):
+            pass
+    assert gym_make(env.env_id, device="cpu").device.type == "cpu"
