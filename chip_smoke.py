@@ -373,6 +373,26 @@ result line):
      card and on the CPU, equal at every step, with the steps/s of each;
      (g) `tools/profile.py::trace` around one B1 call writes a Chrome
      trace whose events name the kernel.
+ 22. The root scripts of `minigrid_tpu_torch/tools/` on the card, through
+     their `main`: (a) `benchmark` with 50 resets and 500 single-env
+     steps through `HostEnv`, 100 renders and the batched `build_rollout`
+     at its default B=8192, T=256 on the default device (its lines
+     printed), then its batched rollout at B=256, T=32 on the card and on
+     the CPU under the same keys: final states and integer metrics byte
+     for byte, the reward sum to rtol 1e-6; (b) `run_tests` over all 70
+     ids (25 random steps each, determinism, render, the functional
+     wrappers, and the class wrappers' behaviours on `HostEnv`, since this
+     machine has no gymnasium): it must print `all tests passed` and the
+     line that says the class wrappers were skipped; (c) `manual_control`
+     at its default id (MultiRoom-N6) with `ScriptedWindow` pressing every
+     key once, then backspace and escape, with and without
+     `--agent_view`: every frame and caption equal to the CPU's run, byte
+     for byte. The per-env generators of KeyCorridor (in 22b) and
+     MultiRoom (22b, 22c) launch the connect and room-chain kernels on one
+     lane a call: every count is set to 0 just before each of 22a-22c and
+     read just after, each call of the two kernels is caught at its
+     wrapper, and (d) every caught call is replayed through the kernel and
+     its plain version on the same inputs, byte for byte, both timed.
 
 The kernels line gives each kernel's launches on its main path, its
 largest difference from the plain version, its time and the plain
@@ -383,12 +403,15 @@ computes the same function, that call's time (`library_ms`). The
 capability probe's row gives device times (the kernel's and
 `torch.add`'s), the rest times through the wrappers. The room-chain
 kernel has a row at each of its phase 11a shapes: N4-S5's with its
-launches on phase 10's path, N6's with 0 launches, since no path that
-the script drives runs N6.
+launches on phase 10's path, N6's with 0 launches, since no batched path
+that the script drives runs N6. The `*_one_env` rows are the connect and
+room-chain kernels at the one-lane shapes of phase 22's path (N6's
+included), with their launches there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -607,6 +630,17 @@ P20_DIST_TIMEOUT = 300
 # denominator or a shard's sum left out moves the moments by about half.
 P20_FUSED_MOMENT_TOL = {"actor": GRAD_HEAD_TOL, "critic": GRAD_HEAD_TOL, "torso_0": 2**-6, "torso_1": 2**-6}
 P20_AUTOGRAD_MOMENT_TOL = {"actor": 1e-3, "critic": 1e-3, "torso_0": 0.05, "torso_1": 0.05}
+# Phase 22: the root scripts (`minigrid_tpu_torch/tools/`).
+P22_RESETS = 50  # 22a: `benchmark.main`'s resets and single-env steps (the batch at its defaults)
+P22_FRAMES = 500
+P22_CHECK_B = 256  # 22a: the batched rollout held card against CPU (after 10 resets and 100 frames each)
+P22_CHECK_T = 32
+# 22b: `run_tests.main`'s random steps an id. At its default, 100, phase 22
+# took 208 s and the script 1154.8 s of its 1200 on an H100 whose host ran
+# slow (PERF.md §6), so the sweep runs a quarter of them.
+P22_STEPS = 25
+P22_KEYS = ("left", "right", "up", "pageup", "p", "pagedown", "d", " ", "enter", "backspace", "escape")  # 22c
+P22_TIMED = 3  # 22d: replays of the caught kernel calls, timed
 
 # Times under the previous design of the rollout kernel (one thread a lane,
 # int32 grids) and of the Mosaic probe (the forward recomputed by every
@@ -4223,6 +4257,202 @@ def phase_slice15(dev, card):
     return {"rollout_kernel_surfaces": row}
 
 
+@contextlib.contextmanager
+def _caught_gen_calls(calls):
+    """Inside the block, every call of the connect and room-chain kernels'
+    wrappers (`ops/gen_kernel.py`, looked up in their module) appends its
+    arguments to `calls[name]` and then runs."""
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+
+    saved = gk.run_connect_kernel, gk.run_mr_chain_kernel
+
+    def catch(name, run):
+        return lambda *args: calls[name].append(args) or run(*args)
+
+    gk.run_connect_kernel = catch("connect_kernel", saved[0])
+    gk.run_mr_chain_kernel = catch("mr_chain_kernel", saved[1])
+    try:
+        yield
+    finally:
+        gk.run_connect_kernel, gk.run_mr_chain_kernel = saved
+
+
+def _p22_launches(tag, calls, card):
+    """The kernel counts just after a sub-phase, which must equal the calls
+    caught at the wrappers."""
+    counts = {k: v for k, v in _counts().items() if k.endswith("kernel")}
+    print(f"phase {tag}: kernel launches {counts}; calls caught at the wrappers "
+          f"{ {k: len(v) for k, v in calls.items()} } [{card}]", flush=True)
+    if any(counts[k] != len(v) for k, v in calls.items()):
+        raise RuntimeError(f"phase {tag}: the counts {counts} differ from the calls caught")
+    return counts
+
+
+def _p22_benchmark(dev, card):
+    """22a: `tools.benchmark.main` on the card, then its batched rollout
+    card against CPU."""
+    import numpy as np
+
+    from minigrid_tpu_torch.tools import benchmark
+    from minigrid_tpu_torch.utils.convert import STATE_FIELDS, state_to_numpy
+
+    calls = {"connect_kernel": [], "mr_chain_kernel": []}
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _caught_gen_calls(calls):
+        res = benchmark.main(["--num_resets", str(P22_RESETS), "--num_frames", str(P22_FRAMES)])
+    seconds = time.perf_counter() - t0
+    _p22_launches("22a", calls, card)
+    print(f"phase 22a: benchmark.main ({P22_RESETS} resets, {P22_FRAMES} frames, defaults otherwise) in "
+          f"{seconds:.4f} s: reset {res.reset_ms:.6f} ms, single-env {res.frames_per_sec:.6f} steps/s, render "
+          f"{res.render_fps:.6f} frames/s, batched {res.batched_fps:.6f} env-steps/s; episodes "
+          f"{int(res.metrics.episodes)}, total_steps {int(res.metrics.total_steps)} [{card}]", flush=True)
+    if res.states.grid.device != dev or not math.isfinite(float(res.metrics.total_reward)):
+        raise RuntimeError(f"phase 22a: the batched states lie on {res.states.grid.device} or the reward sum is "
+                           f"not finite")
+    small = ["--num_resets", "10", "--num_frames", "100", "--batch-size", str(P22_CHECK_B), "--batched-steps",
+             str(P22_CHECK_T)]
+    runs = [benchmark.main(small + ["--device", d]) for d in (str(dev), "cpu")]
+    got, want = (state_to_numpy(r.states) for r in runs)
+    bad = [n for n in STATE_FIELDS if not np.array_equal(got[n], want[n])]
+    bad += [n for n in ("episodes", "total_steps", "obs_checksum", "reset_overlaps")
+            if int(getattr(runs[0].metrics, n)) != int(getattr(runs[1].metrics, n))]
+    rewards = [float(r.metrics.total_reward) for r in runs]
+    if not math.isclose(rewards[0], rewards[1], rel_tol=1e-6, abs_tol=0.0):
+        bad.append("total_reward")
+    print(f"phase 22a: the batched rollout at B={P22_CHECK_B}, T={P22_CHECK_T} on {dev} and on the CPU: episodes "
+          f"{int(runs[0].metrics.episodes)} and {int(runs[1].metrics.episodes)}, reward sums {rewards[0]!r} and "
+          f"{rewards[1]!r}; differing {bad or 'none'} [{card}]", flush=True)
+    if bad or runs[0].states.grid.device.type != dev.type:
+        raise RuntimeError(f"phase 22a: the card's batched rollout differs from the CPU's: {bad}")
+
+
+def _p22_run_tests(dev, card):
+    """22b: `tools.run_tests.main` over every id on the card. Returns the
+    kernel counts and the calls caught."""
+    import io
+
+    from minigrid_tpu_torch.envs.registry import env_list
+    from minigrid_tpu_torch.tools import run_tests
+
+    calls = {"connect_kernel": [], "mr_chain_kernel": []}
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _caught_gen_calls(calls), contextlib.redirect_stdout(out):
+        run_tests.main(["--steps", str(P22_STEPS)])
+    seconds = time.perf_counter() - t0
+    counts = _p22_launches("22b", calls, card)
+    lines = out.getvalue().splitlines()
+    n = len(env_list)
+    skipped = [line for line in lines if line.startswith("class wrappers skipped")]
+    print(f"phase 22b: run_tests.main over {n} ids ({P22_STEPS} random steps each) in {seconds:.4f} s: ids "
+          f"{lines[0]} ... {lines[n - 1]}; then {lines[n:]} [{card}]", flush=True)
+    if lines[:n] != list(env_list) or lines[-1] != "all tests passed" or len(skipped) != 1:
+        raise RuntimeError(f"phase 22b: run_tests printed {lines[n - 1:]}")
+    if not counts["connect_kernel"] or not counts["mr_chain_kernel"]:
+        raise RuntimeError(f"phase 22b: KeyCorridor's and MultiRoom's resets launched {counts}")
+    return counts, calls
+
+
+def _p22_manual_control(dev, card):
+    """22c: `tools.manual_control.main` with a scripted window, card
+    against CPU, with and without the agent's view. Returns the kernel
+    counts of the card's runs and the calls caught."""
+    import io
+
+    import numpy as np
+
+    from minigrid_tpu_torch.tools import manual_control
+    from minigrid_tpu_torch.tools.window import ScriptedWindow
+
+    calls = {"connect_kernel": [], "mr_chain_kernel": []}
+    counts = dict.fromkeys(calls, 0)
+    for view in ([], ["--agent_view"]):
+        windows, outs, secs, envs = {}, {}, {}, {}
+        for where in ("card", "cpu"):
+            def factory(title, where=where):
+                windows[where] = ScriptedWindow(title, P22_KEYS)
+                return windows[where]
+
+            caught = {k: [] for k in calls}
+            out = io.StringIO()
+            _zero_counts()
+            t0 = time.perf_counter()
+            with (_caught_gen_calls(caught) if where == "card" else contextlib.nullcontext()), \
+                    contextlib.redirect_stdout(out):
+                envs[where] = manual_control.main(view + ([] if where == "card" else ["--device", "cpu"]),
+                                                  window_factory=factory)
+            secs[where], outs[where] = time.perf_counter() - t0, out.getvalue()
+            if where == "card":
+                for k, v in _p22_launches("22c", caught, card).items():
+                    if k in counts:
+                        counts[k] += v
+                        calls[k] += caught[k]
+        a, b = windows["card"], windows["cpu"]
+        same = (len(a.frames) == len(b.frames) == len(P22_KEYS) and a.captions == b.captions
+                and all(np.array_equal(x, y) for x, y in zip(a.frames, b.frames)) and outs["card"] == outs["cpu"])
+        print(f"phase 22c: manual_control {' '.join(view) or '(full frame)'} on {envs['card'].fenv.env_id}: "
+              f"{len(a.frames)} frames of {a.frames[0].shape}, {len(outs['card'].splitlines())} step lines, the "
+              f"window closed: {a.closed}, card {secs['card']:.4f} s and CPU {secs['cpu']:.4f} s; equal: {same} "
+              f"[{card}]", flush=True)
+        if not same or not a.closed or envs["card"].device != dev:
+            raise RuntimeError("phase 22c: the card's frames, captions or step lines differ from the CPU's")
+    if not counts["mr_chain_kernel"]:
+        raise RuntimeError("phase 22c: MultiRoom-N6's resets launched no room-chain kernel")
+    return counts, calls
+
+
+def _p22_replay(dev, card, calls, launches):
+    """22d: every caught call again through the kernel and its plain
+    version on the same inputs: the rows of the two kernels at phase 22's
+    one-lane shapes."""
+    from minigrid_tpu_torch.ops import gen_kernel as gk
+
+    kernels = {"connect_kernel": (gk.run_connect_kernel, gk.plain_connect_plan),
+               "mr_chain_kernel": (gk.run_mr_chain_kernel, gk.plain_mr_chain)}
+    rows = {}
+    for name, (run, plain) in kernels.items():
+        args_list = calls[name]
+        err, nbytes, ops, bad = 0.0, 0.0, 0.0, 0
+        for args in args_list:
+            got, want = run(*args), plain(*args)
+            bad += sum(int((g != w).sum()) for g, w in zip(got, want))
+            err = max([err] + [float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)])
+            b = args[0].shape[1]
+            if name == "connect_kernel":
+                rc = args[5] * args[6]
+                ops += (CONNECT_OPS_PER_DRAW_BASE + CONNECT_OPS_PER_FLOOD_STEP * rc) * float(want[2].double().sum())
+                nbytes += 4 * (2 + 3 + 4) * b + 4 * (4 + rc * 4 + 1) * b
+            else:
+                att, rws = float(want[2].double().sum()), float(want[3].double().sum())
+                ops += rws * MR_OPS_PER_ROW + (rws - 4 * att) / 5 * MR_OPS_PER_TRY + att * MR_OPS_PER_ATTEMPT
+                nbytes += 4 * 3 * b + 4 * (6 * args[2].max_num_rooms + 3) * b
+        n = len(args_list)
+        ms, _ = time_events(lambda: [run(*a) for a in args_list], P22_TIMED)
+        plain_ms, _ = time_events(lambda: [plain(*a) for a in args_list], 1)
+        bnd = bound(nbytes / n, ops / n, int_issue_rate(dev))
+        shapes = sorted({(a[0].shape[1],) + ((a[5], a[6]) if name == "connect_kernel" else (a[2].max_num_rooms,))
+                         for a in args_list})
+        print(f"phase 22d: {name} on the {n} calls caught on phase 22's path (lanes and room grid or most rooms: "
+              f"{shapes}): {ms / n:.6f} ms a call, plain {plain_ms / n:.4f} ms; bound {bnd[0]:.6e} ms "
+              f"({bnd[1]}); differing values {bad}, max_abs_err {err} [{card}]", flush=True)
+        if bad:
+            raise RuntimeError(f"phase 22d: {name} differs from its plain version on phase 22's inputs")
+        rows[f"{name}_one_env"] = [launches[name], err, ms / n, plain_ms / n, bnd, GEN_SOURCE]
+    return rows
+
+
+def phase_slice16(dev, card):
+    """Phase 22 (module docstring): the root scripts. Returns the rows of
+    the connect and room-chain kernels at the path's one-lane shapes."""
+    _p22_benchmark(dev, card)
+    (counts_b, calls_b), (counts_c, calls_c) = _p22_run_tests(dev, card), _p22_manual_control(dev, card)
+    names = ("connect_kernel", "mr_chain_kernel")
+    launches = {k: counts_b[k] + counts_c[k] for k in names}
+    return _p22_replay(dev, card, {k: calls_b[k] + calls_c[k] for k in names}, launches)
+
+
 def run_phase(label, fn, *args):
     """`fn(*args)`, then the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -4315,6 +4545,8 @@ def main() -> int:
     new_rows.update(rows20)
     torch.cuda.empty_cache()
     new_rows.update(run_phase("21", phase_slice15, dev, card))
+    torch.cuda.empty_cache()
+    new_rows.update(run_phase("22", phase_slice16, dev, card))
     hook_kernels = []
     for transition, row in hook_rows.items():
         for kernel, (launches_, err_, ms_, plain_ms_, bnd_) in row.items():
@@ -4566,6 +4798,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": GRAD_REPLACES if name.startswith("grad") else GEN_REPLACES if name.startswith("connect") else (
+                MR_REPLACES if name.startswith("mr_chain") else
                 KERNEL_REPLACES if name.startswith("rollout") else POLICY_REPLACES),
             "launches": launches_,
             "max_abs_err": err_,

@@ -37,13 +37,15 @@ The user-facing surfaces sit on the per-env engine: `render/` (RGB
 frames by atlas gather), `wrappers/` (observation wrappers and count
 bonuses), `compat/` (the gymnasium adapter over a batch of one, the
 class-based wrappers, and the reference's exact MT19937 layouts), and
-`utils/ascii.py`, `utils/checkpoint.py`, `tools/profile.py`. Importing
+`utils/ascii.py`, `utils/checkpoint.py`, `tools/profile.py`; the JAX
+package's root scripts are `python -m minigrid_tpu_torch.tools.benchmark`,
+`.run_tests` and `.manual_control`. Importing
 this package registers nothing into gymnasium and loads neither
 gymnasium nor matplotlib: `compat.register_all_gymnasium()` registers the
 ids under the `minigrid_tpu_torch/` namespace.
 
 Entry points make their tensors on the card unless the caller names a
-device. See ROADMAP.md for what is still to come.
+device. See ROADMAP.md for what comes next.
 
     import torch, minigrid_tpu_torch as mg
     from minigrid_tpu_torch.core.prng import key

@@ -139,7 +139,13 @@ class CountedEnv:
     def step(self, counts: torch.Tensor, state: EnvState, action):
         """One step of every lane; `counts` is updated in place and
         returned. The bonus is `1.0 / sqrt(count)` in f32, correctly
-        rounded (a tensor divided by a tensor)."""
+        rounded (a tensor divided by a tensor).
+
+        The index is read as the JAX package's scatter and gather read it:
+        a negative one counts from the end once; one still outside the
+        table then adds to no count (the scatter drops it), and its bonus
+        reads the nearest edge's count (the gather clamps), so a lane off
+        the grid whose edge cell is unvisited pays `inf`."""
         env = self.env
         a = as_actions(state, action)
         res = step_fn(env.transition)(state, a, env.config)
@@ -147,8 +153,10 @@ class CountedEnv:
         idx = pos[:, 1] * env.config.width + pos[:, 0]
         if self.keyed_on_action:
             idx = (idx * 4 + res.state.agent_dir) * 7 + torch.remainder(a.to(torch.int32), 7)
-        idx = jax_index(idx.long(), self.size).clamp(0, self.size - 1)[:, None]
-        counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+        idx = jax_index(idx.long(), self.size)
+        inside = ((idx >= 0) & (idx < self.size)).to(torch.int32)[:, None]
+        idx = idx.clamp(0, self.size - 1)[:, None]
+        counts.scatter_add_(1, idx, inside)
         root = torch.sqrt(counts.gather(1, idx)[:, 0].to(torch.float32))
         bonus = torch.ones_like(root) / root
         obs = env.observe(res.state, env.config)

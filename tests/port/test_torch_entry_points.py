@@ -235,8 +235,14 @@ def test_sharded_surfaces_stay_on_the_card(monkeypatch):
     assert {t.device.type for t in outputs} == {"cuda"}
 
 
+# The port's own scripts in the root `tools/` (the others there are the JAX
+# package's).
+PORT_ROOT_TOOLS = ("profile_step_torch.py", "b1_cycle_split.py", "b1_plan_sweep.py", "gen_kernel_sweep.py",
+                   "gen_work_model.py", "mesh_host_threads.py", "autoreset_designs.py")
+
+
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [os.path.join(REPO, "tools", f) for f in PORT_ROOT_TOOLS]
     for root, _, files in os.walk(os.path.join(REPO, "minigrid_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -256,6 +262,7 @@ def _imported_packages(path):
 def test_no_port_module_imports_jax_flax_or_the_jax_package():
     paths = _port_sources()
     assert len(paths) >= 20, paths
+    assert all(os.path.isfile(p) for p in paths), [p for p in paths if not os.path.isfile(p)]
     for module in ("envs/dynamicobstacles.py", "envs/memory.py", "envs/unlock.py", "envs/unlockpickup.py",
                    "envs/roomgrid.py", "ops/packed_hooks.py", "envs/lavagap.py", "envs/fourrooms.py",
                    "envs/crossing.py", "envs/lockedroom.py", "envs/playground.py", "parallel/mixed.py",
@@ -265,7 +272,8 @@ def test_no_port_module_imports_jax_flax_or_the_jax_package():
                    "render/__init__.py", "render/draw.py", "render/atlas.py", "render/render.py",
                    "wrappers/__init__.py", "wrappers/wrappers.py", "utils/ascii.py", "utils/checkpoint.py",
                    "compat/__init__.py", "compat/seeding.py", "compat/exact.py", "compat/host_env.py",
-                   "compat/gym_env.py", "compat/host_wrappers.py", "tools/profile.py", "tools/window.py"):
+                   "compat/gym_env.py", "compat/host_wrappers.py", "tools/profile.py", "tools/window.py",
+                   "tools/benchmark.py", "tools/run_tests.py", "tools/manual_control.py"):
         assert os.path.join(REPO, "minigrid_tpu_torch", module) in paths, module
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_packages(p)) & FORBIDDEN) for p in paths
@@ -281,7 +289,8 @@ def test_importing_the_port_loads_no_gymnasium_matplotlib_or_orbax():
     the card's machine lacks unloaded."""
     code = ("import sys, minigrid_tpu_torch, minigrid_tpu_torch.compat.exact, minigrid_tpu_torch.compat.host_env, "
             "minigrid_tpu_torch.render, minigrid_tpu_torch.wrappers, minigrid_tpu_torch.utils.checkpoint, "
-            "minigrid_tpu_torch.tools.profile, minigrid_tpu_torch.tools.window; "
+            "minigrid_tpu_torch.tools.profile, minigrid_tpu_torch.tools.window, minigrid_tpu_torch.tools.benchmark, "
+            "minigrid_tpu_torch.tools.run_tests, minigrid_tpu_torch.tools.manual_control; "
             "loaded = {'gymnasium', 'matplotlib', 'orbax', 'jax'} & set(sys.modules); assert not loaded, loaded")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)
 

@@ -131,6 +131,44 @@ def test_counted_env_matches_jax():
     assert (counts[0].max() > 1) and float(r.min()) < 1.0
 
 
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero_counts", "seeded_counts"])
+def test_counted_env_off_the_grid_matches_jax(seeded):
+    """Hand-made DoorKey-5x5 lanes whose agent stands off the grid: at (5,
+    4) (state index 25 and action index >= 700: both past the table, so no
+    count moves), at (-1, 0) (index -1 wraps to 24), at (-1, -5) (index
+    -26 wraps to -1: past the table) and one in bounds. Three steps of
+    actions that leave the pose where it is, from zero counts (a dropped
+    lane reads an unvisited edge cell and pays `inf`) and from random
+    counts (it pays the edge cell's bonus): counts and rewards equal the
+    JAX package's vmapped `CountedEnv.step`, `inf` included."""
+    env_id = "MiniGrid-DoorKey-5x5-v0"
+    env = make(env_id)
+    states, _ = env.reset_batch(key(7, device=CPU), 4)
+    states = states.replace(agent_pos=torch.tensor([[5, 4], [-1, 0], [-1, -5], [1, 1]], dtype=torch.int32))
+    cs, ca = wrappers.state_bonus(env), wrappers.action_bonus(env)
+    jstep, sizes = _jax_counted_step(env_id)
+    g = np.random.default_rng(5)
+    jcounts = [g.integers(1, 9, size=(4, n)).astype(np.int32) if seeded else np.zeros((4, n), np.int32)
+               for n in sizes]
+    counts = [torch.from_numpy(c.copy()) for c in jcounts]
+    jstate = sc.jax_state(state_to_numpy(states))
+    port_state = {"s": states, "a": states}
+    for t, action in enumerate((0, 6, 1)):
+        a = np.full(4, action, np.int32)
+        (jcs, js, _, jr_s, _, _), (jca, _, _, jr_a, _, _) = jstep(jcounts[0], jcounts[1], jstate, a)
+        jcounts, jstate = [np.asarray(jcs), np.asarray(jca)], js
+        for i, (tag, cenv, jr) in enumerate((("s", cs, jr_s), ("a", ca, jr_a))):
+            counts[i], port_state[tag], _, r, _, _ = cenv.step(counts[i], port_state[tag], torch.from_numpy(a))
+            np.testing.assert_array_equal(counts[i].numpy(), jcounts[i], err_msg=f"{tag} step {t}")
+            np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-6, atol=0, err_msg=f"{tag} step {t}")
+            np.testing.assert_array_equal(np.isinf(r.numpy()), np.isinf(np.asarray(jr)), err_msg=f"{tag} step {t}")
+    assert state_to_numpy(port_state["s"])["agent_pos"].tolist() == [[5, 4], [-1, 0], [-1, -5], [1, 1]]
+    if not seeded:  # lanes 0 and 2 counted nowhere and pay `inf`
+
+        assert [int(c.sum()) for c in counts] == [2 * 3, 2 * 3]
+        assert np.isinf(np.asarray(jr_s)[[0, 2]]).all() and np.isinf(np.asarray(jr_a)[[0, 2]]).all()
+
+
 def test_counted_env_first_visits():
     """The JAX test's contract: the first visit pays 1, the second 1/sqrt(2)."""
     env = make("MiniGrid-Empty-8x8-v0")
